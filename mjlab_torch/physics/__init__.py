@@ -1,0 +1,17 @@
+"""Batched rigid-body physics engine (PyTorch), the counterpart of
+mjlab_tpu.physics. Entry points run on the GPU unless the caller passes
+device='cpu'."""
+
+from mjlab_torch.physics.io import (
+    data_from_numpy,
+    make_batched_data,
+    make_data,
+    model_from_numpy,
+    put_model,
+)
+from mjlab_torch.physics.pipeline import forward, step
+from mjlab_torch.physics.types import Contact, Data, Model, ModelStatic
+
+__all__ = ['Contact', 'Data', 'Model', 'ModelStatic', 'data_from_numpy',
+           'forward', 'make_batched_data', 'make_data', 'model_from_numpy',
+           'put_model', 'step']
