@@ -73,6 +73,22 @@ def chol_solve_flops(n: int) -> int:
   return chol + 2 * n * n
 
 
+def newton_steps(torch, solver, args, iters, polish, ldof, grad_th):
+  """Per env, the Newton iterations that step before the freeze rule
+  (||grad||^2 <= grad_th^2) stops it, counted on the plain solver: the
+  gradient at the end of k plain iterations decides iteration k + 1."""
+  M, a0, cJ, l_sign = args[0], args[1], args[3], args[7]
+  ix = torch.as_tensor(ldof, device=M.device)
+  need = torch.zeros(M.shape[0], dtype=torch.long, device=M.device)
+  for k in range(iters):
+    x, ff, fl, fc = solver.newton_plain(*args, k, polish, ldof, grad_th)
+    jt = (ff + torch.einsum('bcv,bc->bv', cJ, fc)).index_add(1, ix,
+                                                             l_sign * fl)
+    grad = torch.einsum('bij,bj->bi', M, x - a0) - jt
+    need += ((grad * grad).sum(-1) > grad_th * grad_th).long()
+  return need
+
+
 def max_err(a, b) -> float:
   return float((a.double() - b.double()).abs().max())
 
@@ -221,14 +237,25 @@ def main() -> None:
   ncr, nl = efc['c_J'].shape[1], len(ldof)
   bytes2 = 4 * B * (n * n + ncr * n + 3 * ncr + 4 * nl + 6 * n
                     + 2 * n + nl + ncr)
-  # per Newton iteration, as csrc/newton.cu runs it on every env: residuals
-  # and gradient (cJ x, cJ^T f, M x), the lower-triangle Hessian, Cholesky
-  # and solves, the search direction products, and 10 + ls_polish
-  # linesearch sums of ~8 FLOPs per row; all iterations run
-  per_iter = (2 * ncr * n * 3 + 2 * n * n * 2 + n * (n + 1) // 2
-              * (3 * ncr + 1) + chol_solve_flops(n)
-              + 8 * (10 + polish) * (n + nl + ncr))
-  flops2 = B * (iters * per_iter + 2 * (2 * n * n + 2 * ncr * n))
+  # the work these inputs need, per env: its active rows, and the Newton
+  # steps it takes before ||grad||^2 <= grad_th^2 freezes it
+  need = newton_steps(torch, solver, args, iters, polish, ldof, grad_th)
+  nc = efc['c_active'].sum(-1).long()
+  rows_b = nc + efc['l_active'].sum(-1).long() + efc['f_active'].sum(-1).long()
+  print(f'K2 work: Newton steps per env mean {float(need.double().mean()):.3f}'
+        f' max {int(need.max())} of {iters}; active rows per env mean '
+        f'{float(rows_b.double().mean()):.2f} (contact '
+        f'{float(nc.double().mean()):.2f} of {ncr})', flush=True)
+  # per step: residuals and gradient (cJ x, cJ^T f, M x), the lower-triangle
+  # Hessian (D cJ once, then 2 FLOPs per term and row), Cholesky and
+  # solves, the search direction (M dx, cJ dx), and 10 + ls_polish
+  # linesearch sums of ~8 FLOPs per row; plus the two warm-start costs,
+  # the gradient that finds convergence, and the final forces
+  per_step = (6 * nc * n + 4 * n * n + n * (n + 1) * nc + nc * n
+              + chol_solve_flops(n) + 8 * (10 + polish) * rows_b)
+  grad_flops = 2 * n * n + 4 * nc * n
+  flops2 = int((need * per_step + (need < iters) * grad_flops
+                + 2 * (2 * n * n + 2 * nc * n) + 2 * nc * n).sum())
   b2, by2 = bound_ms(bytes2, flops2)
   rows.append(dict(name='newton_solve (K2)', route='cuda',
                    source='mjlab_torch/csrc/newton.cu',

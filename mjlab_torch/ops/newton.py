@@ -6,11 +6,13 @@ physics/solver.py:newton_plain (the counterpart of the JAX `_newton_jax`).
 
 Fit rule (the model-class gate): the kernel keeps one env's M, H, L (n*n
 each), its dense contact Jacobian (ncr*n) and its row vectors in the
-shared memory of one block, so a model runs on the kernel when
-`newton_smem_bytes(n, ncr, nl)` is at most the 227 KB a Hopper block may
-opt into. The Unitree G1 flat scene (n=35, ncr=144, nl=29) needs 42 KB;
-G1 tracking (ncr ~ 2400) needs ~330 KB and takes the plain path, as it
-takes the XLA path under the JAX package's VMEM rule.
+shared memory of one block, so a model runs on the kernel when the
+kernel library's own `newton_smem_bytes(n, ncr, nl)` (csrc/newton.cu, the
+one owner of the layout) is at most the 227 KB a Hopper block may opt
+into. The Unitree G1 flat scene (n=35, ncr=144, nl=29) needs 42 KB; G1
+tracking (ncr ~ 2400) needs ~330 KB and takes the plain path, as it takes
+the XLA path under the JAX package's VMEM rule. The gate is asked only on
+CUDA, where the library is built.
 """
 
 from __future__ import annotations
@@ -23,13 +25,15 @@ from mjlab_torch.ops import _build
 
 NAME = 'newton'
 SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-_RED_FLOATS = 32 * 12
 
 
 def newton_smem_bytes(n: int, ncr: int, nl: int) -> int:
-  """Shared memory of one block (mirrors newton_smem_bytes in the .cu)."""
-  floats = 3 * n * n + ncr * n + 12 * n + 7 * nl + 6 * ncr + _RED_FLOATS
-  return 4 * floats + 4 * n
+  """Shared memory one block of the kernel needs, as the library reports
+  it (builds the library on first use)."""
+  fn = _build.library(NAME).newton_smem_bytes
+  fn.restype = ctypes.c_size_t
+  fn.argtypes = [ctypes.c_int] * 3
+  return int(fn(n, ncr, nl))
 
 
 def fits(n: int, ncr: int, nl: int) -> bool:
@@ -50,7 +54,7 @@ def _ldof_tensor(ldof: tuple, device) -> torch.Tensor:
 
 def newton_solve_cuda(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
                       l_act, f_aref, fD, floss, f_act, *, iterations: int,
-                      ls_polish: int, ldof: tuple, grad_th: float = 0.0):
+                      ls_polish: int, ldof: tuple, grad_th: float):
   """Kernel path, float32 CUDA tensors with a leading env axis B:
   M (B,n,n); a0, ws, f_aref, fD, floss, f_act (B,n); cJ (B,ncr,n);
   c_aref, cD, c_act (B,ncr); l_sign, l_aref, lD, l_act (B,nl). Activity
@@ -61,10 +65,6 @@ def newton_solve_cuda(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
   nl = l_sign.shape[1]
   if len(ldof) != nl:
     raise ValueError(f'ldof has {len(ldof)} entries, expected {nl}')
-  if not fits(n, ncr, nl):
-    raise ValueError(
-        f'newton kernel needs {newton_smem_bytes(n, ncr, nl)} bytes of '
-        f'shared memory, over the {SMEM_LIMIT} a block may use')
   f32 = lambda t: t.to(torch.float32).contiguous() if t.dtype == torch.bool \
       else t.contiguous()
   args = [f32(t) for t in (M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref,
@@ -76,6 +76,10 @@ def newton_solve_cuda(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
             (B, n), (B, n))
   for t, name, shape in zip(args, names, shapes):
     _build.require(t, name, shape)
+  if not fits(n, ncr, nl):
+    raise ValueError(
+        f'newton kernel needs {newton_smem_bytes(n, ncr, nl)} bytes of '
+        f'shared memory, over the {SMEM_LIMIT} a block may use')
   lib = _build.library(NAME)
   fn = lib.newton_launch
   fn.restype = ctypes.c_int

@@ -63,7 +63,7 @@ def _cost_friction(jar, D, floss, active):
 
 def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
                  l_act, f_aref, fD, floss, f_act, iterations: int,
-                 ls_polish: int, ldof, grad_th: float = 0.0):
+                 ls_polish: int, ldof, grad_th: float):
   """Batched structured Newton solve -> (qacc (B,n), f_friction (B,n),
   f_limit (B,nl), f_contact (B,ncr)). Activity masks are bool."""
   ldof = _ix(ldof, M.device)

@@ -15,6 +15,7 @@ import torch
 import mjlab_torch
 import mjlab_torch.physics as tphys
 from mjlab_torch.asset_zoo import g1_flat_arrays
+from mjlab_torch.ops import _build
 from mjlab_torch.ops import newton as tnewton
 from mjlab_torch.ops import pd_solve as tpd
 from mjlab_torch.ops import smooth_kernel as tsk
@@ -87,12 +88,39 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     tnewton.newton_solve_cuda(
         H, z(2, 3), z(2, 3), z(2, 4, 3), z(2, 4), z(2, 4), z(2, 4),
         z(2, 1), z(2, 1), z(2, 1), z(2, 1), z(2, 3), z(2, 3), z(2, 3),
+        z(2, 3), iterations=2, ls_polish=1, ldof=(0,), grad_th=0.0)
+
+
+def test_newton_kernel_needs_grad_th():
+  """The convergence threshold is required: a default would silently turn
+  off the plain solver's freeze rule."""
+  H = torch.eye(3).expand(2, 3, 3).contiguous()
+  z = lambda *s: torch.zeros(s)
+  with pytest.raises(TypeError, match='grad_th'):
+    tnewton.newton_solve_cuda(
+        H, z(2, 3), z(2, 3), z(2, 4, 3), z(2, 4), z(2, 4), z(2, 4),
+        z(2, 1), z(2, 1), z(2, 1), z(2, 1), z(2, 3), z(2, 3), z(2, 3),
         z(2, 3), iterations=2, ls_polish=1, ldof=(0,))
 
 
+def test_cpu_step_never_asks_the_kernel_library(monkeypatch):
+  """On CPU tensors every stage takes its plain version: neither a kernel
+  nor the Newton fit gate (which asks the built library) is reached."""
+  def no_library(name):
+    raise AssertionError(f'kernel library {name!r} asked for on the CPU')
+  monkeypatch.setattr(_build, 'library', no_library)
+  m = tphys.put_model(g1_flat_arrays(), device='cpu')
+  d = tphys.step(m, tphys.make_batched_data(m, 2, device='cpu'))
+  assert bool(torch.isfinite(d.qpos).all())
+
+
+@pytest.mark.cuda
 def test_newton_fit_rule():
   """G1 flat fits one block's shared memory; a self-collision-heavy model
-  (ncr ~ 2400) does not and takes the plain path."""
+  (ncr ~ 2400) does not and takes the plain path. The rule asks the built
+  kernel library for its layout, so it needs the CUDA toolkit and a GPU."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs an NVIDIA GPU and the built kernel library')
   assert tnewton.fits(35, 144, 29)
   assert tnewton.newton_smem_bytes(35, 144, 29) < 48 * 1024
   assert not tnewton.fits(35, 2400, 29)
