@@ -10,11 +10,14 @@ Phases, each of which exits non-zero on failure:
   1. print the card's name and power limit; build the CUDA kernels
      (mjlab_torch/csrc, one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version at the main path's
-     shapes (Unitree G1 flat scene, 4096 envs, float32) and time both;
+     shapes (Unitree G1 flat scene, 4096 envs, float32) and time both; then
+     the edge cases of K1 (n from 1 to 64, ragged batches) and K2 (batches
+     of 1 and 33, envs without contact, the iteration cap);
   3. run the main path: the G1 flat scene at 4096 envs through the public
      entry points (put_model, make_batched_data, step) for 200 substeps,
      with every launch counter reset just before and read just after,
-     then time one substep stage by stage;
+     then time one substep stage by stage, and K2 alone on the settled
+     state the main path reached;
   4. hold a short CUDA rollout against the float64 CPU plain path.
 The line before the last is a JSON object with one row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs one GPU; imports no JAX.
@@ -44,15 +47,22 @@ def check(ok: bool, msg: str) -> None:
     fail(msg)
 
 
-def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-  """Median time of one call, by CUDA events around each call."""
+def time_ms(torch, fn, reps: int, warmup: int = 2, busy=None) -> float:
+  """Median time of one call, by CUDA events around each call on an idle
+  card: the host's path to the launch is part of it. With `busy` (a square
+  CUDA matrix) the events are queued behind a matrix product of a few
+  milliseconds, which keeps the card at work while the host enqueues the
+  call, so what is left is the kernel's own time on the device."""
   for _ in range(warmup):
     fn()
+  sink = None if busy is None else torch.empty_like(busy)
   torch.cuda.synchronize()
   times = []
   for _ in range(reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if busy is not None:
+      torch.mm(busy, busy, out=sink)
     start.record()
     fn()
     end.record()
@@ -89,12 +99,102 @@ def newton_steps(torch, solver, args, iters, polish, ldof, grad_th):
   return need
 
 
+def newton_work(torch, solver, args, iters, polish, ldof, grad_th):
+  """What one K2 call needs for these inputs: (Newton steps per env,
+  active contact rows per env, active rows per env, bytes, FLOPs). Bytes:
+  every input read and every output written once. FLOPs per step:
+  residuals and gradient (cJ x, cJ^T f, M x), the lower-triangle Hessian
+  (D cJ once, then 2 FLOPs per term and row), Cholesky and solves, the
+  search direction (M dx, cJ dx), and 10 + ls_polish linesearch sums of ~8
+  FLOPs per row; plus the two warm-start costs, the gradient that finds
+  convergence, and the final forces. Only active rows and only the steps
+  before the freeze rule count."""
+  B, n = args[1].shape
+  ncr, nl = args[3].shape[1], len(ldof)
+  nbytes = 4 * B * (n * n + ncr * n + 3 * ncr + 4 * nl + 6 * n
+                    + 2 * n + nl + ncr)
+  need = newton_steps(torch, solver, args, iters, polish, ldof, grad_th)
+  nc = args[6].sum(-1).long()
+  rows = nc + args[10].sum(-1).long() + args[14].sum(-1).long()
+  per_step = (6 * nc * n + 4 * n * n + n * (n + 1) * nc + nc * n
+              + chol_solve_flops(n) + 8 * (10 + polish) * rows)
+  grad_flops = 2 * n * n + 4 * nc * n
+  flops = int((need * per_step + (need < iters) * grad_flops
+               + 2 * (2 * n * n + 2 * nc * n) + 2 * nc * n).sum())
+  return need, nc, rows, nbytes, flops
+
+
+def g1_states(torch, phys, mj, m, batch: int, drop: float, gen):
+  """`batch` G1 flat envs near the keyframe (float32, on the model's
+  device): joint noise, a unit root quaternion, random velocities, the
+  root lowered by `drop` metres. `gen` is a CPU torch.Generator."""
+  s, dev = m.stat, m.dof_damping.device
+  key = torch.as_tensor(mj.key_qpos[0], dtype=torch.float32)
+  qpos = key.expand(batch, -1).clone()
+  qpos[:, 7:] += 0.05 * torch.randn(batch, s.nq - 7, generator=gen)
+  qpos[:, 3:7] += 0.02 * torch.randn(batch, 4, generator=gen)
+  qpos[:, 3:7] /= qpos[:, 3:7].norm(dim=-1, keepdim=True)
+  qpos[:, 2] -= drop
+  qvel = 0.5 * torch.randn(batch, s.nv, generator=gen)
+  ctrl = torch.as_tensor(mj.key_ctrl[0], dtype=torch.float32).expand(
+      batch, -1).clone()
+  d = phys.make_batched_data(m, batch)
+  return d.replace(qpos=qpos.to(dev), qvel=qvel.to(dev), ctrl=ctrl.to(dev))
+
+
+def k2_dropped_input(torch, phys, mj, m, batch: int, gen):
+  """K2's tensor arguments for `batch` G1 flat envs dropped 3 cm into the
+  floor, and make_efc's rows. Phase 2c's input is this with the generator
+  seeded 0 and one g1_states batch (phase 2a's) drawn from it before."""
+  from mjlab_torch.physics import constraint, pipeline, smooth, solver
+  d = g1_states(torch, phys, mj, m, batch, 0.03, gen)
+  d = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
+  d = smooth.fwd_smooth(m, smooth.actuation(m, d))
+  efc = constraint.make_efc(m, d)
+  return solver.newton_args(d, efc), efc
+
+
+def random_newton_args(torch, batch: int, n: int, ncr: int, nl: int, gen):
+  """A random structured Newton problem on the card (float32, bool masks):
+  K2's tensor arguments and an ldof of nl distinct dofs. `gen` is a CUDA
+  torch.Generator. M is well conditioned, half of the contact rows are
+  active, and c_D is zero on the inactive ones, as make_efc leaves it."""
+  def rnd(*shape):
+    return torch.randn(*shape, generator=gen, device='cuda')
+
+  def coin(p, *shape):
+    return torch.rand(*shape, generator=gen, device='cuda') < p
+
+  A = 0.1 * rnd(batch, n, n)
+  M = A @ A.transpose(1, 2) + 2.0 * torch.eye(n, device='cuda')
+  a0 = rnd(batch, n)
+  ws = a0 + 0.01 * rnd(batch, n)
+  cJ, c_aref = 0.5 * rnd(batch, ncr, n), rnd(batch, ncr)
+  c_act = coin(0.5, batch, ncr)
+  cD = 20 * rnd(batch, ncr).abs() * c_act
+  l_sign = torch.where(coin(0.5, batch, nl), 1.0, -1.0)
+  l_aref, lD = rnd(batch, nl), 50 * rnd(batch, nl).abs()
+  l_act = coin(0.4, batch, nl)
+  f_aref, fD = 0.1 * rnd(batch, n), 30 * rnd(batch, n).abs()
+  floss, f_act = 2 * rnd(batch, n).abs(), coin(0.5, batch, n)
+  perm = torch.randperm(n, generator=gen, device='cuda')
+  ldof = tuple(int(i) for i in perm[:nl].sort().values)
+  args = (M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD, l_act,
+          f_aref, fD, floss, f_act)
+  return [t.contiguous() for t in args], ldof
+
+
 def max_err(a, b) -> float:
   return float((a.double() - b.double()).abs().max())
 
 
 def scale(a) -> float:
   return 1.0 + float(a.double().abs().max())
+
+
+def rel_err(a, b) -> float:
+  """max |a - b| over (1 + max |b|); 0 for empty tensors."""
+  return max_err(a, b) / scale(b) if b.numel() else 0.0
 
 
 def main() -> None:
@@ -130,24 +230,11 @@ def main() -> None:
   s = m.stat
   dt = m.opt.timestep
   gen = torch.Generator().manual_seed(0)
-
-  def states(drop: float):
-    key = torch.as_tensor(mj.key_qpos[0], dtype=torch.float32)
-    qpos = key.expand(B, -1).clone()
-    qpos[:, 7:] += 0.05 * torch.randn(B, s.nq - 7, generator=gen)
-    qpos[:, 3:7] += 0.02 * torch.randn(B, 4, generator=gen)
-    qpos[:, 3:7] /= qpos[:, 3:7].norm(dim=-1, keepdim=True)
-    qpos[:, 2] -= drop
-    qvel = 0.5 * torch.randn(B, s.nv, generator=gen)
-    ctrl = torch.as_tensor(mj.key_ctrl[0], dtype=torch.float32).expand(
-        B, -1).clone()
-    d = phys.make_batched_data(m, B)
-    return d.replace(qpos=qpos.to(dev), qvel=qvel.to(dev), ctrl=ctrl.to(dev))
-
+  busy = torch.zeros((4096, 4096), device=dev)  # for the device-only times
   rows = []
 
   # ---- phase 2a: K3 fused smooth stage -----------------------------------
-  d = states(0.0)
+  d = g1_states(torch, phys, mj, m, B, 0.0, gen)
   kern = k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
   plain = smooth_fused.plain_all(m, d)
   worst, err3 = 0.0, 0.0
@@ -162,6 +249,9 @@ def main() -> None:
   check(worst <= tol3, 'K3 disagrees with its plain version')
   ms3 = time_ms(torch, lambda: k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel),
                 20)
+  dev_ms3 = time_ms(
+      torch, lambda: k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel), 20,
+      busy=busy)
   plain_ms3 = time_ms(torch, lambda: smooth_fused.plain_all(m, d), 5)
   tree = k_smooth.tree_of(s)
   out_floats = sum(v.numel() for v in kern.values())
@@ -177,6 +267,7 @@ def main() -> None:
                    source='mjlab_torch/csrc/smooth.cu',
                    replaces='mjlab_tpu/ops/smooth_kernel.py:226',
                    kernel='smooth', max_abs_err=err3, ms=ms3,
+                   device_ms=dev_ms3,
                    plain_ms=plain_ms3, bound_ms=b3, bound_by=by3,
                    library_ms=None))
 
@@ -194,6 +285,7 @@ def main() -> None:
         f'{rel1:.3e} (tolerance {tol1:g})', flush=True)
   check(rel1 <= tol1, 'K1 disagrees with its plain version')
   ms1 = time_ms(torch, lambda: k_pd.solve_pd_cuda(H, g), 20)
+  dev_ms1 = time_ms(torch, lambda: k_pd.solve_pd_cuda(H, g), 20, busy=busy)
   plain_ms1 = time_ms(torch, lambda: linalg.solve_pd(H, g), 5)
   lib_ms1 = time_ms(torch, lambda: torch.linalg.solve(H, g[..., None]), 20)
   n = s.nv
@@ -202,23 +294,33 @@ def main() -> None:
                    source='mjlab_torch/csrc/pd_solve.cu',
                    replaces='mjlab_tpu/ops/pd_solve.py:36',
                    kernel='pd_solve', max_abs_err=err1, ms=ms1,
+                   device_ms=dev_ms1,
                    plain_ms=plain_ms1, bound_ms=b1, bound_by=by1,
                    library_ms=lib_ms1))
 
+  # K1's edge cases: any n (one lane owns one row, then two, then more),
+  # a batch of one, a ragged last block
+  egen = torch.Generator(device=dev).manual_seed(2)
+  worst1 = 0.0
+  for en in (1, 3, 18, 35, 64):
+    for eb in (1, 33, B):
+      A = torch.randn(eb, en, en, generator=egen, device=dev)
+      He = A @ A.transpose(1, 2) + 0.5 * torch.eye(en, device=dev)
+      ge = torch.randn(eb, en, generator=egen, device=dev)
+      e = rel_err(k_pd.solve_pd_cuda(He, ge), linalg.solve_pd(He, ge))
+      worst1 = max(worst1, e)
+      check(e <= tol1, f'K1 disagrees with its plain version at n={en}, '
+            f'B={eb}: {e:.3e}')
+  print(f'K1 edge cases: n in (1, 3, 18, 35, 64) x B in (1, 33, {B}), worst '
+        f'err/(1+max|plain|) {worst1:.3e} (tolerance {tol1:g})', flush=True)
+
   # ---- phase 2c: K2 Newton solve on G1 envs dropped onto the floor ---------
-  d = states(0.03)
-  d = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
-  d = smooth.fwd_smooth(m, smooth.actuation(m, d))
-  efc = constraint.make_efc(m, d)
+  args, efc = k2_dropped_input(torch, phys, mj, m, B, gen)
   rows_active = int(efc['c_active'].any(-1).sum())
   print(f'K2 input: {rows_active} of {B} envs have active contact rows, '
         f'{int(efc["c_active"].sum())} active rows in all', flush=True)
   check(rows_active > 0, 'no active contact rows in the K2 input')
   iters, polish, ldof, grad_th = solver.solver_params(s)
-  args = (d.qM, d.qacc_smooth, d.qacc_warmstart, efc['c_J'], efc['c_aref'],
-          efc['c_D'], efc['c_active'], efc['l_sign'], efc['l_aref'],
-          efc['l_D'], efc['l_active'], efc['f_aref'], efc['f_D'],
-          efc['f_floss'], efc['f_active'])
   kargs = dict(iterations=iters, ls_polish=polish, ldof=ldof,
                grad_th=grad_th)
   out_k = k_newton.newton_solve_cuda(*args, **kargs)
@@ -231,38 +333,91 @@ def main() -> None:
   check(rel2 <= tol2, 'K2 disagrees with its plain version')
   ms2 = time_ms(torch, lambda: k_newton.newton_solve_cuda(*args, **kargs),
                 20)
+  dev_ms2 = time_ms(torch, lambda: k_newton.newton_solve_cuda(*args, **kargs),
+                    20, busy=busy)
   plain_ms2 = time_ms(
       torch, lambda: solver.newton_plain(*args, iters, polish, ldof,
                                          grad_th), 5)
-  ncr, nl = efc['c_J'].shape[1], len(ldof)
-  bytes2 = 4 * B * (n * n + ncr * n + 3 * ncr + 4 * nl + 6 * n
-                    + 2 * n + nl + ncr)
   # the work these inputs need, per env: its active rows, and the Newton
   # steps it takes before ||grad||^2 <= grad_th^2 freezes it
-  need = newton_steps(torch, solver, args, iters, polish, ldof, grad_th)
-  nc = efc['c_active'].sum(-1).long()
-  rows_b = nc + efc['l_active'].sum(-1).long() + efc['f_active'].sum(-1).long()
+  ncr = efc['c_J'].shape[1]
+  need, nc, rows_b, bytes2, flops2 = newton_work(torch, solver, args, iters,
+                                                 polish, ldof, grad_th)
   print(f'K2 work: Newton steps per env mean {float(need.double().mean()):.3f}'
         f' max {int(need.max())} of {iters}; active rows per env mean '
         f'{float(rows_b.double().mean()):.2f} (contact '
         f'{float(nc.double().mean()):.2f} of {ncr})', flush=True)
-  # per step: residuals and gradient (cJ x, cJ^T f, M x), the lower-triangle
-  # Hessian (D cJ once, then 2 FLOPs per term and row), Cholesky and
-  # solves, the search direction (M dx, cJ dx), and 10 + ls_polish
-  # linesearch sums of ~8 FLOPs per row; plus the two warm-start costs,
-  # the gradient that finds convergence, and the final forces
-  per_step = (6 * nc * n + 4 * n * n + n * (n + 1) * nc + nc * n
-              + chol_solve_flops(n) + 8 * (10 + polish) * rows_b)
-  grad_flops = 2 * n * n + 4 * nc * n
-  flops2 = int((need * per_step + (need < iters) * grad_flops
-                + 2 * (2 * n * n + 2 * nc * n) + 2 * nc * n).sum())
   b2, by2 = bound_ms(bytes2, flops2)
   rows.append(dict(name='newton_solve (K2)', route='cuda',
                    source='mjlab_torch/csrc/newton.cu',
                    replaces='mjlab_tpu/ops/newton.py:40',
                    kernel='newton', max_abs_err=err2, ms=ms2,
+                   device_ms=dev_ms2,
                    plain_ms=plain_ms2, bound_ms=b2, bound_by=by2,
                    library_ms=None))
+
+  # K2's edge cases, on slices of the same input: a batch of one, a ragged
+  # batch, and envs whose contact rows are all inactive
+  def k2_check(what, a, ldof=ldof):
+    got = k_newton.newton_solve_cuda(*a, **{**kargs, 'ldof': ldof})
+    want = solver.newton_plain(*a, iters, polish, ldof, grad_th)
+    e = max(rel_err(g_, w_) for g_, w_ in zip(got, want))
+    check(all(bool(torch.isfinite(g_).all()) for g_ in got),
+          f'K2 gave non-finite output on {what}')
+    check(e <= tol2, f'K2 disagrees with its plain version on {what}: '
+          f'{e:.3e}')
+    return e
+
+  e_one = k2_check('a batch of 1', [t[:1].contiguous() for t in args])
+  e_rag = k2_check('a batch of 33', [t[5:38].contiguous() for t in args])
+  nocon = [t[:64].clone() for t in args]
+  nocon[6][::3] = False  # c_active
+  nocon[5][::3] = 0.0  # c_D is zero on inactive rows, as make_efc leaves it
+  e_noc = k2_check('a batch with contact-free envs', nocon)
+  n_free = int((~nocon[6].any(-1)).sum())
+  check(n_free > 0, 'no contact-free env in the K2 edge case')
+  print(f'K2 edge cases: B=1 {e_one:.3e}, B=33 {e_rag:.3e}, {n_free} of 64 '
+        f'envs without active contact rows {e_noc:.3e} (worst output '
+        f'err/(1+max|plain|), tolerance {tol2:g})', flush=True)
+
+  # K2 where one lane of the factorization owns more than two rows of the
+  # Hessian (n + 1 > 64; no model of the repo is that wide): random
+  # problems at n = 64 and a ragged n = 70
+  wide = {}
+  for en in (64, 70):
+    wargs, wldof = random_newton_args(torch, 33, en, 48, 20, egen)
+    check(k_newton.fits(en, 48, 20), f'K2 refuses n={en}')
+    wide[en] = k2_check(f'a random problem at n={en}', wargs, wldof)
+  print(f'K2 edge cases, many rows a lane: n=64 {wide[64]:.3e}, n=70 '
+        f'{wide[70]:.3e} (33 random problems each, 48 contact and 20 limit '
+        f'rows; worst output err/(1+max|plain|), tolerance {tol2:g})',
+        flush=True)
+
+  def k2_cap_check(what, a, need):
+    """K2 with a cap of `iters` against a cap of 3 * iters. An env the
+    plain solver finds frozen within the cap can no longer move; both runs
+    stop within grad_th of its minimizer, so they agree to 1e-5 (the
+    kernel's own float32 gradient may cross the threshold one step away
+    from the plain solver's)."""
+    frozen = need < iters
+    nf = int(frozen.sum())
+    if nf == 0:
+      print(f'K2 iteration cap on {what}: no env freezes within {iters} '
+            f'steps', flush=True)
+      return 0
+    short = k_newton.newton_solve_cuda(*a, **kargs)
+    full = k_newton.newton_solve_cuda(*a, **{**kargs, 'iterations': 3 * iters})
+    e = max(rel_err(s_[frozen], f_[frozen]) for s_, f_ in zip(short, full))
+    same = int(torch.stack([(s_[frozen] == f_[frozen]).all(-1)
+                            for s_, f_ in zip(short, full)]).all(0).sum())
+    print(f'K2 iteration cap on {what}: {nf} of {frozen.numel()} envs frozen '
+          f'within {iters} steps; cap {iters} vs {3 * iters} on them: worst '
+          f'err/(1+max) {e:.3e} (tolerance 1e-05), {same} bit-identical',
+          flush=True)
+    check(e <= 1e-5, f'K2 depends on its iteration cap on {what}')
+    return nf
+
+  capped = k2_cap_check('the phase-2c input', args, need)
 
   # ---- phase 3: the main path --------------------------------------------
   gen.manual_seed(1)
@@ -342,6 +497,33 @@ def main() -> None:
           f'between events, {statistics.median(host[name]):.3f} ms host '
           f'issue (median of 10, {B} envs, {card})', flush=True)
 
+  # ---- phase 3c: K2 alone on the state the main path settled into ---------
+  ds = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
+  ds = smooth.fwd_smooth(m, smooth.actuation(m, ds))
+  sargs = solver.newton_args(ds, constraint.make_efc(m, ds))
+  s_need, s_nc, s_rows, s_bytes, s_flops = newton_work(
+      torch, solver, sargs, iters, polish, ldof, grad_th)
+  s_out = k_newton.newton_solve_cuda(*sargs, **kargs)
+  s_ref = solver.newton_plain(*sargs, iters, polish, ldof, grad_th)
+  s_rel = max(rel_err(a, b) for a, b in zip(s_out, s_ref))
+  check(s_rel <= tol2, 'K2 disagrees with its plain version on the settled '
+        f'state: {s_rel:.3e}')
+  s_ms = time_ms(torch, lambda: k_newton.newton_solve_cuda(*sargs, **kargs),
+                 20)
+  s_dev_ms = time_ms(
+      torch, lambda: k_newton.newton_solve_cuda(*sargs, **kargs), 20,
+      busy=busy)
+  s_bound, s_by = bound_ms(s_bytes, s_flops)
+  print(f'K2 on the settled main-path state: Newton steps per env mean '
+        f'{float(s_need.double().mean()):.3f} max {int(s_need.max())} of '
+        f'{iters}; active rows per env mean '
+        f'{float(s_rows.double().mean()):.2f} (contact '
+        f'{float(s_nc.double().mean()):.2f} of {ncr}); {s_ms:.4f} ms ({s_dev_ms:.4f} ms behind a busy card), bound '
+        f'{s_bound:.5f} ms by {s_by}; worst output err/(1+max|plain|) '
+        f'{s_rel:.3e} (tolerance {tol2:g}); card {card}', flush=True)
+  capped += k2_cap_check('the settled main-path state', sargs, s_need)
+  check(capped > 0, 'no frozen env to hold the iteration cap against')
+
   # ---- phase 4: small rollout, CUDA float32 vs the CPU float64 plain path --
   nsmall, steps = 8, 10
   mc = phys.put_model(mj, device='cpu', dtype=torch.float64)
@@ -361,7 +543,8 @@ def main() -> None:
   check(err4 <= tol4, 'CUDA rollout disagrees with the CPU reference')
 
   for r in rows:
-    print(f'{r["name"]}: {r["ms"]:.4f} ms (plain {r["plain_ms"]:.4f} ms, '
+    print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
+          f'busy card (plain {r["plain_ms"]:.4f} ms, '
           f'bound {r["bound_ms"]:.5f} ms by {r["bound_by"]}), '
           f'{r["launches"]} main-path launches; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)

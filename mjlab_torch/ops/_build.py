@@ -3,8 +3,9 @@
 Each source under mjlab_torch/csrc/ is compiled by `nvcc` for Hopper
 (`sm_90a`) into its own shared library with a plain C interface, loaded
 with ctypes. Builds go to build/torch_kernels/ at the repository root
-(listed in .gitignore), named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. All sources are
+(listed in .gitignore), named by a hash of the source, of every header
+under csrc/ (`*.cuh`, found by `-I csrc`) and of the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. All sources are
 compiled by concurrent nvcc processes on first use.
 
 Nothing is built at import time: the CPU tests import every module on a
@@ -32,6 +33,8 @@ SOURCES = ('pd_solve', 'newton', 'smooth')
 NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
 
+SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+
 # Kernel launches by kernel name; each wrapper adds one where it launches.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -56,9 +59,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-  src = (CSRC / f'{name}.cu').read_bytes()
-  digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-  return BUILD_DIR / f'lib{name}_{digest[:16]}.so'
+  """The library of source `name`, named by what the compiler reads: the
+  source, every shared header of csrc/, and the flags."""
+  h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+  for header in sorted(CSRC.glob('*.cuh')):
+    h.update(header.name.encode() + b'\0' + header.read_bytes())
+  h.update(' '.join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f'lib{name}_{h.hexdigest()[:16]}.so'
 
 
 def build_all(verbose: bool = False) -> dict:
@@ -73,7 +80,8 @@ def build_all(verbose: bool = False) -> dict:
     if out.exists():
       continue
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+    cmd = [nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
+           str(CSRC / f'{name}.cu')]
     if verbose:
       cmd.insert(1, '-Xptxas=-v')
     procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -121,13 +129,12 @@ def stream_ptr(t) -> int:
   return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t, name: str, shape: tuple) -> None:
-  """Device, dtype (float32), shape and contiguity checks of a kernel
-  argument."""
+def require(t, name: str, shape: tuple, dtype=torch.float32) -> None:
+  """Device, dtype, shape and contiguity checks of a kernel argument."""
   if t.device.type != 'cuda':
     raise ValueError(f'{name} must be a CUDA tensor, got {t.device}')
-  if t.dtype != torch.float32:
-    raise TypeError(f'{name} must be torch.float32, got {t.dtype}')
+  if t.dtype != dtype:
+    raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
   if tuple(t.shape) != tuple(shape):
     raise ValueError(f'{name} has shape {tuple(t.shape)}, expected {shape}')
   if not t.is_contiguous():

@@ -4,29 +4,33 @@ Hand-written kernel (csrc/newton.cu) in place of the TPU kernel
 mjlab_tpu/ops/newton.py:_make_kernel. Its plain version is
 physics/solver.py:newton_plain (the counterpart of the JAX `_newton_jax`).
 
-Fit rule (the model-class gate): the kernel keeps one env's M, H, L (n*n
-each), its dense contact Jacobian (ncr*n) and its row vectors in the
-shared memory of one block, so a model runs on the kernel when the
-kernel library's own `newton_smem_bytes(n, ncr, nl)` (csrc/newton.cu, the
-one owner of the layout) is at most the 227 KB a Hopper block may opt
-into. The Unitree G1 flat scene (n=35, ncr=144, nl=29) needs 42 KB; G1
-tracking (ncr ~ 2400) needs ~330 KB and takes the plain path, as it takes
-the XLA path under the JAX package's VMEM rule. The gate is asked only on
+Fit rule (the model-class gate): the kernel keeps one env's M and H
+(packed lower triangles), its dense contact Jacobian (ncr rows of n
+rounded up to 4) and its row vectors in the shared memory of one block, so
+a model runs on the kernel when the kernel library's own
+`newton_smem_bytes(n, ncr, nl)` (csrc/newton.cu, the one owner of the
+layout) is at most the 227 KB a Hopper block may opt into. The Unitree G1
+flat scene (n=35, ncr=144, nl=29) needs about 34 KB; G1 tracking
+(ncr ~ 2400) needs about 400 KB and takes the plain path, as it takes the
+XLA path under the JAX package's VMEM rule. The gate is asked only on
 CUDA, where the library is built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from mjlab_torch.ops import _build
 
 NAME = 'newton'
-SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+SMEM_LIMIT = _build.SMEM_LIMIT
+MASKS = ('c_act', 'l_act', 'f_act')  # torch.bool, read as bytes
 
 
+@functools.cache
 def newton_smem_bytes(n: int, ncr: int, nl: int) -> int:
   """Shared memory one block of the kernel needs, as the library reports
   it (builds the library on first use)."""
@@ -57,25 +61,25 @@ def newton_solve_cuda(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
                       ls_polish: int, ldof: tuple, grad_th: float):
   """Kernel path, float32 CUDA tensors with a leading env axis B:
   M (B,n,n); a0, ws, f_aref, fD, floss, f_act (B,n); cJ (B,ncr,n);
-  c_aref, cD, c_act (B,ncr); l_sign, l_aref, lD, l_act (B,nl). Activity
-  masks may be bool. Returns (qacc (B,n), ff (B,n), fl (B,nl),
-  fc (B,ncr))."""
+  c_aref, cD, c_act (B,ncr); l_sign, l_aref, lD, l_act (B,nl). The
+  activity masks c_act, l_act, f_act are torch.bool and the kernel reads
+  their bytes. Returns (qacc (B,n), ff (B,n), fl (B,nl), fc (B,ncr))."""
   B, n, _ = M.shape
   ncr = cJ.shape[1]
   nl = l_sign.shape[1]
   if len(ldof) != nl:
     raise ValueError(f'ldof has {len(ldof)} entries, expected {nl}')
-  f32 = lambda t: t.to(torch.float32).contiguous() if t.dtype == torch.bool \
-      else t.contiguous()
-  args = [f32(t) for t in (M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref,
-                           lD, l_act, f_aref, fD, floss, f_act)]
+  args = [t.contiguous() for t in (M, a0, ws, cJ, c_aref, cD, c_act, l_sign,
+                                   l_aref, lD, l_act, f_aref, fD, floss,
+                                   f_act)]
   names = ('M', 'a0', 'ws', 'cJ', 'c_aref', 'cD', 'c_act', 'l_sign',
            'l_aref', 'lD', 'l_act', 'f_aref', 'fD', 'floss', 'f_act')
   shapes = ((B, n, n), (B, n), (B, n), (B, ncr, n), (B, ncr), (B, ncr),
             (B, ncr), (B, nl), (B, nl), (B, nl), (B, nl), (B, n), (B, n),
             (B, n), (B, n))
   for t, name, shape in zip(args, names, shapes):
-    _build.require(t, name, shape)
+    _build.require(t, name, shape,
+                   torch.bool if name in MASKS else torch.float32)
   if not fits(n, ncr, nl):
     raise ValueError(
         f'newton kernel needs {newton_smem_bytes(n, ncr, nl)} bytes of '

@@ -203,16 +203,22 @@ def solver_params(stat):
   return int(stat.iterations), ls_polish, ldof, grad_th
 
 
+def newton_args(d: Data, efc: dict) -> tuple:
+  """The tensor arguments of `newton_plain` (M through f_act), which are
+  also those of the kernel wrapper, from a Data and `make_efc`'s rows."""
+  return (d.qM, d.qacc_smooth, d.qacc_warmstart, efc['c_J'], efc['c_aref'],
+          efc['c_D'], efc['c_active'], efc['l_sign'], efc['l_aref'],
+          efc['l_D'], efc['l_active'], efc['f_aref'], efc['f_D'],
+          efc['f_floss'], efc['f_active'])
+
+
 def solve(m: Model, d: Data, efc: dict) -> Data:
   """Run the Newton solver; returns Data with qacc, qfrc_constraint and
   efc_force."""
   s = m.stat
   lay = _constraint.efc_layout(s)
   iterations, ls_polish, ldof, grad_th = solver_params(s)
-  args = (d.qM, d.qacc_smooth, d.qacc_warmstart, efc['c_J'], efc['c_aref'],
-          efc['c_D'], efc['c_active'], efc['l_sign'], efc['l_aref'],
-          efc['l_D'], efc['l_active'], efc['f_aref'], efc['f_D'],
-          efc['f_floss'], efc['f_active'])
+  args = newton_args(d, efc)
   ncr = efc['c_J'].shape[1]
   if d.qpos.device.type != 'cpu' and _newton.fits(s.nv, ncr, len(ldof)):
     x, ff, fl, fc = _newton.newton_solve_cuda(

@@ -114,6 +114,37 @@ def test_cpu_step_never_asks_the_kernel_library(monkeypatch):
   assert bool(torch.isfinite(d.qpos).all())
 
 
+@pytest.mark.parametrize('edit,rebuilds', [
+    ('header', True), ('source', True), ('other_source', False),
+    ('nothing', False)])
+def test_build_target_follows_what_the_compiler_reads(tmp_path, monkeypatch,
+                                                      edit, rebuilds):
+  """A kernel library is named by its source, every shared header of csrc/
+  and the flags: editing the header or the source renames it (so it is
+  rebuilt), editing another source or nothing does not. No nvcc needed."""
+  files = {'header': 'chol_warp.cuh', 'source': 'newton.cu',
+           'other_source': 'smooth.cu'}
+  (tmp_path / 'chol_warp.cuh').write_text('// header\n')
+  (tmp_path / 'newton.cu').write_text('#include "chol_warp.cuh"\n')
+  (tmp_path / 'smooth.cu').write_text('// other\n')
+  monkeypatch.setattr(_build, 'CSRC', tmp_path)
+  before = _build._target('newton')
+  if edit != 'nothing':
+    with open(tmp_path / files[edit], 'a') as f:
+      f.write('// edited\n')
+  assert (_build._target('newton') != before) == rebuilds
+
+
+def test_shared_header_is_included_by_both_solvers():
+  """K1 and K2 share one factor-and-solve routine, each with its own pivot
+  rule."""
+  for name, pivot in (('pd_solve.cu', 'PivotClamp'),
+                      ('newton.cu', 'PivotRidge')):
+    src = (_build.CSRC / name).read_text()
+    assert '#include "chol_warp.cuh"' in src, name
+    assert pivot in src, name
+
+
 @pytest.mark.cuda
 def test_newton_fit_rule():
   """G1 flat fits one block's shared memory; a self-collision-heavy model

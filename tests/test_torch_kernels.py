@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import mjlab_torch.physics as tphys
+from chip_smoke import random_newton_args
 from mjlab_torch.asset_zoo import g1_flat_arrays
 from mjlab_torch.ops import newton as tnewton
 from mjlab_torch.ops import pd_solve as tpd
@@ -53,19 +54,117 @@ def test_pd_solve_kernel_matches_plain(g1):
   assert _rel(tpd.solve_pd_cuda(d.qM, g), linalg.solve_pd(d.qM, g)) < TOL
 
 
-def test_newton_kernel_matches_plain(g1):
+@pytest.mark.parametrize('batch', [1, 33, 4096])
+@pytest.mark.parametrize('n', [1, 3, 18, 35, 64])
+def test_pd_solve_kernel_any_n_and_ragged_batch(g1, n, batch):
+  """One lane owns one row of the factor, then two (n >= 32), then more
+  (n = 64 with its right-hand side row); a batch need not fill a block."""
+  gen = torch.Generator(device='cuda').manual_seed(n * 10000 + batch)
+  A = torch.randn(batch, n, n, generator=gen, device='cuda')
+  H = A @ A.transpose(1, 2) + 0.5 * torch.eye(n, device='cuda')
+  g = torch.randn(batch, n, generator=gen, device='cuda')
+  assert _rel(tpd.solve_pd_cuda(H, g), linalg.solve_pd(H, g)) < TOL
+
+
+def test_pd_solve_kernel_raises_above_its_limit(g1):
+  n = tpd.max_n() + 1
+  assert n == 336  # the factor of 335 fills one block's shared memory
+  H = torch.eye(n, device='cuda').expand(2, n, n).contiguous()
+  with pytest.raises(ValueError, match=f'n <= {n - 1}'):
+    tpd.solve_pd_cuda(H, torch.ones(2, n, device='cuda'))
+  x = tpd.solve_pd_cuda(H[:, :n - 1, :n - 1].contiguous(),
+                        torch.ones(2, n - 1, device='cuda'))
+  assert _rel(x, torch.ones_like(x)) < TOL
+
+
+@pytest.fixture(scope='module')
+def newton_inputs(g1):
   m, d = g1
   d = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
   d = smooth.fwd_smooth(m, smooth.actuation(m, d))
   efc = constraint.make_efc(m, d)
   assert efc['c_active'].any()
-  iters, polish, ldof, th = solver.solver_params(m.stat)
-  args = (d.qM, d.qacc_smooth, d.qacc_warmstart, efc['c_J'], efc['c_aref'],
-          efc['c_D'], efc['c_active'], efc['l_sign'], efc['l_aref'],
-          efc['l_D'], efc['l_active'], efc['f_aref'], efc['f_D'],
-          efc['f_floss'], efc['f_active'])
+  args = [t.contiguous() for t in solver.newton_args(d, efc)]
+  return args, solver.solver_params(m.stat)
+
+
+def _newton_both(args, params, iterations=None):
+  iters, polish, ldof, th = params
+  iters = iters if iterations is None else iterations
   got = tnewton.newton_solve_cuda(*args, iterations=iters, ls_polish=polish,
                                   ldof=ldof, grad_th=th)
-  want = solver.newton_plain(*args, iters, polish, ldof, th)
+  return got, solver.newton_plain(*args, iters, polish, ldof, th)
+
+
+def _rel_all(got, want):
+  return max(_rel(g, w) for g, w in zip(got, want) if w.numel())
+
+
+def test_newton_kernel_matches_plain(newton_inputs):
+  got, want = _newton_both(*newton_inputs)
   for g, w in zip(got, want):
     assert _rel(g, w) < 1e-3
+
+
+@pytest.mark.parametrize('rows', [slice(0, 1), slice(5, 38)])
+def test_newton_kernel_small_and_ragged_batches(newton_inputs, rows):
+  args, params = newton_inputs
+  got, want = _newton_both([t[rows].contiguous() for t in args], params)
+  assert _rel_all(got, want) < 1e-3
+
+
+def test_newton_kernel_contact_free_envs(newton_inputs):
+  args, params = newton_inputs
+  args = [t.clone() for t in args]
+  args[6][::3] = False  # c_active
+  args[5][::3] = 0.0  # c_D is zero on inactive rows, as make_efc leaves it
+  got, want = _newton_both(args, params)
+  assert all(bool(torch.isfinite(g).all()) for g in got)
+  assert not bool(got[3][::3].any())  # no force on inactive rows
+  assert _rel_all(got, want) < 1e-3
+
+
+@pytest.mark.parametrize('n', [64, 70])
+def test_newton_kernel_many_rows_a_lane(g1, n):
+  """n + 1 > 64: a lane of the factorization owns more than two rows of the
+  Hessian, and cJ's row stride passes 36 floats. No model of the repo is
+  that wide, so random problems (chip_smoke.py's generator) hold that
+  variant of the kernel against the plain solver."""
+  m, _ = g1
+  iters, polish, _, th = solver.solver_params(m.stat)
+  gen = torch.Generator(device='cuda').manual_seed(n)
+  args, ldof = random_newton_args(torch, 33, n, 48, 20, gen)
+  assert tnewton.fits(n, 48, 20)
+  got, want = _newton_both(args, (iters, polish, ldof, th))
+  assert all(bool(torch.isfinite(g).all()) for g in got)
+  assert _rel_all(got, want) < 1e-3
+
+
+def test_newton_kernel_masks_must_be_bool(newton_inputs):
+  args, params = newton_inputs
+  bad = list(args)
+  bad[6] = bad[6].float()
+  with pytest.raises(TypeError, match='c_act must be torch.bool'):
+    _newton_both(bad, params)
+
+
+def test_newton_kernel_ignores_the_cap_once_frozen(newton_inputs):
+  """With a threshold float32 can reach, envs freeze within the cap; the
+  kernel then leaves its loop, so caps of 10 and 30 agree on every env the
+  plain solver finds frozen one step before the cap (to 1e-5: the kernel's
+  own gradient may cross the threshold a step away from the plain one's),
+  and most of them bit for bit."""
+  args, (iters, polish, ldof, _) = newton_inputs
+  params = (iters, polish, ldof, 1e-2)
+  x, ff, fl, fc = solver.newton_plain(*args, iters - 1, polish, ldof, 1e-2)
+  jt = (ff + torch.einsum('bcv,bc->bv', args[3], fc)).index_add(
+      1, torch.as_tensor(ldof, device='cuda'), args[7] * fl)
+  grad = torch.einsum('bij,bj->bi', args[0], x - args[1]) - jt
+  frozen = (grad * grad).sum(-1) <= 1e-4
+  assert int(frozen.sum()) >= B // 2
+  short, want = _newton_both(args, params)
+  full, _ = _newton_both(args, params, iterations=3 * iters)
+  assert _rel_all([t[frozen] for t in short], [t[frozen] for t in full]) < 1e-5
+  same = torch.stack([(a == b).all(-1) for a, b in zip(short, full)]).all(0)
+  assert int(same[frozen].sum()) >= int(frozen.sum()) // 2
+  assert _rel_all(short, want) < 1e-3

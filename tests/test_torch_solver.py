@@ -3,7 +3,10 @@ version of kernel K1 (physics/linalg.py:solve_pd) against the JAX
 linalg.solve_pd, the plain version of kernel K2 (physics/solver.py:
 newton_plain) against the JAX _newton_jax and the Pallas whole-solver kernel
 in interpret mode (including its early exit), and the captured
-linesearch-blowup state of tests/data/blowup_ls_fixture.npz."""
+linesearch-blowup state of tests/data/blowup_ls_fixture.npz. Then what
+the K2 kernel's design relies on, shown on the plain solver with G1 flat
+inputs: inactive contact rows can be dropped and rows reordered, and a
+frozen env's result does not depend on the iteration cap."""
 
 import functools
 import os
@@ -20,7 +23,7 @@ from mjlab_tpu.physics import solver as jsolver
 from mjlab_torch.ops import pd_solve as tpd
 from mjlab_torch.physics import linalg as tlinalg
 from mjlab_torch.physics import solver as tsolver
-from torch_parity import random_newton_problem
+from torch_parity import g1_newton_problem, random_newton_problem
 
 FIXTURE = os.path.join(os.path.dirname(__file__), 'data',
                        'blowup_ls_fixture.npz')
@@ -145,3 +148,74 @@ def test_unguarded_polish_still_bites(fx):
   peaks = _post_substep_qvel(fx, unsafe=True)
   assert peaks[0] > limit, peaks
   assert peaks[1] < 0.2 * limit, peaks
+
+
+# ---- what the K2 kernel relies on (csrc/newton.cu) -------------------------
+
+CONTACT = (3, 4, 5, 6)  # cJ, c_aref, cD, c_act in the argument list
+
+
+@pytest.fixture(scope='module')
+def g1_newton():
+  return g1_newton_problem(4, seed=0)
+
+
+def _contact_rows(args, rows):
+  out = list(args)
+  for i in CONTACT:
+    out[i] = args[i][:, rows].contiguous()
+  return out
+
+
+@pytest.mark.parametrize('case', ['delete_inactive', 'permute'])
+def test_newton_plain_ignores_inactive_rows_and_row_order(g1_newton, case):
+  """The kernel loads only the active contact rows, packed: deleting the
+  rows with c_act == False, or reordering the rows, changes no output
+  (float64; the sums only lose exact zeros or change order)."""
+  args, iters, polish, ldof, th = g1_newton
+  want = tsolver.newton_plain(*args, iters, polish, ldof, th)
+  ncr = args[3].shape[1]
+  if case == 'permute':
+    rows = torch.as_tensor(np.random.default_rng(0).permutation(ncr))
+    got = tsolver.newton_plain(*_contact_rows(args, rows), iters, polish,
+                               ldof, th)
+    _assert_scaled([t.numpy() for t in got[:3]] + [got[3].numpy()],
+                   [t.numpy() for t in want[:3]] + [want[3][:, rows].numpy()],
+                   1e-12)
+    return
+  assert not bool(args[6].all()), 'the input has no inactive contact row'
+  for b in range(args[0].shape[0]):  # each env drops its own rows
+    one = [t[b:b + 1] for t in args]
+    rows = torch.nonzero(one[6][0])[:, 0]
+    got = tsolver.newton_plain(*_contact_rows(one, rows), iters, polish,
+                               ldof, th)
+    assert not bool(want[3][b][~one[6][0]].any())  # inactive rows: no force
+    _assert_scaled([t.numpy() for t in got[:3]] + [got[3].numpy()],
+                   [t[b:b + 1].numpy() for t in want[:3]]
+                   + [want[3][b:b + 1, rows].numpy()], 1e-12)
+
+
+@pytest.mark.parametrize('k', [0, 1, 3, 6])
+def test_newton_plain_frozen_envs_ignore_the_iteration_cap(g1_newton, k):
+  """The kernel leaves its loop once ||grad||^2 <= grad_th^2: on every env
+  whose gradient is under the threshold after k iterations, k and k + 20
+  iterations give the same result. Env 0 has no active contact row, env 1
+  is warm-started at its solution, envs 2 and 3 are as they come."""
+  args, iters, polish, ldof, th = g1_newton
+  args = [t.clone() for t in args]
+  args[6][0] = False
+  args[5][0] = 0.0
+  solved = tsolver.newton_plain(*args, 40, polish, ldof, th)[0]
+  args[2][1] = solved[1]
+  x, ff, fl, fc = short = tsolver.newton_plain(*args, k, polish, ldof, th)
+  jt = (ff + torch.einsum('bcv,bc->bv', args[3], fc)).index_add(
+      1, torch.as_tensor(ldof), args[7] * fl)
+  grad = torch.einsum('bij,bj->bi', args[0], x - args[1]) - jt
+  frozen = (grad * grad).sum(-1) <= th * th
+  assert bool(frozen[1]), 'the env warm-started at its solution moves'
+  assert k < 6 or bool(frozen[0]), 'the contact-free env has not converged'
+  assert not bool(frozen.all()) or k >= 6
+  full = tsolver.newton_plain(*args, k + 20, polish, ldof, th)
+  for name, a, b in zip(('qacc', 'ff', 'fl', 'fc'), short, full):
+    np.testing.assert_allclose(a[frozen].numpy(), b[frozen].numpy(), rtol=0,
+                               atol=1e-12, err_msg=name)

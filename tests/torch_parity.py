@@ -103,6 +103,25 @@ def random_newton_problem(B, n, ncr, nl, seed=0, dtype=np.float64):
           f_aref, fD, floss, f_act)
 
 
+def g1_newton_problem(n, seed=0, drop=0.03):
+  """The port's own Newton inputs (float64, CPU) for `n` G1 flat envs
+  dropped onto the floor: (args of newton_plain up to f_act, iterations,
+  ls_polish, ldof, grad_th)."""
+  from mjlab_torch.asset_zoo import g1_flat_arrays
+  from mjlab_torch.physics import constraint, pipeline, smooth, solver
+  mj = g1_flat_arrays()
+  m = tphys.put_model(mj, device='cpu', dtype=torch.float64)
+  qpos, qvel, ctrl = g1_states(mj, n, seed, drop=drop)
+  d = tphys.make_batched_data(m, n, device='cpu').replace(
+      qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+      ctrl=torch.as_tensor(ctrl))
+  d = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
+  d = smooth.fwd_smooth(m, smooth.actuation(m, d))
+  efc = constraint.make_efc(m, d)
+  args = [t.contiguous() for t in solver.newton_args(d, efc)]
+  return (args,) + solver.solver_params(m.stat)
+
+
 @functools.lru_cache(maxsize=1)
 def tiny_bot_mjmodel():
   """The JAX package's TinyBot on a plane (small pair table: the contact
