@@ -11,8 +11,10 @@ Phases, each of which exits non-zero on failure:
      (mjlab_torch/csrc, one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (Unitree G1 flat scene, 4096 envs, float32) and time both; then
-     the edge cases of K1 (n from 1 to 64, ragged batches) and K2 (batches
-     of 1 and 33, envs without contact, the iteration cap);
+     the edge cases of K3 (ragged batches, slide joints, gravity off, a
+     spinning root, a model without sites, other block sizes), K1 (n from
+     1 to 64, ragged batches) and K2 (batches of 1 and 33, envs without
+     contact, the iteration cap);
   3. run the main path: the G1 flat scene at 4096 envs through the public
      entry points (put_model, make_batched_data, step) for 200 substeps,
      with every launch counter reset just before and read just after,
@@ -142,6 +144,53 @@ def g1_states(torch, phys, mj, m, batch: int, drop: float, gen):
   return d.replace(qpos=qpos.to(dev), qvel=qvel.to(dev), ctrl=ctrl.to(dev))
 
 
+def g1_variant(base, slide=(), gravity_off=False, drop_sites=False):
+  """A variant of the compiled-model snapshot `base` (a ModelArrays) that
+  reaches branches of the smooth stage the G1 itself does not: the joints
+  `slide` turned from hinge into slide joints, the gravity disable bit
+  set, the sites cut away."""
+  import numpy as np
+  from mjlab_torch.physics.io import ModelArrays
+  a = base.arrays()
+  if slide:
+    a['jnt_type'] = a['jnt_type'].copy()
+    a['jnt_type'][list(slide)] = 2  # mjJNT_SLIDE
+  if gravity_off:
+    a['opt.disableflags'] = np.asarray(
+        int(a['opt.disableflags']) | (1 << 6))  # mjDSBL_GRAVITY
+  if drop_sites:
+    a['nsite'] = np.asarray(0)
+    for k in ('site_bodyid', 'site_pos', 'site_quat', 'name_siteadr'):
+      a[k] = a[k][:0]
+  return ModelArrays(a)
+
+
+K3_SLIDE_JOINTS = (4, 11, 17, 29)  # both legs, the waist, a wrist
+
+
+def k3_variants(base) -> dict:
+  """The model variants of K3's edge-case gates, by name."""
+  return {
+      'slide': g1_variant(base, slide=K3_SLIDE_JOINTS),
+      'slide, gravity off': g1_variant(base, slide=K3_SLIDE_JOINTS,
+                                       gravity_off=True),
+      'no sites': g1_variant(base, drop_sites=True),
+  }
+
+
+def k3_rel_err(torch, kern: dict, plain, nsite: int) -> float:
+  """Worst max |kernel - plain| / (1 + max |plain|) over K3's outputs; a
+  model without sites has no site frames to compare."""
+  worst = 0.0
+  for key, got in kern.items():
+    if key.startswith('site_') and not nsite:
+      continue
+    if not bool(torch.isfinite(got).all()):
+      return float('inf')
+    worst = max(worst, rel_err(got, getattr(plain, key)))
+  return worst
+
+
 def k2_dropped_input(torch, phys, mj, m, batch: int, gen):
   """K2's tensor arguments for `batch` G1 flat envs dropped 3 cm into the
   floor, and make_efc's rows. Phase 2c's input is this with the generator
@@ -237,12 +286,9 @@ def main() -> None:
   d = g1_states(torch, phys, mj, m, B, 0.0, gen)
   kern = k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
   plain = smooth_fused.plain_all(m, d)
-  worst, err3 = 0.0, 0.0
-  for key in k_smooth.OUT_KEYS:
-    ref = getattr(plain, key)
-    e = max_err(kern[key], ref)
-    err3 = max(err3, e)
-    worst = max(worst, e / scale(ref))
+  err3 = max(max_err(kern[key], getattr(plain, key))
+             for key in k_smooth.OUT_KEYS)
+  worst = k3_rel_err(torch, kern, plain, s.nsite)
   tol3 = 1e-4
   print(f'K3 smooth: max abs err {err3:.3e}, max err/(1+max|plain|) '
         f'{worst:.3e} (tolerance {tol3:g})', flush=True)
@@ -270,6 +316,38 @@ def main() -> None:
                    device_ms=dev_ms3,
                    plain_ms=plain_ms3, bound_ms=b3, bound_by=by3,
                    library_ms=None))
+
+  # K3's edge cases, each against plain_all: a batch of one, ragged batches
+  # (33, and one that is no multiple of the envs a block), slide joints,
+  # gravity off, a spinning root (the free joint's segment rule), a model
+  # without sites, and other numbers of envs a block
+  ggen = torch.Generator().manual_seed(3)
+  edge3 = {}
+
+  def k3_check(what, mv, dv, **shape):
+    kern = k_smooth.smooth_fused_cuda(mv, dv.qpos, dv.qvel, **shape)
+    e = k3_rel_err(torch, kern, smooth_fused.plain_all(mv, dv),
+                   mv.stat.nsite)
+    check(e <= tol3, f'K3 disagrees with its plain version on {what}: '
+          f'{e:.3e}')
+    edge3[what] = e
+
+  for eb in (1, 33, B + 3):  # B + 3 leaves its last block of 16 short
+    k3_check(f'B={eb}', m, g1_states(torch, phys, mj, m, eb, 0.0, ggen))
+  spin = g1_states(torch, phys, mj, m, 33, 0.0, ggen)
+  spin.qvel[:, 3:6] = torch.tensor([7.0, -4.0, 9.0], device=dev)
+  k3_check('a spinning root', m, spin)
+  for name, arrays in k3_variants(mj).items():
+    mv = phys.put_model(arrays)
+    check(smooth_fused.enabled(mv.stat), f'K3 refuses the variant {name}')
+    dv = g1_states(torch, phys, arrays, mv, 33, 0.0, ggen)
+    k3_check(name, mv, dv)
+  shaped = g1_states(torch, phys, mj, m, 133, 0.0, ggen)
+  for epb in (1, 3, 16):
+    k3_check(f'{epb} envs a block', m, shaped, envs_per_block=epb)
+  print('K3 edge cases (worst output err/(1+max|plain|), tolerance '
+        f'{tol3:g}): ' + ', '.join(f'{k} {v:.3e}' for k, v in edge3.items()),
+        flush=True)
 
   # ---- phase 2b: K1 SPD solve on the implicitfast system -------------------
   df = pipeline.forward(m, d)

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 import mjlab_torch.physics as tphys
-from chip_smoke import random_newton_args
+from chip_smoke import g1_states, k3_rel_err, k3_variants, random_newton_args
 from mjlab_torch.asset_zoo import g1_flat_arrays
 from mjlab_torch.ops import newton as tnewton
 from mjlab_torch.ops import pd_solve as tpd
@@ -45,6 +45,75 @@ def test_smooth_kernel_matches_plain(g1):
   want = smooth_fused.plain_all(m, d)
   for k in tsk.OUT_KEYS:
     assert _rel(got[k], getattr(want, k)) < TOL, k
+
+
+def _smooth_both(m, d, **shape):
+  got = tsk.smooth_fused_cuda(m, d.qpos, d.qvel, **shape)
+  return k3_rel_err(torch, got, smooth_fused.plain_all(m, d), m.stat.nsite)
+
+
+@pytest.mark.parametrize('batch', [1, 33, 132 * 3 + 1, 4099])
+def test_smooth_kernel_small_and_ragged_batches(g1, batch):
+  """A batch need not fill its last block (the wrapper takes 1, 1, 4 and 16
+  envs a block here on 132 SMs): the warps past its end stay alive and
+  store nothing."""
+  m, d = g1
+  gen = torch.Generator().manual_seed(batch)
+  d = g1_states(torch, tphys, g1_flat_arrays(), m, batch, 0.0, gen)
+  assert _smooth_both(m, d) < TOL
+
+
+def test_smooth_kernel_spinning_root(g1):
+  """A free joint's rotational dofs see the parent and the translational
+  velocity, not each other (the segment rule of cdof_dot)."""
+  m, d = g1
+  qvel = d.qvel.clone()
+  qvel[:, 3:6] = torch.tensor([7.0, -4.0, 9.0], device='cuda')
+  assert _smooth_both(m, d.replace(qvel=qvel)) < TOL
+
+
+@pytest.mark.parametrize('variant', ['slide', 'slide, gravity off',
+                                     'no sites'])
+def test_smooth_kernel_model_variants(g1, variant):
+  """Branches the G1 itself never takes: slide joints, the gravity disable
+  bit, a model without sites."""
+  arrays = k3_variants(g1_flat_arrays())[variant]
+  m = tphys.put_model(arrays)
+  assert smooth_fused.enabled(m.stat)
+  gen = torch.Generator().manual_seed(7)
+  d = g1_states(torch, tphys, arrays, m, 33, 0.0, gen)
+  assert _smooth_both(m, d) < TOL
+  # through the dispatch a site-less model keeps Data's placeholder row
+  out = smooth_fused.smooth_all(m, d)
+  assert out.site_xpos.shape[1] == max(m.stat.nsite, 1)
+  assert out.geom_xpos.shape[1] == m.stat.ngeom
+
+
+@pytest.mark.parametrize('envs_per_block', [1, 3, 16, 32])
+def test_smooth_kernel_envs_a_block(g1, envs_per_block):
+  """A warp works on an env whatever the number of warps a block; B = 64
+  is no multiple of 3."""
+  m, d = g1
+  assert _smooth_both(m, d, envs_per_block=envs_per_block) < TOL
+
+
+def test_smooth_kernel_fit_rule(g1, monkeypatch):
+  """The library owns the layout: fewer envs go into a block when the
+  number asked for does not fit, and a model of which one env does not fit
+  raises (no way from a CUDA tensor to the plain version)."""
+  _, d = g1
+  one = tsk.smooth_smem_bytes(g1[0], 1)
+  env = tsk.smooth_smem_bytes(g1[0], 2) - one  # an env's slice
+  assert 8 * 1024 < env < 20 * 1024 and one - env < 12 * 1024
+  assert tsk.smooth_smem_bytes(g1[0], 8) == one + 7 * env
+  m = tphys.put_model(g1_flat_arrays())  # a plan of its own
+  monkeypatch.setattr(tsk, 'SMEM_LIMIT', one + env + env // 2)
+  assert _smooth_both(m, d, envs_per_block=8) < TOL
+  assert tsk.plan_of(m).fits[8] == 2
+  m = tphys.put_model(g1_flat_arrays())
+  monkeypatch.setattr(tsk, 'SMEM_LIMIT', one - 4)
+  with pytest.raises(ValueError, match='shared memory'):
+    tsk.smooth_fused_cuda(m, d.qpos, d.qvel)
 
 
 def test_pd_solve_kernel_matches_plain(g1):

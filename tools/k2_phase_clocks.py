@@ -17,12 +17,13 @@ Run from the repository root:
 
 from __future__ import annotations
 
-import ctypes
 import os
-import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.dirname(_HERE), _HERE]
+
+import phase_clocks  # noqa: E402  (tools/phase_clocks.py)
 
 PHASES = ('load and warm start', 'residuals and forces',
           'gradient shares, weighted-row list', 'gradient and its norm',
@@ -31,14 +32,7 @@ PHASES = ('load and warm start', 'residuals and forces',
 
 
 def main() -> None:
-  import torch
-  if not torch.cuda.is_available():
-    sys.exit('k2_phase_clocks: needs a GPU')
-  from mjlab_torch.ops import _build
-  _build.NVCC_FLAGS = _build.NVCC_FLAGS + ('-DK2_PHASE_CLOCKS',)
-  print(subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+  phase_clocks.start('k2_phase_clocks', '-DK2_PHASE_CLOCKS')
   for envs in [int(a) for a in sys.argv[1:]] or [4096]:
     profile(envs)
 
@@ -61,33 +55,20 @@ def g1_dropped_inputs(B: int):
 
 
 def profile(B: int) -> None:
-  import torch
-  from mjlab_torch.ops import _build
   from mjlab_torch.ops import newton as k_newton
   args, (iters, polish, ldof, grad_th) = g1_dropped_inputs(B)
-
-  fn = _build.library(k_newton.NAME).newton_phase_cycles
-  fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p]
-  table = (ctypes.c_ulonglong * len(PHASES))()
+  read = phase_clocks.reader('k2_phase_clocks', k_newton.NAME,
+                             'newton_phase_cycles', len(PHASES))
 
   def run():
     k_newton.newton_solve_cuda(*args, iterations=iters, ls_polish=polish,
                                ldof=ldof, grad_th=grad_th)
-    torch.cuda.synchronize()
-    err = fn(ctypes.addressof(table))
-    if err:
-      sys.exit(f'k2_phase_clocks: reading the table failed ({err})')
-    return list(table)
+    return read()
 
   run()  # warm-up, table cleared
-  cycles = run()
-  total = sum(cycles)
-  print(f'K2 phases, {B} G1 envs, {iters} iterations cap: cycles of thread '
-        f'0 summed over blocks; {total / B:.0f} cycles per env', flush=True)
-  for name, c in zip(PHASES, cycles):
-    print(f'  {name:36s} {c / B:10.0f} cycles/env  {100 * c / total:5.1f} %',
-          flush=True)
+  phase_clocks.report(
+      f'K2 phases, {B} G1 envs, {iters} iterations cap: cycles of thread 0 '
+      f'summed over blocks', PHASES, run(), B, 'env')
 
 
 if __name__ == '__main__':
