@@ -15,14 +15,22 @@ Phases, each of which exits non-zero on failure:
      spinning root, a model without sites, other block sizes), K1 (n from
      1 to 64, ragged batches) and K2 (batches of 1 and 33, envs without
      contact, the iteration cap);
-  3. run the main path: the G1 flat scene at 4096 envs through the public
-     entry points (put_model, make_batched_data, step) for 200 substeps,
+  3. run the physics path: the G1 flat scene at 4096 envs through the public
+     entry points (put_model, make_batched_data, step) for 100 substeps,
      with every launch counter reset just before and read just after,
      then time one substep stage by stage, and K2 alone on the settled
-     state the main path reached;
-  4. hold a short CUDA rollout against the float64 CPU plain path.
+     state that path reached;
+  4. hold a short CUDA rollout against the float64 CPU plain path;
+  5. run the environment path: `Mjlab-Velocity-Flat-Unitree-G1` at 4096
+     envs through `registry.make`, `env.reset` and `env.step` under the
+     shipped policy's actor (5a: build and reset; 5b: 150 env-steps with
+     noise, pushes and resets on, launches counted per env-step, then 50
+     env-steps under zero actions; 5c: 8 envs on the card in float32
+     against the CPU in float64; 5d: env-steps per second and one env-step
+     stage by stage).
 The line before the last is a JSON object with one row per kernel; the last
-line is {"ok": true, "device": {...}}. Needs one GPU; imports no JAX.
+line is {"ok": true, "device": {...}}. Needs one GPU; imports no JAX and no
+mujoco.
 """
 
 from __future__ import annotations
@@ -34,7 +42,10 @@ import sys
 import time
 
 B = 4096
-SUBSTEPS = 200
+SUBSTEPS = 100
+ENV_TASK = 'Mjlab-Velocity-Flat-Unitree-G1'
+ENV_STEPS = 150  # 3 s of the 50 Hz control loop
+ZERO_STEPS = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -244,6 +255,299 @@ def scale(a) -> float:
 def rel_err(a, b) -> float:
   """max |a - b| over (1 + max |b|); 0 for empty tensors."""
   return max_err(a, b) / scale(b) if b.numel() else 0.0
+
+
+def degenerate_ranges(cfg, num_envs):
+  """Collapse every sampling range of a G1 flat velocity cfg to a point, so
+  that no output depends on a random draw while every code path still runs:
+  resets move and turn the root, commands resample inside a few steps,
+  pushes fire every third step, observation noise is a constant offset.
+  Params, ranges and noise objects are replaced, never edited, so a cfg
+  that shares them with other instances can be given too."""
+  import dataclasses
+  cfg.scene.num_envs = num_envs
+
+  def params(term, **new):
+    term.params = {**term.params, **new}
+
+  ev = cfg.events
+  params(ev.reset_base, pose_range={
+      'x': (0.3, 0.3), 'y': (-0.2, -0.2), 'yaw': (0.7, 0.7)})
+  params(ev.reset_robot_joints, position_range=(1.0, 1.0))
+  ev.push_robot.interval_range_s = (0.06, 0.06)
+  params(ev.push_robot, velocity_range={'x': (0.3, 0.3), 'y': (0.3, 0.3)})
+  params(ev.foot_friction, ranges=(0.45, 0.45))
+  tw = cfg.commands.twist
+  tw.resampling_time_range = (0.1, 0.1)
+  tw.rel_standing_envs = 0.0
+  tw.rel_heading_envs = 1.0
+  tw.ranges = dataclasses.replace(
+      tw.ranges, lin_vel_x=(0.6, 0.6), lin_vel_y=(0.2, 0.2),
+      ang_vel_z=(0.3, 0.3), heading=(0.5, 0.5))
+  pol = cfg.observations.policy
+  for name in ('base_lin_vel', 'base_ang_vel', 'projected_gravity',
+               'joint_pos', 'joint_vel'):
+    term = getattr(pol, name)
+    term.noise = dataclasses.replace(term.noise, n_min=term.noise.n_max)
+  return cfg
+
+
+def tip_over(torch, env, env_id: int) -> None:
+  """Turn one env's root 80 degrees about x, past `fell_over`'s 70."""
+  import math
+  state = env.state
+  qpos = state.data.qpos.clone()
+  half = math.radians(80.0) / 2
+  qpos[env_id, 3:7] = torch.tensor(
+      [math.cos(half), math.sin(half), 0.0, 0.0], dtype=qpos.dtype,
+      device=qpos.device)
+  env._state = state.replace(data=state.data.replace(qpos=qpos))
+
+
+def env_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
+  """The G1 flat env under the degenerate-range configuration on the card
+  in float32 (the kernels) against the port on the CPU in float64 (their
+  plain versions), the same actions from numpy's default_rng(0), one env
+  tipped over before the third step. Returns (worst observation
+  err/(1+max|cpu|), worst reward err/(1+max|cpu|), whether every done flag
+  agreed, resets seen)."""
+  import numpy as np
+  from mjlab_torch.tasks import registry
+  envs = [registry.make(
+      ENV_TASK, cfg=degenerate_ranges(registry.load_cfg(ENV_TASK), num_envs),
+      device=dev, dtype=dt)
+      for dev, dt in (('cuda', torch.float32), ('cpu', torch.float64))]
+  obs = [env.reset()[0] for env in envs]
+  worst_obs = max(rel_err(obs[0][g].cpu(), obs[1][g]) for g in obs[1])
+  worst_rew, flags_equal, resets = 0.0, True, 0
+  rng = np.random.default_rng(0)
+  for i in range(steps):
+    act = 0.3 * rng.normal(size=(num_envs, 29))
+    if i == 2:
+      for env in envs:
+        tip_over(torch, env, 1)
+    outs = [env.step(torch.as_tensor(act, dtype=env.state.actions.dtype,
+                                     device=env.device)) for env in envs]
+    (go, gr, gt, gc, _), (co, cr, ct, cc, _) = outs
+    worst_obs = max([worst_obs] + [rel_err(go[g].cpu(), co[g]) for g in co])
+    worst_rew = max(worst_rew, rel_err(gr.cpu(), cr))
+    flags_equal &= bool((gt.cpu() == ct).all()) and bool(
+        (gc.cpu() == cc).all())
+    resets += int((ct | cc).sum())
+  return worst_obs, worst_rew, flags_equal, resets
+
+
+class StageTimer:
+  """`stage(name)` contexts for `env.step_fn`: per stage, the GPU time
+  between CUDA events around it and the host time to issue it, summed over
+  the stage's entries in one env-step. The card is drained after each
+  stage, as in the substep's stage table."""
+
+  def __init__(self, torch):
+    self.torch = torch
+    self.gpu, self.host = {}, {}
+
+  def __call__(self, name):
+    import contextlib
+
+    @contextlib.contextmanager
+    def timed():
+      start = self.torch.cuda.Event(enable_timing=True)
+      end = self.torch.cuda.Event(enable_timing=True)
+      t0 = time.perf_counter()
+      start.record()
+      yield
+      end.record()
+      self.host[name] = self.host.get(name, 0.0) + (
+          time.perf_counter() - t0) * 1e3
+      end.synchronize()
+      self.gpu[name] = self.gpu.get(name, 0.0) + start.elapsed_time(end)
+
+    return timed()
+
+
+def env_path(torch, card: str) -> dict:
+  """Phase 5: the environment path at 4096 envs. Returns the kernels'
+  launches over the 150 policy steps."""
+  import re
+  import warnings
+
+  from mjlab_torch.asset_zoo.pretrained import G1_FLAT_POLICY
+  from mjlab_torch.asset_zoo.unitree_g1 import FOOT_REGEX
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  from mjlab_torch.rl.networks import load_actor
+  from mjlab_torch.tasks import registry
+  from mjlab_torch.tasks.velocity import mdp
+
+  # ---- 5a: build and reset -------------------------------------------------
+  t0 = time.perf_counter()
+  env = registry.make(ENV_TASK, **{'scene.num_envs': B})  # cuda, float32
+  actor = load_actor(G1_FLAT_POLICY)
+  obs, _ = env.reset()
+  torch.cuda.synchronize()
+  print(f'env: built and reset {B} envs in {time.perf_counter() - t0:.2f} s '
+        f'(obs {env.observation_dims}, actions {env.action_dim})', flush=True)
+  check(env.device.type == 'cuda', 'the env is not on the card')
+  for g in ('policy', 'critic'):
+    check(tuple(obs[g].shape) == (B, 99), f'obs {g} has shape {obs[g].shape}')
+    check(bool(torch.isfinite(obs[g]).all()), f'obs {g} is not finite')
+  st, view = env.state, env.scene['robot']
+  ngeom = env.model.stat.ngeom
+  fric, base = st.model.geom_friction, env.scene.model.geom_friction
+  check(tuple(fric.shape) == (B, ngeom, 3),
+        f'geom_friction has shape {tuple(fric.shape)}')
+  foot = torch.zeros(ngeom, dtype=torch.bool, device=fric.device)
+  foot[[int(view.idx.geom_ids[i]) for i, n in enumerate(view.idx.geom_names)
+        if re.match(FOOT_REGEX, n)]] = True
+  f0 = fric[:, foot, 0]
+  print(f'env: {int(foot.sum())} foot geoms, friction min {float(f0.min()):.4f}'
+        f' max {float(f0.max()):.4f} mean {float(f0.mean()):.4f} std '
+        f'{float(f0.std()):.4f}', flush=True)
+  check(int(foot.sum()) == 14, 'expected 14 foot geoms')
+  check(float(f0.min()) >= 0.3 and float(f0.max()) <= 1.2
+        and float(f0.std()) > 0.2, 'foot friction is not spread over '
+        '[0.3, 1.2]')
+  check(torch.equal(fric[:, ~foot], base[~foot].expand(B, -1, -1))
+        and torch.equal(fric[:, foot, 1:], base[foot, 1:].expand(B, -1, -1)),
+        'friction changed outside the foot geoms\' first column')
+  origins = env.scene.env_origins
+  off = view.root_pos_w(st.data)[:, :2] - origins[:, :2]
+  print(f'env: origins span {float(origins[:, 0].min()):.1f}..'
+        f'{float(origins[:, 0].max()):.1f} m; root offset from origin max '
+        f'{float(off.abs().max()):.4f} std {float(off.std()):.4f}', flush=True)
+  check(float(off.abs().max()) <= 0.5 + 1e-4 and float(off.std()) > 0.2,
+        'root xy is not origin + a draw in [-0.5, 0.5]')
+  cmd = st.command['twist']['command']
+  check(float(cmd[:, 0].abs().max()) <= 1.0
+        and float(cmd[:, 1].abs().max()) <= 0.5
+        and float(cmd[:, 2].abs().max()) <= 1.0, 'command outside its ranges')
+
+  # ---- 5b: play -------------------------------------------------------------
+  ok = torch.ones((), dtype=torch.bool, device=env.device)
+  nan_count = torch.zeros((), dtype=torch.long, device=env.device)
+  fell = torch.zeros((), device=env.device)
+  resets = torch.zeros((), device=env.device)
+  track = []
+  per_step = []
+  total = {}
+  track_params = env.reward_manager.params['track_lin_vel_exp']
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for i in range(ENV_STEPS):
+    reset_launches()
+    obs, rew, term, trunc, extras = env.step(actor(obs))
+    per_step.append((LAUNCHES['smooth'], LAUNCHES['newton'],
+                     LAUNCHES['pd_solve']))
+    ok &= torch.isfinite(rew).all() & torch.isfinite(obs['policy']).all() \
+        & torch.isfinite(obs['critic']).all()
+    nan_count += extras['Episode_Termination/physics_nan']
+    fell += extras['Episode_Termination/fell_over']
+    resets += extras['reset_count']
+    if i >= ENV_STEPS - 50:
+      raw = mdp.track_lin_vel_exp(env._make_ctx(env.state), **track_params)
+      done = term | trunc
+      track.append(torch.where(done, torch.zeros_like(raw), raw).sum()
+                   / (~done).sum())
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  for k3, k2, k1 in per_step:
+    for name, n in (('smooth', k3), ('newton', k2), ('pd_solve', k1)):
+      total[name] = total.get(name, 0) + n
+  shapes = sorted(set(per_step))
+  print(f'env path launches per env-step (K3, K2, K1): '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
+  check(set(shapes) <= {(4, 4, 8), (5, 5, 9)},
+        f'an env-step launched {shapes}, not 4/4/8 or 5/5/9')
+  track_mean = float(torch.stack(track).mean())
+  fell_share = float(fell) / B
+  print(f'env path: {ENV_STEPS} env-steps x {B} envs under the shipped actor '
+        f'in {wall:.3f} s = {ENV_STEPS * B / wall:.1f} env-steps/s '
+        f'({wall / ENV_STEPS * 1e3:.2f} ms an env-step); resets '
+        f'{int(resets)}, fell_over {int(fell)} ({fell_share:.4f} of envs), '
+        f'physics_nan {int(nan_count)}, mean raw track_lin_vel_exp over the '
+        f'last 50 steps {track_mean:.4f}; card {card}', flush=True)
+  check(bool(ok), 'non-finite observation or reward on the env path')
+  check(int(nan_count) == 0, f'physics_nan fired {int(nan_count)} times')
+  check(fell_share < 0.05, f'{fell_share:.4f} of envs fell over in '
+        f'{ENV_STEPS} steps')
+  check(track_mean >= 0.5, f'mean raw track_lin_vel_exp {track_mean:.4f} is '
+        'under 0.5')
+
+  # one env tipped over: that env-step resets it and refreshes every env
+  tip_over(torch, env, 7)
+  reset_launches()
+  obs, _, term, _, extras = env.step(actor(obs))
+  tipped = (LAUNCHES['smooth'], LAUNCHES['newton'], LAUNCHES['pd_solve'])
+  print(f'env path, env 7 tipped over: launches {tipped}, terminated '
+        f'{bool(term[7])}, reset_count {int(extras["reset_count"])}',
+        flush=True)
+  check(bool(term[7]) and tipped == (5, 5, 9),
+        'a tipped env did not reset with one more forward')
+  check((5, 5, 9) in shapes + [tipped], 'no env-step launched 5/5/9')
+
+  # the step waits for the card once: the refresh's bool(done.any())
+  torch.cuda.set_sync_debug_mode('warn')
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter('always')
+      act = actor(obs)
+      n_before = len(caught)
+      for _ in range(3):
+        obs, *_ = env.step(act)
+      syncs = [str(w.message) for w in caught[n_before:]
+               if 'synchroniz' in str(w.message)]
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  print(f'env path: {len(syncs)} synchronizing calls in 3 env-steps',
+        flush=True)
+  check(len(syncs) == 3, 'env.step synchronizes other than once a step: '
+        + '; '.join(sorted(set(syncs))))
+
+  # zero actions for contrast
+  zero = torch.zeros((B, env.action_dim), device=env.device)
+  obs, _ = env.reset()
+  zfell = torch.zeros((), device=env.device)
+  zrew = torch.zeros((), device=env.device)
+  for _ in range(ZERO_STEPS):
+    obs, rew, _, _, extras = env.step(zero)
+    zfell += extras['Episode_Termination/fell_over']
+    zrew += rew.mean()
+    ok &= torch.isfinite(rew).all() & torch.isfinite(obs['policy']).all()
+  ztrack = float(mdp.track_lin_vel_exp(env._make_ctx(env.state),
+                                       **track_params).mean())
+  print(f'env path, zero actions: {ZERO_STEPS} env-steps, fell_over '
+        f'{int(zfell)}, mean reward a step {float(zrew) / ZERO_STEPS:.5f}, '
+        f'raw track_lin_vel_exp at the end {ztrack:.4f}', flush=True)
+  check(bool(ok), 'non-finite observation or reward under zero actions')
+
+  # ---- 5c: the card against the CPU ---------------------------------------
+  e_obs, e_rew, same, n_reset = env_card_vs_cpu(torch)
+  tol5 = 1e-3
+  print(f'env, 8 envs, 5 env-steps, CUDA f32 vs CPU f64: obs '
+        f'err/(1+max|cpu|) {e_obs:.3e}, reward {e_rew:.3e} (tolerance '
+        f'{tol5:g}), done flags equal {same}, resets {n_reset}', flush=True)
+  check(e_obs <= tol5 and e_rew <= tol5 and same and n_reset >= 1,
+        'the env on the card disagrees with the CPU')
+
+  # ---- 5d: one env-step stage by stage --------------------------------------
+  obs, _ = env.reset()
+  for _ in range(3):
+    obs, *_ = env.step(actor(obs))
+  runs = []
+  for _ in range(5):
+    timer = StageTimer(torch)
+    torch.cuda.synchronize()
+    with timer('actor'):
+      act = actor(obs)
+    env._state, out = env.step_fn(env.state, act, stage=timer)
+    obs = out[0]
+    runs.append(timer)
+  for name in runs[0].gpu:
+    g = statistics.median(r.gpu.get(name, 0.0) for r in runs)
+    h = statistics.median(r.host.get(name, 0.0) for r in runs)
+    print(f'env-step stage {name}: {g:.3f} ms between events, {h:.3f} ms '
+          f'host issue (median of 5, {B} envs, {card})', flush=True)
+  return total
 
 
 def main() -> None:
@@ -558,7 +862,7 @@ def main() -> None:
   )
   gpu = {name: [] for name, _ in stages}
   host = {name: [] for name, _ in stages}
-  for _ in range(10):
+  for _ in range(5):
     torch.cuda.synchronize()
     for name, fn in stages:
       start = torch.cuda.Event(enable_timing=True)
@@ -573,7 +877,7 @@ def main() -> None:
   for name, _ in stages:
     print(f'substep stage {name}: {statistics.median(gpu[name]):.3f} ms '
           f'between events, {statistics.median(host[name]):.3f} ms host '
-          f'issue (median of 10, {B} envs, {card})', flush=True)
+          f'issue (median of 5, {B} envs, {card})', flush=True)
 
   # ---- phase 3c: K2 alone on the state the main path settled into ---------
   ds = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
@@ -620,11 +924,22 @@ def main() -> None:
         flush=True)
   check(err4 <= tol4, 'CUDA rollout disagrees with the CPU reference')
 
+  # ---- phase 5: the environment path ----------------------------------------
+  env_launches = env_path(torch, card)
+  kernel_of = {'smooth_fused (K3)': 'smooth', 'pd_solve (K1)': 'pd_solve',
+               'newton_solve (K2)': 'newton'}
+  for r in rows:
+    r['env_path_launches'] = int(env_launches.get(kernel_of[r['name']], 0))
+    check(r['env_path_launches'] > 0,
+          f'{r["name"]} was not launched on the env path')
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
           f'bound {r["bound_ms"]:.5f} ms by {r["bound_by"]}), '
-          f'{r["launches"]} main-path launches; card {card}', flush=True)
+          f'{r["launches"]} launches on the physics path, '
+          f'{r["env_path_launches"]} on the env path; card {card}',
+          flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -102,13 +102,15 @@ _COLLIDERS = {
 def _mix_params(m: Model, g1: np.ndarray, g2: np.ndarray,
                 pairids: np.ndarray):
   """Contact parameter combination (mj_contactParam); explicit <pair>
-  slots take the pair_* fields verbatim. Per pair, shared by all envs."""
+  slots take the pair_* fields verbatim. Per pair and shared by all envs,
+  except friction where `geom_friction` carries a leading env axis (per-env
+  domain randomization): then it is (B, npair, 5)."""
   s = m.stat
   dev = m.device
   p1 = s.geom_priority[g1]
   p2 = s.geom_priority[g2]
   t1, t2 = _ix(g1, dev), _ix(g2, dev)
-  f1, f2 = m.geom_friction[t1], m.geom_friction[t2]
+  f1, f2 = m.geom_friction[..., t1, :], m.geom_friction[..., t2, :]
   sr1, sr2 = m.geom_solref[t1], m.geom_solref[t2]
   si1, si2 = m.geom_solimp[t1], m.geom_solimp[t2]
   mix1, mix2 = m.geom_solmix[t1], m.geom_solmix[t2]
@@ -134,8 +136,8 @@ def _mix_params(m: Model, g1: np.ndarray, g2: np.ndarray,
   solref = torch.where(eq, solref_mix, torch.where(use1, sr1, sr2))
   solimp = torch.where(eq, solimp_mix, torch.where(use1, si1, si2))
   fric3 = torch.where(eq, fric_mix, torch.where(use1, f1, f2))
-  friction = torch.stack([fric3[:, 0], fric3[:, 0], fric3[:, 1],
-                          fric3[:, 2], fric3[:, 2]], -1)
+  friction = torch.stack([fric3[..., 0], fric3[..., 0], fric3[..., 1],
+                          fric3[..., 2], fric3[..., 2]], -1)
   # includemargin == margin (MuJoCo's gap has no observable effect)
   margin = torch.maximum(m.geom_margin[t1], m.geom_margin[t2])
 
@@ -190,7 +192,7 @@ def collision(m: Model, d: Data) -> Data:
     dist[:, sl] = cd
     pos[:, sl] = cp
     frame[:, sl] = fr
-    friction[:, sl] = rep(fric)
+    friction[:, sl] = torch.repeat_interleave(fric, npts, dim=-2)
     solref[:, sl] = rep(sr)
     solimp[:, sl] = rep(si)
     includemargin[:, sl] = rep(inc)

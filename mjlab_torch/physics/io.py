@@ -227,7 +227,7 @@ def contact_slot_meta(m, pairs: CollisionPairs):
   return geom1, geom2, dim
 
 
-def _names(m, kind: str, n: int) -> tuple:
+def names_of(m, kind: str, n: int) -> tuple:
   """Names of the first n objects of a kind ('body', 'jnt', ...), from the
   model's name buffer; unnamed objects are '#<id>'."""
   buf = m.names if isinstance(m.names, bytes) else bytes(m.names)
@@ -368,12 +368,12 @@ def model_static(m, ncon_cap: 'int | None' = None
       con_geom1=con_geom1,
       con_geom2=con_geom2,
       con_dim=con_dim,
-      body_names=_names(m, 'body', m.nbody),
-      jnt_names=_names(m, 'jnt', m.njnt),
-      geom_names=_names(m, 'geom', m.ngeom),
-      site_names=_names(m, 'site', m.nsite),
-      actuator_names=_names(m, 'actuator', m.nu),
-      sensor_names=_names(m, 'sensor', m.nsensor),
+      body_names=names_of(m, 'body', m.nbody),
+      jnt_names=names_of(m, 'jnt', m.njnt),
+      geom_names=names_of(m, 'geom', m.ngeom),
+      site_names=names_of(m, 'site', m.nsite),
+      actuator_names=names_of(m, 'actuator', m.nu),
+      sensor_names=names_of(m, 'sensor', m.nsensor),
       ncon_cap=ncon_cap,
       ncon_cap1=ncon_cap1,
       nmocap=int(m.nmocap),

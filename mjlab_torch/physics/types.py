@@ -95,18 +95,27 @@ class StaticBase:
   `functools.lru_cache` although they hold numpy arrays."""
 
   def _key(self) -> bytes:
-    return b'|'.join(
-        _digest(getattr(self, f.name)) for f in dataclasses.fields(self))
+    """Digest of every field, computed once: the object is frozen. A cache
+    keyed on an equal but distinct object (a second Model of the same
+    scene) compares keys on every lookup, so this must not be recomputed."""
+    key = self.__dict__.get('_key_cache')
+    if key is None:
+      key = b'|'.join(
+          _digest(getattr(self, f.name)) for f in dataclasses.fields(self))
+      object.__setattr__(self, '_key_cache', key)
+    return key
 
   def __hash__(self):
-    h = getattr(self, '_hash_cache', None)
+    h = self.__dict__.get('_hash_cache')
     if h is None:
       h = hash(self._key())
       object.__setattr__(self, '_hash_cache', h)
     return h
 
   def __eq__(self, other):
-    return type(self) is type(other) and self._key() == other._key()
+    return self is other or (type(self) is type(other)
+                             and hash(self) == hash(other)
+                             and self._key() == other._key())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -1,0 +1,86 @@
+"""Simulation configuration.
+
+Counterpart of mjlab_tpu/sim/sim.py. There the solver and integrator options
+are written into the MjSpec before it is compiled; the port is handed a
+compiled model (an MjModel or its ModelArrays snapshot, on a host that may
+lack the mujoco package), so `MujocoCfg.check_model` holds the compiled
+options to the configuration instead and raises on a mismatch.
+`expand_model_fields` gives selected model fields a leading env axis for
+per-env domain randomization. `make_batched_data` is physics.io's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import numpy as np
+
+from mjlab_torch.physics.io import make_batched_data  # noqa: F401
+from mjlab_torch.physics.types import ConeType, IntegratorType, Model
+
+_CONE = {'pyramidal': ConeType.PYRAMIDAL, 'elliptic': ConeType.ELLIPTIC}
+_INTEGRATOR = {'euler': IntegratorType.EULER,
+               'implicitfast': IntegratorType.IMPLICITFAST}
+
+# Model fields the engine reads with a leading env axis. The other fields
+# that domain randomization may name (envs/mdp/events.py:FIELD_SPECS) feed
+# the constant tables of the fused smooth stage and of the Newton solve,
+# which are built for one model shared by every env.
+PER_ENV_FIELDS = ('geom_friction',)
+
+
+@dataclasses.dataclass
+class MujocoCfg:
+  """Solver and integrator options the compiled model must carry."""
+  timestep: float = 0.002
+  integrator: Literal['euler', 'implicitfast'] = 'implicitfast'
+  impratio: float = 1.0
+  cone: Literal['pyramidal', 'elliptic'] = 'pyramidal'
+  iterations: int = 10
+  tolerance: float = 1e-8
+  ls_iterations: int = 20
+  ls_tolerance: float = 0.01
+  gravity: tuple = (0.0, 0.0, -9.81)
+
+  def check_model(self, mj_model) -> None:
+    """Raise unless the compiled model's options equal this cfg."""
+    opt = mj_model.opt
+    want = dict(
+        timestep=self.timestep, integrator=int(_INTEGRATOR[self.integrator]),
+        impratio=self.impratio, cone=int(_CONE[self.cone]),
+        iterations=self.iterations, tolerance=self.tolerance,
+        ls_iterations=self.ls_iterations, ls_tolerance=self.ls_tolerance,
+        gravity=self.gravity)
+    wrong = {k: (np.asarray(getattr(opt, k)).tolist(), v)
+             for k, v in want.items()
+             if not np.array_equal(np.asarray(getattr(opt, k), np.float64),
+                                   np.asarray(v, np.float64))}
+    if wrong:
+      raise ValueError(
+          'the compiled model was built with other options than the '
+          'configuration asks for (compiled, configured): ' + ', '.join(
+              f'{k}: {got} != {cfg}' for k, (got, cfg) in wrong.items()))
+
+
+@dataclasses.dataclass
+class SimulationCfg:
+  """nconmax is the per-env active-contact capacity (see
+  physics.io.put_model); None = auto."""
+  nconmax: 'int | None' = None
+  mujoco: MujocoCfg = dataclasses.field(default_factory=MujocoCfg)
+
+
+def expand_model_fields(model: Model, fields: 'list[str]',
+                        num_envs: int) -> Model:
+  """Give the selected model fields a leading env axis (a fresh tensor per
+  field), so per-env domain randomization can write them."""
+  updates = {}
+  for f in sorted(set(fields)):
+    if f not in PER_ENV_FIELDS:
+      raise NotImplementedError(
+          f'per-env model field {f!r} is not supported by mjlab_torch yet '
+          f'(supported: {list(PER_ENV_FIELDS)})')
+    leaf = getattr(model, f)
+    updates[f] = leaf.expand((num_envs,) + leaf.shape).clone()
+  return model.replace(**updates)

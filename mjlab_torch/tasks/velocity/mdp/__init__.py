@@ -1,0 +1,17 @@
+"""Velocity-task MDP term namespace (base terms + task-specific)."""
+
+from mjlab_torch.envs.mdp import *  # noqa: F401,F403
+from mjlab_torch.tasks.velocity.mdp.curriculums import (  # noqa: F401
+    commands_vel,
+)
+from mjlab_torch.tasks.velocity.mdp.rewards import (  # noqa: F401
+    feet_air_time,
+    feet_slide,
+    foot_clearance_reward,
+    track_ang_vel_exp,
+    track_lin_vel_exp,
+)
+from mjlab_torch.tasks.velocity.mdp.velocity_command import (  # noqa: F401
+    UniformVelocityCommand,
+    UniformVelocityCommandCfg,
+)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of mjlab_torch, and not chip_smoke.py,
-imports JAX, flax or the JAX package; its entry points default to the GPU
+imports JAX, flax, orbax or the JAX package; the G1 flat environment is made
+and stepped without the mujoco package; its entry points default to the GPU
 and refuse to fall back to the CPU silently; its kernel wrappers refuse CPU
 tensors."""
 
@@ -21,12 +22,53 @@ from mjlab_torch.ops import pd_solve as tpd
 from mjlab_torch.ops import smooth_kernel as tsk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ('jax', 'jaxlib', 'flax', 'mjlab_tpu')
+BANNED = ('jax', 'jaxlib', 'flax', 'orbax', 'mjlab_tpu')
+SUBPACKAGES = ('utils', 'sim', 'entity', 'scene', 'terrains', 'managers',
+               'envs', 'tasks', 'rl', 'scripts', 'physics', 'ops', 'asset_zoo')
 
 
 def _modules():
   return sorted(m.name for m in pkgutil.walk_packages(
       mjlab_torch.__path__, prefix='mjlab_torch.'))
+
+
+def test_the_walk_reaches_every_subpackage():
+  mods = _modules()
+  for sub in SUBPACKAGES:
+    assert any(m.startswith(f'mjlab_torch.{sub}.') for m in mods), sub
+  for leaf in ('envs.manager_based_rl_env', 'envs.mdp.events',
+               'managers.managers', 'tasks.velocity.config.g1.flat_env_cfg',
+               'tasks.registry', 'rl.networks', 'scripts.play', 'sim.sim'):
+    assert f'mjlab_torch.{leaf}' in mods, leaf
+
+
+def test_env_is_made_and_stepped_without_jax_or_mujoco():
+  """The registry, the G1 flat env from the committed snapshot, a reset and
+  a step under the shipped actor, with jax, flax, orbax, the JAX package
+  and mujoco all unimportable."""
+  block = '; '.join(f'sys.modules[{b!r}] = None'
+                    for b in BANNED + ('mujoco',))
+  code = f"""
+import sys; {block}
+import torch
+from mjlab_torch.asset_zoo.pretrained import G1_FLAT_POLICY
+from mjlab_torch.rl.networks import load_actor
+from mjlab_torch.tasks import registry
+assert 'Mjlab-Velocity-Flat-Unitree-G1-Play' in registry.registered_tasks()
+env = registry.make('Mjlab-Velocity-Flat-Unitree-G1', device='cpu',
+                    **{{'scene.num_envs': 2}})
+actor = load_actor(G1_FLAT_POLICY, device='cpu')
+obs, _ = env.reset()
+obs, rew, term, trunc, extras = env.step(actor(obs))
+assert obs['policy'].shape == (2, 99) and bool(torch.isfinite(rew).all())
+loaded = [m for m in {BANNED + ('mujoco',)!r} if sys.modules.get(m)]
+assert not loaded, loaded
+print('ok')
+"""
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+  assert out.returncode == 0, out.stderr
+  assert out.stdout.strip() == 'ok'
 
 
 def test_every_module_imports_without_jax():

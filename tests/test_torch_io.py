@@ -138,3 +138,25 @@ def test_g1_flat_scene_matches_jax_env():
     assert names(env, g1) == names(port, p1)
     assert names(env, g2) == names(port, p2)
   np.testing.assert_array_equal(tp.con_dim, te.con_dim)
+
+
+def test_equal_static_tables_compare_without_rehashing(monkeypatch):
+  """Two Models of one scene have equal but distinct static tables. Every
+  cache keyed on them (the kernels' trees, the constraint layout) compares
+  the two on each lookup, so the comparison must not digest the arrays
+  again: that made every substep of a second Model several times slower on
+  the host."""
+  from mjlab_torch.physics import types
+  arrays = g1_flat_arrays()
+  a, b = tio.model_static(arrays), tio.model_static(arrays)
+  assert a is not b and a == b and hash(a) == hash(b)
+  assert a.pairs == b.pairs
+
+  def no_digest(x):
+    raise AssertionError('static tables digested again')
+
+  monkeypatch.setattr(types, '_digest', no_digest)
+  assert a == b and a.pairs == b.pairs and len({a, b}) == 1
+  c = tio.model_static(arrays, ncon_cap=16)
+  monkeypatch.undo()
+  assert c != a

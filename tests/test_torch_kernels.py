@@ -237,3 +237,37 @@ def test_newton_kernel_ignores_the_cap_once_frozen(newton_inputs):
   same = torch.stack([(a == b).all(-1) for a, b in zip(short, full)]).all(0)
   assert int(same[frozen].sum()) >= int(frozen.sum()) // 2
   assert _rel_all(short, want) < 1e-3
+
+
+def test_env_step_on_the_card_matches_the_cpu(g1):
+  """The G1 flat env under the degenerate-range configuration, 8 envs and 5
+  env-steps with one forced reset: CUDA float32 (the kernels feed every
+  observation and reward) against the CPU in float64 (their plain
+  versions)."""
+  from chip_smoke import env_card_vs_cpu
+  e_obs, e_rew, flags_equal, resets = env_card_vs_cpu(torch)
+  assert e_obs <= 1e-3 and e_rew <= 1e-3
+  assert flags_equal and resets >= 1
+
+
+def test_env_step_waits_for_the_card_once(g1):
+  """`bool(done.any())` of the conditional refresh is the one synchronizing
+  call of an env-step on the card."""
+  import warnings
+
+  from mjlab_torch.tasks import registry
+  env = registry.make('Mjlab-Velocity-Flat-Unitree-G1',
+                      **{'scene.num_envs': B})
+  env.reset()
+  act = torch.zeros((B, env.action_dim), device='cuda')
+  env.step(act)  # first use builds the kernels' plans and the index tables
+  torch.cuda.set_sync_debug_mode('warn')
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter('always')
+      for _ in range(3):
+        env.step(act)
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  syncs = [str(w.message) for w in caught if 'synchroniz' in str(w.message)]
+  assert len(syncs) == 3, syncs

@@ -13,6 +13,12 @@ import numpy as np
 import torch
 
 import mjlab_torch.physics as tphys
+from chip_smoke import degenerate_ranges
+
+# The parity tests run a few envs: every op is tiny, and PyTorch's pool of
+# intra-op threads only spins on them, slower than one thread alone and in
+# the way of the other test workers on the same cores.
+torch.set_num_threads(1)
 
 
 @functools.lru_cache(maxsize=1)
@@ -132,3 +138,93 @@ def tiny_bot_mjmodel():
   scene = Scene(SceneCfg(num_envs=1, terrain=TerrainImporterCfg(),
                          entities={'robot': TINY_ROBOT_CFG}))
   return scene.compile()
+
+
+# ---------------------------------------------------------------------------
+# the environment layer
+# ---------------------------------------------------------------------------
+
+G1_FLAT_TASK = 'Mjlab-Velocity-Flat-Unitree-G1'
+
+
+def jax_env_f64(cfg):
+  """The JAX package's env with a float64 Model and Data. Its Scene and its
+  batched Data default to float32 whatever jax_enable_x64 says; a parity
+  test at 1e-6 over contact dynamics needs both sides in float64."""
+  from unittest import mock
+
+  from mjlab_tpu.envs import manager_based_rl_env as jenv
+  f64_scene = functools.partial(jenv.Scene, dtype=jnp.float64)
+  f64_data = functools.partial(jenv.make_batched_data, dtype=jnp.float64)
+  with mock.patch.object(jenv, 'Scene', f64_scene), \
+       mock.patch.object(jenv, 'make_batched_data', f64_data):
+    return jenv.ManagerBasedRlEnv(cfg)
+
+
+def g1_env_pair(num_envs, degenerate=True):
+  """(JAX env, port env) of the G1 flat velocity task on one compiled
+  model, both float64; the port's on the CPU."""
+  from mjlab_tpu.tasks import registry as jreg
+  from mjlab_torch.tasks import registry as treg
+  edit = degenerate_ranges if degenerate else (
+      lambda c, n: setattr(c.scene, 'num_envs', n) or c)
+  jenv = jax_env_f64(edit(jreg.load_cfg(G1_FLAT_TASK), num_envs))
+  tenv = treg.make(G1_FLAT_TASK, cfg=edit(treg.load_cfg(G1_FLAT_TASK),
+                                          num_envs),
+                   device='cpu', dtype=torch.float64,
+                   mj_model=jenv.scene.mj_model)
+  return jenv, tenv
+
+
+def _np_tree(x):
+  if isinstance(x, dict):
+    return {k: _np_tree(v) for k, v in x.items()}
+  if dataclasses.is_dataclass(x):
+    return {f.name: _np_tree(getattr(x, f.name))
+            for f in dataclasses.fields(x)}
+  return np.asarray(x)
+
+
+def env_state_leaves(jstate, per_env_fields=('geom_friction',)) -> dict:
+  """JAX EnvState -> the dict of numpy leaves that
+  mjlab_torch.envs.io.env_state_from_numpy takes."""
+  out = {k: _np_tree(getattr(jstate, k)) for k in (
+      'episode_length', 'common_step', 'actions', 'prev_actions',
+      'reward_sums', 'command', 'obs', 'event', 'curriculum', 'reward')}
+  out['data'] = data_leaves(jstate.data)
+  out['model'] = {k: np.asarray(getattr(jstate.model, k))
+                  for k in per_env_fields}
+  return out
+
+
+def _jnp_like(template, x):
+  if isinstance(template, dict):
+    return {k: _jnp_like(v, x[k]) for k, v in template.items()}
+  if dataclasses.is_dataclass(template):
+    return template.replace(**{
+        f.name: _jnp_like(getattr(template, f.name), x[f.name])
+        for f in dataclasses.fields(template)
+        if getattr(template, f.name) is not None and f.name in x})
+  return jnp.asarray(x, jnp.asarray(template).dtype).reshape(
+      jnp.shape(template))
+
+
+def jax_data_from_leaves(template, leaves):
+  """A batched JAX Data like `template` holding the port's Data leaves (the
+  dict of mjlab_torch.envs.io.env_state_to_numpy's 'data'); fields the port
+  does not have keep the template's values."""
+  return _jnp_like(template, leaves)
+
+
+def jax_state_from_leaves(jenv, arrays):
+  """The JAX env's EnvState holding the numpy leaves of
+  mjlab_torch.envs.io.env_state_to_numpy (the way back of
+  env_state_leaves)."""
+  t = jenv._template_state
+  jd = jax_data_from_leaves(t.data, arrays['data'])
+  jm = t.model.replace(**{k: jnp.asarray(v)
+                          for k, v in arrays['model'].items()})
+  rest = {k: _jnp_like(getattr(t, k), arrays[k]) for k in (
+      'episode_length', 'common_step', 'actions', 'prev_actions',
+      'reward_sums', 'command', 'obs', 'event', 'curriculum', 'reward')}
+  return t.replace(model=jm, data=jd, **rest)
