@@ -27,7 +27,16 @@ Phases, each of which exits non-zero on failure:
      noise, pushes and resets on, launches counted per env-step, then 50
      env-steps under zero actions; 5c: 8 envs on the card in float32
      against the CPU in float64; 5d: env-steps per second and one env-step
-     stage by stage).
+     stage by stage);
+  6. run the training path: `python -m mjlab_torch.scripts.train` of the
+     same task at 4096 envs and the registered network widths (6a: 3 PPO
+     iterations through `train.main`, launches counted per rollout env-step,
+     logs, parameters and the checkpoint checked, then the synchronizing
+     calls of one rollout and one update counted; 6b: the checkpoint loaded
+     into a fresh runner bit for bit, and a run resumed from it; 6c: one
+     learn iteration of 8 envs on the card in float32 against the port on
+     the CPU with the env in float64; 6d: `scripts/play.main` of the
+     checkpoint).
 The line before the last is a JSON object with one row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs one GPU; imports no JAX and no
 mujoco.
@@ -46,6 +55,7 @@ SUBSTEPS = 100
 ENV_TASK = 'Mjlab-Velocity-Flat-Unitree-G1'
 ENV_STEPS = 150  # 3 s of the 50 Hz control loop
 ZERO_STEPS = 50
+TRAIN_ITERS = 3  # PPO iterations of phase 6a
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -82,6 +92,21 @@ def time_ms(torch, fn, reps: int, warmup: int = 2, busy=None) -> float:
     end.synchronize()
     times.append(start.elapsed_time(end))
   return statistics.median(times)
+
+
+def count_syncs(torch, fn):
+  """(fn(), the messages of the synchronizing CUDA calls fn made), counted
+  by torch.cuda.set_sync_debug_mode."""
+  import warnings
+  torch.cuda.set_sync_debug_mode('warn')
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter('always')
+      out = fn()
+  finally:
+    torch.cuda.set_sync_debug_mode('default')
+  return out, [str(w.message) for w in caught
+               if 'synchroniz' in str(w.message)]
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -292,16 +317,21 @@ def degenerate_ranges(cfg, num_envs):
   return cfg
 
 
-def tip_over(torch, env, env_id: int) -> None:
-  """Turn one env's root 80 degrees about x, past `fell_over`'s 70."""
+def tip_over_state(torch, state, env_id: int):
+  """`state` (an EnvState) with one env's root turned 80 degrees about x,
+  past `fell_over`'s 70: that env terminates on the next env-step."""
   import math
-  state = env.state
   qpos = state.data.qpos.clone()
   half = math.radians(80.0) / 2
   qpos[env_id, 3:7] = torch.tensor(
       [math.cos(half), math.sin(half), 0.0, 0.0], dtype=qpos.dtype,
       device=qpos.device)
-  env._state = state.replace(data=state.data.replace(qpos=qpos))
+  return state.replace(data=state.data.replace(qpos=qpos))
+
+
+def tip_over(torch, env, env_id: int) -> None:
+  """Tip one env of `env`'s own state over (tip_over_state)."""
+  env._state = tip_over_state(torch, env.state, env_id)
 
 
 def env_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
@@ -370,7 +400,6 @@ def env_path(torch, card: str) -> dict:
   """Phase 5: the environment path at 4096 envs. Returns the kernels'
   launches over the 150 policy steps."""
   import re
-  import warnings
 
   from mjlab_torch.asset_zoo.pretrained import G1_FLAT_POLICY
   from mjlab_torch.asset_zoo.unitree_g1 import FOOT_REGEX
@@ -486,18 +515,15 @@ def env_path(torch, card: str) -> dict:
   check((5, 5, 9) in shapes + [tipped], 'no env-step launched 5/5/9')
 
   # the step waits for the card once: the refresh's bool(done.any())
-  torch.cuda.set_sync_debug_mode('warn')
-  try:
-    with warnings.catch_warnings(record=True) as caught:
-      warnings.simplefilter('always')
-      act = actor(obs)
-      n_before = len(caught)
-      for _ in range(3):
-        obs, *_ = env.step(act)
-      syncs = [str(w.message) for w in caught[n_before:]
-               if 'synchroniz' in str(w.message)]
-  finally:
-    torch.cuda.set_sync_debug_mode('default')
+  act = actor(obs)
+
+  def three_steps():
+    o = obs
+    for _ in range(3):
+      o, *_ = env.step(act)
+    return o
+
+  obs, syncs = count_syncs(torch, three_steps)
   print(f'env path: {len(syncs)} synchronizing calls in 3 env-steps',
         flush=True)
   check(len(syncs) == 3, 'env.step synchronizes other than once a step: '
@@ -548,6 +574,232 @@ def env_path(torch, card: str) -> dict:
     print(f'env-step stage {name}: {g:.3f} ms between events, {h:.3f} ms '
           f'host issue (median of 5, {B} envs, {card})', flush=True)
   return total
+
+
+def train_card_vs_cpu(torch, num_envs: int = 8, steps: int = 4):
+  """One learn iteration of the G1 flat env under the degenerate-range
+  configuration, `clip_actions=0.0` (every action exactly 0, so no noise
+  draw matters), the 'fixed' schedule and one minibatch, on the card in
+  float32 against the port on the CPU with the env in float64 (the
+  learner is float32 on both); the same initial parameters, one env
+  tipped over so that an episode ends in the rollout. Returns ({name:
+  err/(1+max|cpu|)} of the rollout buffers, advantages, returns and
+  losses, whether the done flags agreed, dones seen, max |param diff|,
+  share of parameter elements that differ by more than lr / 10, Adam
+  steps, lr)."""
+  from mjlab_torch.rl.ppo import PPO
+  from mjlab_torch.tasks import registry
+  ppos, states, logs = [], [], []
+  for dev, dt in (('cuda', torch.float32), ('cpu', torch.float64)):
+    env = registry.make(
+        ENV_TASK, cfg=degenerate_ranges(registry.load_cfg(ENV_TASK), num_envs),
+        device=dev, dtype=dt)
+    cfg = registry.load_cfg(ENV_TASK, 'rl_cfg_entry_point')
+    cfg.device, cfg.num_steps_per_env, cfg.clip_actions = dev, steps, 0.0
+    cfg.algorithm.schedule, cfg.algorithm.num_mini_batches = 'fixed', 1
+    ppo = PPO(env, cfg)
+    ts = ppo.init_state()
+    ts.env_state = tip_over_state(torch, ts.env_state, 1)
+    ppos.append(ppo)
+    states.append(ts)
+  with torch.no_grad():
+    for k, p in states[1].net.named_parameters():
+      p.copy_(states[0].net.get_parameter(k).cpu())
+  for ppo, ts in zip(ppos, states):
+    logs.append(ppo._learn_iteration(ts)[1])
+  (gp, cp), (gs, cs) = ppos, states
+  pairs = {k: (getattr(gp.storage, k), getattr(cp.storage, k)) for k in (
+      'actor_obs', 'critic_obs', 'action', 'logprob', 'mean', 'value',
+      'reward')}
+  pairs['advantages'] = (gp.advantages, cp.advantages)
+  pairs['returns'] = (gp.returns, cp.returns)
+  pairs.update({k: (logs[0][k], logs[1][k]) for k in ('loss', 'pg', 'v',
+                                                       'ent', 'kl')})
+  errs = {k: rel_err(a.cpu(), b) for k, (a, b) in pairs.items()}
+  flags = all(torch.equal(getattr(gp.storage, k).cpu(),
+                          getattr(cp.storage, k)) for k in ('done', 'time_out'))
+  dones = int(cp.storage.done.sum())
+  diffs = [(p.detach().cpu() - cs.net.get_parameter(k).detach()).abs()
+           for k, p in gs.net.named_parameters()]
+  lr = cfg.algorithm.learning_rate
+  max_diff = max(float(d.max()) for d in diffs)
+  share = (sum(int((d > lr / 10).sum()) for d in diffs)
+           / sum(d.numel() for d in diffs))
+  n_steps = cfg.algorithm.num_learning_epochs
+  return errs, flags, dones, max_diff, share, n_steps, lr
+
+
+def train_path(torch, card: str) -> dict:
+  """Phase 6: the training path at 4096 envs. Returns the kernels' launches
+  over the 3 iterations of `train.main` (env build and reset included)."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_train_')
+  try:
+    return _train_path(torch, card, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _train_path(torch, card: str, root: str) -> dict:
+  import math
+  import os
+
+  from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  from mjlab_torch.rl.runner import OnPolicyRunner
+  from mjlab_torch.scripts import play, train
+
+  argv = [ENV_TASK, '--log-root', root, '--env.scene.num_envs', str(B)]
+  kernels = ('smooth', 'newton', 'pd_solve')
+
+  # ---- 6a: 3 iterations through the entry point ----------------------------
+  # every env-step of the rollout records its kernels' launches
+  per_step = []
+  plain_step = ManagerBasedRlEnv._step_fn
+
+  def counted_step(self, *a, **kw):
+    before = [LAUNCHES[k] for k in kernels]
+    out = plain_step(self, *a, **kw)
+    per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+    return out
+
+  ManagerBasedRlEnv._step_fn = counted_step
+  try:
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = train.main(argv + ['--agent.max_iterations', str(TRAIN_ITERS),
+                                '--run-name', 'a'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+  finally:
+    ManagerBasedRlEnv._step_fn = plain_step
+  cfg, env = runner.cfg, runner.env
+  T = cfg.num_steps_per_env
+  print(f'train path: {TRAIN_ITERS} iterations of {T} env-steps x {B} envs '
+        f'through train.main in {wall:.2f} s (env build included); widths '
+        f'actor {cfg.policy.actor_hidden_dims} critic '
+        f'{cfg.policy.critic_hidden_dims}, {cfg.algorithm.num_learning_epochs}'
+        f' epochs x {cfg.algorithm.num_mini_batches} minibatches; launches '
+        f'{launches}', flush=True)
+  check(env.device.type == 'cuda' and env.num_envs == B,
+        'the training env is not 4096 envs on the card')
+  shapes = sorted(set(per_step))
+  print(f'train path launches per rollout env-step (K3, K2, K1): '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
+  check(len(per_step) == TRAIN_ITERS * T,
+        f'{len(per_step)} env-steps, not {TRAIN_ITERS * T}')
+  check(set(shapes) <= {(4, 4, 8), (5, 5, 9)},
+        f'a rollout env-step launched {shapes}, not 4/4/8 or 5/5/9')
+
+  run = os.path.join(root, cfg.experiment_name, 'a')
+  with open(os.path.join(run, 'metrics.jsonl')) as f:
+    lines = [json.loads(line) for line in f]
+  check([l_['iteration'] for l_ in lines] == [1, TRAIN_ITERS],
+        f'metrics.jsonl holds iterations {[l_["iteration"] for l_ in lines]}')
+  for l_ in lines:
+    print(f'train path iteration {l_["iteration"]}: collection '
+          f'{l_["collection_ms"]:.1f} ms, learning {l_["learning_ms"]:.1f} ms, '
+          f'resets {l_["resets"]:.0f}, physics_nan '
+          f'{l_["Episode_Termination/physics_nan"]:.0f}, fell_over '
+          f'{l_["Episode_Termination/fell_over"]:.0f}, loss {l_["loss"]:.4f} '
+          f'pg {l_["pg"]:.5f} v {l_["v"]:.4f} ent {l_["ent"]:.4f} kl '
+          f'{l_["kl"]:.5f} std {l_["std"]:.4f} lr {l_["lr"]:.3e}, mean reward '
+          f'{l_["mean_reward"]:.4f}, episode length '
+          f'{l_["mean_episode_length"]:.2f}; card {card}', flush=True)
+    check(all(math.isfinite(l_[k]) for k in ('loss', 'pg', 'v', 'ent', 'kl',
+                                              'std')),
+          f'non-finite loss logs at iteration {l_["iteration"]}')
+    # the bounds as the float32 learning rate holds them
+    lr_lo, lr_hi = float(torch.tensor(1e-5)), float(torch.tensor(1e-2))
+    check(lr_lo <= l_['lr'] <= lr_hi, f'lr {l_["lr"]} outside [1e-5, 1e-2]')
+  last = lines[-1]
+  print(f'train path: {TRAIN_ITERS * T * B / last["wall_s"]:.1f} training '
+        f'env-steps/s ({TRAIN_ITERS} x {T} x {B} over {last["wall_s"]:.3f} s '
+        f'of learn); card {card}', flush=True)
+
+  ckpt = os.path.join(run, f'model_{TRAIN_ITERS}.pt')
+  check(os.path.exists(ckpt), f'{ckpt} was not written')
+  net0 = runner.alg.init_net(torch.Generator(device=env.device).manual_seed(
+      cfg.seed + 1))
+  moved = []
+  for k, p in runner.ts.net.named_parameters():
+    p0 = net0.get_parameter(k)
+    check(bool(torch.isfinite(p).all()), f'parameter {k} is not finite')
+    check(not torch.equal(p, p0), f'parameter {k} did not move')
+    moved.append(float((p != p0).float().mean()))
+  print(f'train path: every parameter finite and moved (share of elements '
+        f'moved: min {min(moved):.4f})', flush=True)
+
+  # ---- 6b: the checkpoint into a fresh runner, bit for bit; a resumed run --
+  fresh = OnPolicyRunner(env, cfg)
+  fresh.load(ckpt)
+  a, b = runner.ts, fresh.ts
+  same = (a.iteration == b.iteration == TRAIN_ITERS and torch.equal(a.lr, b.lr)
+          and torch.equal(a.adam.count, b.adam.count)
+          and all(torch.equal(p, b.net.get_parameter(k))
+                  and torch.equal(a.adam.mu[k], b.adam.mu[k])
+                  and torch.equal(a.adam.nu[k], b.adam.nu[k])
+                  for k, p in a.net.named_parameters()))
+  print(f'train path: {ckpt.split(os.sep)[-1]} loads into a fresh runner bit '
+        f'for bit: {same}', flush=True)
+  check(same, 'the checkpoint did not load bit for bit')
+  del fresh
+
+  # what one rollout and one update wait for
+  alg, ts = runner.alg, runner.ts
+  (traj, last_value, _, _), roll_syncs = count_syncs(
+      torch, lambda: alg._rollout(ts))
+
+  def learn():
+    adv, ret = alg._gae(traj, last_value)
+    return alg._update(ts, traj, adv, ret)
+
+  _, upd_syncs = count_syncs(torch, learn)
+  torch.cuda.synchronize()
+  print(f'train path: {len(roll_syncs)} synchronizing calls in a rollout of '
+        f'{T} env-steps, {len(upd_syncs)} in GAE and the update '
+        f'{sorted(set(upd_syncs))}', flush=True)
+  check(len(roll_syncs) == T, 'the rollout synchronizes other than once an '
+        'env-step: ' + '; '.join(sorted(set(roll_syncs))))
+  del runner, alg, ts, traj, last_value, env
+
+  resumed = train.main(argv + ['--agent.max_iterations', '1', '--run-name',
+                               'b', '--resume'])
+  ckpt4 = os.path.join(root, cfg.experiment_name, 'b',
+                       f'model_{TRAIN_ITERS + 1}.pt')
+  print(f'train path: resumed from iteration {TRAIN_ITERS}, wrote '
+        f'{ckpt4.split(os.sep)[-1]}: {os.path.exists(ckpt4)}', flush=True)
+  check(resumed.ts.iteration == TRAIN_ITERS + 1 and os.path.exists(ckpt4),
+        'the resumed run did not write its checkpoint')
+  del resumed
+
+  # ---- 6c: the card against the CPU -----------------------------------------
+  errs, flags, dones, max_diff, share, n_steps, lr = train_card_vs_cpu(torch)
+  worst_key = max(errs, key=errs.get)
+  worst = errs[worst_key]
+  tol6 = 1e-3
+  print(f'train, 8 envs x 4 env-steps, one learn iteration, CUDA f32 vs CPU '
+        f'(env f64): rollout buffers, advantages, returns and losses '
+        f'err/(1+max|cpu|) worst {worst:.3e} ({worst_key}; '
+        + ', '.join(f'{k} {v:.1e}' for k, v in errs.items())
+        + f'; tolerance {tol6:g}), done flags equal '
+        f'{flags}, dones {dones}; parameters after {n_steps} Adam steps: max '
+        f'|diff| {max_diff:.3e} (tolerance 2 lr x steps = '
+        f'{2 * lr * n_steps:g}), share over lr/10 {share:.2e} (tolerance '
+        f'0.01)', flush=True)
+  check(worst <= tol6 and flags and dones >= 1,
+        'the learner on the card disagrees with the CPU')
+  check(max_diff <= 2 * lr * n_steps + 1e-6 and share <= 0.01,
+        'the parameters after the update disagree with the CPU')
+
+  # ---- 6d: play the checkpoint ----------------------------------------------
+  stats = play.main([ENV_TASK + '-Play', '--checkpoint', ckpt, '--steps',
+                     '20'])
+  check(math.isfinite(stats['mean_reward']), 'play gave a non-finite reward')
+  return launches
 
 
 def main() -> None:
@@ -933,12 +1185,21 @@ def main() -> None:
     check(r['env_path_launches'] > 0,
           f'{r["name"]} was not launched on the env path')
 
+  # ---- phase 6: the training path ------------------------------------------
+  train_launches = train_path(torch, card)
+  for r in rows:
+    r['train_path_launches'] = int(train_launches.get(kernel_of[r['name']],
+                                                      0))
+    check(r['train_path_launches'] > 0,
+          f'{r["name"]} was not launched on the training path')
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
           f'bound {r["bound_ms"]:.5f} ms by {r["bound_by"]}), '
           f'{r["launches"]} launches on the physics path, '
-          f'{r["env_path_launches"]} on the env path; card {card}',
+          f'{r["env_path_launches"]} on the env path, '
+          f'{r["train_path_launches"]} on the training path; card {card}',
           flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -367,6 +367,11 @@ class ManagerBasedRlEnv:
   def step_fn(self):
     return self._step_fn
 
+  @property
+  def generator(self) -> torch.Generator:
+    """The env's one generator (reseeded by `init_state`)."""
+    return self._gen
+
   # ------------------------------------------------------------------
   # gym-like stateful API
   # ------------------------------------------------------------------

@@ -1,25 +1,38 @@
-"""The actor network and its observation normalizer, for inference.
+"""Actor-critic networks and empirical observation normalization.
 
-Counterpart of the inference half of mjlab_tpu/rl/networks.py and of the
-inference policy of mjlab_tpu/rl/ppo.py: `MLP`, the actor of `ActorCritic`
-(`act_mean`) and `RunningNorm.normalize`, as `nn.Module`s. The linear layers
-are plain matrix products (`nn.Linear`), as in the reference.
+Counterpart of mjlab_tpu/rl/networks.py: `MLP`, `ActorCritic` (actor, critic
+and the learnable noise std), `gaussian_logprob`, `gaussian_entropy` and
+`RunningNorm` as `nn.Module`s, plus `Actor`, the actor half alone for
+inference. The linear layers are plain matrix products (`nn.Linear`), as in
+the reference. A fresh network starts from flax's default initialisation
+(`MLP.init_flax_`), the distribution the JAX learner starts from.
 
-`actor_from_numpy` carries weights across from a flax parameter tree;
-`save_actor` / `load_actor` keep them in an .npz file that needs neither
-flax nor orbax to read.
+Parameters cross over from a flax tree: `actor_critic_from_numpy` and
+`actor_from_numpy` take `params['params'][...]['Dense_i']['kernel' |
+'bias']` (a kernel is (in, out), `nn.Linear.weight` its transpose) and
+`flax_to_named` maps any tree of that layout (parameters, Adam moments) to
+the names of `ActorCritic.named_parameters()`.
+`save_actor` / `load_actor` keep an actor in an .npz file that needs
+neither flax nor orbax to read.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-_ACT = {'elu': nn.ELU, 'relu': nn.ReLU, 'tanh': nn.Tanh, 'gelu': nn.GELU,
+# flax's gelu is jax.nn.gelu, whose default is the tanh approximation
+_ACT = {'elu': nn.ELU, 'relu': nn.ReLU, 'tanh': nn.Tanh,
+        'gelu': functools.partial(nn.GELU, approximate='tanh'),
         'silu': nn.SiLU}
+# stddev of a unit normal truncated to [-2, 2] (jax.nn.initializers)
+_TRUNC_STD = .87962566103423978
+_LOG_2PI = math.log(2 * math.pi)
 
 
 class MLP(nn.Module):
@@ -39,14 +52,99 @@ class MLP(nn.Module):
       x = self.act(layer(x))
     return self.layers[-1](x)
 
+  @torch.no_grad()
+  def init_flax_(self, generator: 'torch.Generator | None' = None) -> None:
+    """flax's default `nn.Dense` initialisation: a `lecun_normal` kernel
+    (a normal truncated at two standard deviations, scaled so that its
+    std is sqrt(1 / fan_in)) and a zero bias."""
+    for layer in self.layers:
+      std = math.sqrt(1.0 / layer.in_features) / _TRUNC_STD
+      nn.init.trunc_normal_(layer.weight, 0.0, std, -2 * std, 2 * std,
+                            generator=generator)
+      nn.init.zeros_(layer.bias)
+
+
+class ActorCritic(nn.Module):
+  """Actor MLP (mean action), critic MLP (value) and the action noise std:
+  `std_param` is the std itself ('scalar', clamped at 1e-4) or its log
+  ('log'). `generator` draws the flax-style initialisation."""
+
+  def __init__(self, actor_dim: int, critic_dim: int, action_dim: int,
+               actor_hidden_dims: Sequence[int] = (512, 256, 128),
+               critic_hidden_dims: Sequence[int] = (512, 256, 128),
+               activation: str = 'elu', init_noise_std: float = 1.0,
+               noise_std_type: str = 'scalar', device='cpu',
+               generator: 'torch.Generator | None' = None):
+    super().__init__()
+    if noise_std_type not in ('scalar', 'log'):
+      raise ValueError(f'noise_std_type {noise_std_type!r}')
+    self.noise_std_type = noise_std_type
+    self.actor = MLP(actor_dim, actor_hidden_dims, action_dim, activation)
+    self.critic = MLP(critic_dim, critic_hidden_dims, 1, activation)
+    init = (init_noise_std if noise_std_type == 'scalar'
+            else math.log(init_noise_std))
+    self.std_param = nn.Parameter(torch.full((action_dim,), init))
+    self.to(device)
+    self.actor.init_flax_(generator)
+    self.critic.init_flax_(generator)
+
+  def forward(self, actor_obs, critic_obs):
+    return self.act_mean(actor_obs), self.std(), self.value(critic_obs)
+
+  def std(self) -> torch.Tensor:
+    if self.noise_std_type == 'scalar':
+      return self.std_param.clamp_min(1e-4)
+    return torch.exp(self.std_param)
+
+  def act_mean(self, actor_obs: torch.Tensor) -> torch.Tensor:
+    return self.actor(actor_obs)
+
+  def value(self, critic_obs: torch.Tensor) -> torch.Tensor:
+    return self.critic(critic_obs)[..., 0]
+
+
+def gaussian_logprob(mean, std, action):
+  var = std * std
+  return -0.5 * torch.sum(torch.square(action - mean) / var
+                          + 2 * torch.log(std) + _LOG_2PI, dim=-1)
+
+
+def gaussian_entropy(std):
+  return torch.sum(0.5 * (1.0 + _LOG_2PI) + torch.log(std), dim=-1)
+
 
 class RunningNorm(nn.Module):
-  """Empirical observation normalization with fixed statistics."""
+  """Empirical observation normalization (rsl_rl EmpiricalNormalization
+  analog): running mean, population variance and sample count."""
 
   def __init__(self, dim: int):
     super().__init__()
     self.register_buffer('mean', torch.zeros(dim))
     self.register_buffer('var', torch.ones(dim))
+    self.register_buffer('count', torch.tensor(1e-4))
+
+  @classmethod
+  def create(cls, dim: int, device='cpu') -> 'RunningNorm':
+    return cls(dim).to(device)
+
+  @torch.no_grad()
+  def update(self, batch: torch.Tensor) -> None:
+    """Fold `batch` (..., dim), flattened over its leading axes, into the
+    statistics, in place. The batch variance is the population one
+    (ddof 0), as jnp.var's."""
+    x = batch.reshape(-1, batch.shape[-1]).to(self.mean.dtype)
+    bmean = x.mean(dim=0)
+    bvar = x.var(dim=0, correction=0)
+    bcount = x.shape[0]
+    delta = bmean - self.mean
+    tot = self.count + bcount
+    new_mean = self.mean + delta * (bcount / tot)
+    m_a = self.var * self.count
+    m_b = bvar * bcount
+    m2 = m_a + m_b + torch.square(delta) * self.count * bcount / tot
+    self.mean.copy_(new_mean)
+    self.var.copy_(m2 / tot)
+    self.count.copy_(tot)
 
   def normalize(self, x: torch.Tensor) -> torch.Tensor:
     # epsilon on std (not var): near-constant dims must not explode
@@ -81,29 +179,79 @@ class Actor(nn.Module):
     return self.act_mean(obs)
 
 
+def _std_key(tree: dict) -> str:
+  return 'std' if 'std' in tree else 'log_std'
+
+
+def _mlp_named(net: str, tree: dict) -> 'dict[str, np.ndarray]':
+  """A flax MLP subtree as arrays under the names of `net`'s layers."""
+  out = {}
+  for i in range(len(tree)):
+    dense = tree[f'Dense_{i}']
+    out[f'{net}.layers.{i}.weight'] = np.asarray(dense['kernel']).T
+    out[f'{net}.layers.{i}.bias'] = np.asarray(dense['bias'])
+  return out
+
+
+def flax_to_named(tree: dict) -> 'dict[str, np.ndarray]':
+  """A flax tree of ActorCritic's layout ({'params': {'actor', 'critic',
+  'std' | 'log_std'}}: parameters or an optimizer moment) as numpy arrays
+  under the names of `ActorCritic.named_parameters()`."""
+  tree = tree['params']
+  return {**_mlp_named('actor', tree['actor']),
+          **_mlp_named('critic', tree['critic']),
+          'std_param': np.asarray(tree[_std_key(tree)])}
+
+
+def _copy_(module: nn.Module, named: dict) -> None:
+  """Copy numpy arrays into `module`'s parameters of the same names."""
+  with torch.no_grad():
+    for name, value in named.items():
+      module.get_parameter(name).copy_(torch.tensor(np.asarray(value)))
+
+
+def _mlp_dims(tree: dict) -> 'list[int]':
+  """[in, hidden..., out] of a flax MLP subtree."""
+  kernels = [np.asarray(tree[f'Dense_{i}']['kernel'])
+             for i in range(len(tree))]
+  return [kernels[0].shape[0]] + [k.shape[1] for k in kernels]
+
+
+def actor_critic_from_numpy(params: dict, activation: str = 'elu',
+                            device='cuda',
+                            dtype=torch.float32) -> ActorCritic:
+  """ActorCritic holding a flax parameter tree as numpy:
+  params['params']['actor' | 'critic']['Dense_i']['kernel' | 'bias'] and
+  params['params']['std' | 'log_std'] (which of the two names the noise
+  std type)."""
+  from mjlab_torch.physics.io import resolve_device
+  dev = resolve_device(device)
+  tree = params['params']
+  a, c = _mlp_dims(tree['actor']), _mlp_dims(tree['critic'])
+  net = ActorCritic(a[0], c[0], a[-1], a[1:-1], c[1:-1], activation,
+                    noise_std_type='scalar' if _std_key(tree) == 'std'
+                    else 'log')
+  _copy_(net, flax_to_named(params))
+  return net.to(device=dev, dtype=dtype)
+
+
 def actor_from_numpy(params: dict, norm: 'dict | None' = None,
                      normalize_obs: bool = False, activation: str = 'elu',
                      device='cuda', dtype=torch.float32) -> Actor:
-  """Actor from a flax parameter tree as numpy:
-  params['params']['actor']['Dense_i']['kernel' | 'bias'], kernel (in, out)
-  (`nn.Linear.weight` is its transpose), and the normalizer's
+  """Actor from a flax parameter tree as numpy (the actor subtree of
+  `actor_critic_from_numpy`'s layout) and the normalizer's
   {'mean', 'var'}."""
   from mjlab_torch.physics.io import resolve_device
-  tree = params['params']['actor']
-  dense = [tree[f'Dense_{i}'] for i in range(len(tree))]
-  kernels = [np.asarray(d['kernel']) for d in dense]
-  actor = Actor(kernels[0].shape[0], kernels[-1].shape[1],
-                [k.shape[1] for k in kernels[:-1]], activation,
-                normalize_obs)
+  dev = resolve_device(device)
+  dims = _mlp_dims(params['params']['actor'])
+  actor = Actor(dims[0], dims[-1], dims[1:-1], activation, normalize_obs)
+  _copy_(actor, _mlp_named('actor', params['params']['actor']))
   with torch.no_grad():
-    for layer, d, k in zip(actor.actor.layers, dense, kernels):
-      layer.weight.copy_(torch.tensor(k.T))
-      layer.bias.copy_(torch.tensor(np.asarray(d['bias'])))
     if norm is not None:
       actor.norm.mean.copy_(torch.tensor(np.asarray(norm['mean'])))
       actor.norm.var.copy_(torch.tensor(np.asarray(norm['var'])))
   actor.requires_grad_(False)  # inference only
-  return actor.to(device=resolve_device(device), dtype=dtype).eval()
+  return actor.to(device=dev, dtype=dtype).eval()
 
 
 def save_actor(path, params: dict, norm: dict, normalize_obs: bool,

@@ -6,8 +6,13 @@ Counterpart of mjlab_tpu/scripts/play.py without rendering and viewers:
     python -m mjlab_torch.scripts.play Mjlab-Velocity-Flat-Unitree-G1-Play \\
         --agent trained --steps 300
 
-Runs on the GPU unless `--device cpu` is given. `--agent trained` loads the
-task's shipped policy, or the .npz given by `--checkpoint`.
+Runs on the GPU unless `--device cpu` is given. `--agent trained` plays a
+runner checkpoint (`model_{it}.pt`: the one `--checkpoint` names, else the
+newest under `--log-root/<experiment_name>`) through the runner's inference
+policy; an actor .npz (rl/networks.py:save_actor) named by `--checkpoint`
+plays as it is, and the task's shipped policy plays when there is no run.
+`--env.*` and `--agent.*` set fields of the env and the agent cfg (the
+agent's network widths must be those of the checkpoint).
 """
 
 from __future__ import annotations
@@ -21,21 +26,29 @@ def main(argv=None):
   parser.add_argument('--agent', choices=['zero', 'random', 'trained'],
                       default='trained')
   parser.add_argument('--checkpoint', default=None,
-                      help='actor .npz (rl/networks.py:save_actor)')
+                      help='runner checkpoint (.pt) or actor (.npz)')
+  parser.add_argument('--log-root', default='logs')
   parser.add_argument('--steps', type=int, default=300)
   parser.add_argument('--num-envs', type=int, default=None)
   parser.add_argument('--device', default='cuda')
-  args = parser.parse_args(argv)
+  args, overrides = parser.parse_known_args(argv)
 
   import torch
 
   from mjlab_torch.rl.networks import load_actor
+  from mjlab_torch.rl.runner import OnPolicyRunner, get_checkpoint_path
   from mjlab_torch.tasks import registry
+  from mjlab_torch.utils.cli import apply_overrides, route_overrides
 
-  overrides = {}
+  env_cfg = registry.load_cfg(args.task, 'env_cfg_entry_point')
+  agent_cfg = registry.load_cfg(args.task, 'rl_cfg_entry_point')
+  env_over, agent_over = route_overrides(overrides)
+  apply_overrides(env_cfg, env_over)
+  apply_overrides(agent_cfg, agent_over)
+  agent_cfg.device = args.device
   if args.num_envs is not None:
-    overrides['scene.num_envs'] = args.num_envs
-  env = registry.make(args.task, device=args.device, **overrides)
+    env_cfg.scene.num_envs = args.num_envs
+  env = registry.make(args.task, cfg=env_cfg, device=args.device)
   dev = env.device
 
   if args.agent == 'zero':
@@ -47,10 +60,21 @@ def main(argv=None):
     policy = lambda obs: torch.randn((env.num_envs, env.action_dim),
                                      generator=gen, device=dev)
   else:
-    ckpt = args.checkpoint or registry.load_cfg(args.task,
-                                                'pretrained_policy')
+    ckpt = args.checkpoint
+    if ckpt is None:
+      try:
+        ckpt = get_checkpoint_path(
+            f'{args.log_root}/{agent_cfg.experiment_name}',
+            agent_cfg.load_run, agent_cfg.load_checkpoint)
+      except FileNotFoundError:
+        ckpt = registry.load_cfg(args.task, 'pretrained_policy')
     print(f'[play] loading {ckpt}')
-    policy = load_actor(ckpt, device=dev)
+    if ckpt.endswith('.npz'):
+      policy = load_actor(ckpt, device=dev)
+    else:
+      runner = OnPolicyRunner(env, agent_cfg)
+      runner.load(ckpt)
+      policy = runner.get_inference_policy()
 
   obs, _ = env.reset()
   # sums stay on the device; the host reads them once, after the loop
@@ -62,11 +86,14 @@ def main(argv=None):
     rew_sum += rew.mean()
     resets += (term | trunc).sum()
     ep_len_sum += extras['episode_length_sum']
-  resets = int(resets)
-  ep_msg = (f', mean episode length: {float(ep_len_sum) / resets:.1f}'
-            if resets else '')
+  stats = {'mean_reward': float(rew_sum) / args.steps, 'resets': int(resets),
+           'mean_episode_length': (float(ep_len_sum) / int(resets)
+                                   if int(resets) else None)}
+  ep_msg = (f', mean episode length: {stats["mean_episode_length"]:.1f}'
+            if stats['resets'] else '')
   print(f'[play] {args.steps} steps, mean reward/step: '
-        f'{float(rew_sum) / args.steps:.4f}, resets: {resets}{ep_msg}')
+        f'{stats["mean_reward"]:.4f}, resets: {stats["resets"]}{ep_msg}')
+  return stats
 
 
 if __name__ == '__main__':

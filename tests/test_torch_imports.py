@@ -10,6 +10,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,7 +39,9 @@ def test_the_walk_reaches_every_subpackage():
     assert any(m.startswith(f'mjlab_torch.{sub}.') for m in mods), sub
   for leaf in ('envs.manager_based_rl_env', 'envs.mdp.events',
                'managers.managers', 'tasks.velocity.config.g1.flat_env_cfg',
-               'tasks.registry', 'rl.networks', 'scripts.play', 'sim.sim'):
+               'tasks.registry', 'rl.networks', 'scripts.play', 'sim.sim',
+               'rl.config', 'rl.ppo', 'rl.runner', 'rl.writers', 'utils.cli',
+               'utils.tables', 'scripts.train'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
@@ -115,6 +118,41 @@ def test_entry_points_default_to_cuda(monkeypatch):
   with pytest.raises(RuntimeError, match='CUDA is not available'):
     tphys.make_data(m)
   assert tphys.make_batched_data(m, 2, device='cpu').qpos.shape == (2, 36)
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
+  """The runner's cfg, the ActorCritic loader and scripts/train.py want
+  the GPU by default and raise on a host without CUDA; given 'cpu' they
+  run there. A runner asked for a device other than its env's raises."""
+  from mjlab_torch.rl.config import RslRlOnPolicyRunnerCfg
+  from mjlab_torch.rl.networks import actor_critic_from_numpy
+  from mjlab_torch.rl.runner import OnPolicyRunner
+  from mjlab_torch.scripts import train
+  from mjlab_torch.tasks import registry
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  assert RslRlOnPolicyRunnerCfg().device == 'cuda'
+  env = registry.make('Mjlab-Velocity-Flat-Unitree-G1', device='cpu',
+                      **{'scene.num_envs': 2})
+  cfg = registry.load_cfg('Mjlab-Velocity-Flat-Unitree-G1',
+                          'rl_cfg_entry_point')
+  assert cfg.device == 'cuda'
+  with pytest.raises(RuntimeError, match='CUDA is not available'):
+    OnPolicyRunner(env, cfg)
+  dense = lambda a, b: {'kernel': np.zeros((a, b), np.float32),
+                        'bias': np.zeros(b, np.float32)}
+  params = {'params': {
+      'actor': {'Dense_0': dense(3, 5), 'Dense_1': dense(5, 2)},
+      'critic': {'Dense_0': dense(4, 1)}, 'std': np.ones(2, np.float32)}}
+  with pytest.raises(RuntimeError, match='CUDA is not available'):
+    actor_critic_from_numpy(params)
+  assert actor_critic_from_numpy(params, device='cpu').std_param.device \
+      == torch.device('cpu')
+  with pytest.raises(RuntimeError, match='CUDA is not available'):
+    train.main(['Mjlab-Velocity-Flat-Unitree-G1', '--log-root',
+                str(tmp_path), '--env.scene.num_envs', '2'])
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+  with pytest.raises(ValueError, match='the env lives on cpu'):
+    OnPolicyRunner(env, cfg)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
