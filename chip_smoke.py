@@ -36,10 +36,22 @@ Phases, each of which exits non-zero on failure:
      into a fresh runner bit for bit, and a run resumed from it; 6c: one
      learn iteration of 8 envs on the card in float32 against the port on
      the CPU with the env in float64; 6d: `scripts/play.main` of the
-     checkpoint).
-The line before the last is a JSON object with one row per kernel; the last
-line is {"ok": true, "device": {...}}. Needs one GPU; imports no JAX and no
-mujoco.
+     checkpoint);
+  7. run the G1 velocity shape of BASELINE config 5 (a policy observation
+     history of 5; foot friction, pelvis mass and joint damping randomized
+     per env at startup, as __graft_entry__.py builds it) at 4096 envs
+     through `registry.make` and the PPO runner (7a: the per-env model
+     fields and the observation width; 7b: 50 env-steps, every K3 launch in
+     its per-env form, launches and waits an env-step; 7c: 3 PPO iterations
+     at the registered widths, resets by cause; 7d: 8 envs on the card in
+     float32 against the CPU in float64 with the same per-env values).
+Phase 2 also holds K3's per-env form (2d: every segment of its float table
+per env at 4096 envs, then body_mass alone, small batches and the model
+variants) against its plain version and times it beside the shared-table
+form. The line before the last is a JSON object with one row per kernel
+(K3's per-env form a row of its own, its launches those of phase 7); the
+last line is {"ok": true, "device": {...}}. Needs one GPU; imports no JAX
+and no mujoco.
 """
 
 from __future__ import annotations
@@ -55,7 +67,8 @@ SUBSTEPS = 100
 ENV_TASK = 'Mjlab-Velocity-Flat-Unitree-G1'
 ENV_STEPS = 150  # 3 s of the 50 Hz control loop
 ZERO_STEPS = 50
-TRAIN_ITERS = 3  # PPO iterations of phase 6a
+TRAIN_ITERS = 3  # PPO iterations of phases 6a and 7c
+ENV_STEPS_5 = 50  # env-steps of phase 7b
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -214,6 +227,30 @@ def k3_variants(base) -> dict:
   }
 
 
+def per_env_k3_model(torch, m, batch: int, gen, fields=None):
+  """Model `m` with the fields of K3's float table (every one, or
+  `fields`) given an env axis of `batch` and distinct values from the CPU
+  generator `gen`: masses, inertias and armature scaled by [0.8, 1.2],
+  positions moved by up to 1 cm, quaternions and joint axes turned a few
+  degrees and normalized, qpos0 moved by up to 0.01."""
+  from mjlab_torch.ops import smooth_kernel as k_smooth
+  out = {}
+  for f in k_smooth.FLOAT_TABLE_FIELDS if fields is None else fields:
+    x = getattr(m, f).detach().cpu().double()
+    x = x.expand((batch,) + tuple(x.shape))
+    u = lambda lo, hi, x=x: lo + (hi - lo) * torch.rand(
+        x.shape, generator=gen, dtype=torch.float64)
+    if f in ('body_mass', 'body_inertia', 'dof_armature'):
+      v = x * u(0.8, 1.2)
+    elif f.endswith('quat') or f == 'jnt_axis':
+      v = x + 0.03 * torch.randn(x.shape, generator=gen, dtype=torch.float64)
+      v = v / v.norm(dim=-1, keepdim=True)
+    else:  # positions, qpos0
+      v = x + u(-0.01, 0.01)
+    out[f] = v.to(device=m.device, dtype=m.dtype)
+  return m.replace(**out)
+
+
 def k3_rel_err(torch, kern: dict, plain, nsite: int) -> float:
   """Worst max |kernel - plain| / (1 + max |plain|) over K3's outputs; a
   model without sites has no site frames to compare."""
@@ -315,6 +352,53 @@ def degenerate_ranges(cfg, num_envs):
     term = getattr(pol, name)
     term.noise = dataclasses.replace(term.noise, n_min=term.noise.n_max)
   return cfg
+
+
+HISTORY = 5  # the policy's observation history in BASELINE config 5
+
+
+def full_dr_history(cfg, mdp, term_cfg):
+  """A G1 flat velocity cfg of either package (`mdp` its envs.mdp,
+  `term_cfg` its managers.term_cfg) in the shape of BASELINE config 5, as
+  __graft_entry__.py builds it: a policy observation history of 5, and
+  startup events that scale the pelvis mass by [0.9, 1.1] and every
+  joint's damping by [0.8, 1.2], beside the task's own foot friction."""
+  cfg.observations.policy.history_length = HISTORY
+  cfg.events.base_mass = term_cfg.EventTermCfg(
+      func=mdp.randomize_field, mode='startup',
+      params={'asset_cfg': term_cfg.SceneEntityCfg('robot',
+                                                   body_names=['pelvis']),
+              'operation': 'scale', 'field': 'body_mass',
+              'ranges': (0.9, 1.1)})
+  cfg.events.joint_damping = term_cfg.EventTermCfg(
+      func=mdp.randomize_field, mode='startup',
+      params={'asset_cfg': term_cfg.SceneEntityCfg('robot',
+                                                   joint_names=['.*']),
+              'operation': 'scale', 'field': 'dof_damping',
+              'ranges': (0.8, 1.2)})
+  return cfg
+
+
+DR_FIELDS = ('body_mass', 'dof_damping', 'geom_friction')  # config 5's
+
+
+def distinct_dr_values(model, num_envs: int, seed: int = 0) -> dict:
+  """Per-env values of config 5's fields, distinct across envs, as numpy
+  arrays drawn once from `seed`, so that two envs (on two devices, or in two
+  packages) can be given the same ones: from the compiled values of
+  `model` (a port Model without an env axis), every body's mass scaled by
+  [0.8, 1.2], every dof's damping drawn in [0, 1] (the G1's compiled
+  damping is zero on every dof, which config 5's scale leaves at zero),
+  every geom's sliding friction drawn in [0.3, 1.2]."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  out = {f: np.repeat(getattr(model, f).detach().cpu().double().numpy()[None],
+                      num_envs, 0) for f in DR_FIELDS}
+  out['body_mass'] *= rng.uniform(0.8, 1.2, out['body_mass'].shape)
+  out['dof_damping'] = rng.uniform(0.0, 1.0, out['dof_damping'].shape)
+  out['geom_friction'][..., 0] = rng.uniform(
+      0.3, 1.2, out['geom_friction'].shape[:-1])
+  return out
 
 
 def tip_over_state(torch, state, env_id: int):
@@ -802,6 +886,252 @@ def _train_path(torch, card: str, root: str) -> dict:
   return launches
 
 
+FLIP_GAP = 1e-6  # m: a contact this close to its threshold may flip in f32
+
+
+def config5_card_vs_cpu(torch, num_envs: int = 8, steps: int = 6):
+  """Config 5's env under the degenerate-range configuration on the card
+  in float32 against the port on the CPU in float64, the same distinct
+  per-env values of its three randomized fields written into both models
+  (distinct_dr_values: drawn once, copied to both), the same actions from
+  numpy's default_rng(0).
+
+  A contact that lies within float32 rounding of its threshold may be
+  active on one side and not on the other; from that substep on the two
+  follow different branches of the contact dynamics. Every substep's
+  active contacts are recorded on both sides: an env in which they first
+  differ in env-step i is compared up to env-step i - 1, and the flip is
+  returned with its contact's distance to the threshold on the CPU.
+  Returns (worst observation err/(1+max|cpu|), worst reward
+  err/(1+max|cpu|), whether every compared done flag agreed, {env:
+  (env-step of its flip, |dist - includemargin| there)}, envs compared to
+  the end)."""
+  import numpy as np
+  from mjlab_torch.envs import mdp as env_mdp
+  from mjlab_torch.managers import term_cfg
+  from mjlab_torch.physics import pipeline
+  from mjlab_torch.tasks import registry
+  envs = []
+  for dev, dt in (('cuda', torch.float32), ('cpu', torch.float64)):
+    cfg = full_dr_history(degenerate_ranges(registry.load_cfg(ENV_TASK),
+                                            num_envs), env_mdp, term_cfg)
+    envs.append(registry.make(ENV_TASK, cfg=cfg, device=dev, dtype=dt))
+  for env in envs:
+    env.reset()
+  values = distinct_dr_values(envs[1].scene.model, num_envs)
+  for env in envs:
+    st = env.state
+    env._state = st.replace(model=st.model.replace(**{
+        f: torch.as_tensor(v, dtype=st.model.dtype, device=env.device)
+        for f, v in values.items()}))
+  # each substep's contacts, by device: (active, dist - includemargin)
+  contacts = {'cuda': [], 'cpu': []}
+  plain_step = pipeline.step
+
+  def recording_step(m, d):
+    out = plain_step(m, d)
+    c = out.contact
+    contacts[out.qpos.device.type].append(
+        ((c.dist < c.includemargin).cpu(),
+         (c.dist - c.includemargin).double().cpu()))
+    return out
+
+  worst_obs, worst_rew, flags_equal = 0.0, 0.0, True
+  flips = {}
+  keep = torch.ones(num_envs, dtype=torch.bool)
+  rng = np.random.default_rng(0)
+  pipeline.step = recording_step
+  try:
+    for i in range(steps):
+      act = 0.3 * rng.normal(size=(num_envs, 29))
+      outs = [env.step(torch.as_tensor(act, dtype=env.state.actions.dtype,
+                                       device=env.device)) for env in envs]
+      for (a_card, _), (a_cpu, gap) in zip(contacts['cuda'][-4:],
+                                           contacts['cpu'][-4:]):
+        differ = a_card != a_cpu
+        for e in torch.nonzero(differ.any(-1) & keep).flatten().tolist():
+          flips[e] = (i, float(gap[e][differ[e]].abs().max()))
+          keep[e] = False
+      (go, gr, gt, gc, _), (co, cr, ct, cc, _) = outs
+      worst_obs = max([worst_obs] + [rel_err(go[g].cpu()[keep], co[g][keep])
+                                     for g in co])
+      worst_rew = max(worst_rew, rel_err(gr.cpu()[keep], cr[keep]))
+      flags_equal &= bool((gt.cpu() == ct)[keep].all()) and bool(
+          (gc.cpu() == cc)[keep].all())
+  finally:
+    pipeline.step = plain_step
+  return worst_obs, worst_rew, flags_equal, flips, int(keep.sum())
+
+
+def config5_path(torch, card: str) -> dict:
+  """Phase 7: the G1 velocity shape of BASELINE config 5 (observation
+  history 5; foot friction, pelvis mass and joint damping randomized per
+  env at startup) at 4096 envs through `registry.make` and the PPO runner
+  at the registered widths. Returns the kernels' launches over its env-steps
+  and its training iterations."""
+  import math
+
+  from mjlab_torch.envs import mdp as env_mdp
+  from mjlab_torch.managers import term_cfg
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  from mjlab_torch.ops import smooth_kernel as k_smooth
+  from mjlab_torch.rl.runner import make_runner
+  from mjlab_torch.tasks import registry
+
+  # ---- 7a: build the env; its per-env model fields and observation --------
+  t0 = time.perf_counter()
+  cfg = full_dr_history(registry.load_cfg(ENV_TASK), env_mdp, term_cfg)
+  cfg.scene.num_envs = B
+  env = registry.make(ENV_TASK, cfg=cfg)  # cuda, float32
+  torch.cuda.synchronize()
+  print(f'config 5: built {B} envs in {time.perf_counter() - t0:.2f} s, per-'
+        f'env fields {env.per_env_fields}, obs {env.observation_dims}',
+        flush=True)
+  m, base = env.model, env.scene.model
+  check(env.per_env_fields == sorted(DR_FIELDS),
+        f'per-env fields {env.per_env_fields}')
+  for f in DR_FIELDS:
+    want = (B,) + tuple(getattr(base, f).shape)
+    check(tuple(getattr(m, f).shape) == want,
+          f'{f} has shape {tuple(getattr(m, f).shape)}, not {want}')
+  view = env.scene['robot']
+  pelvis = int(view.idx.body_ids[list(view.idx.body_names).index('pelvis')])
+  ratio = m.body_mass[:, pelvis] / base.body_mass[pelvis]
+  others = torch.arange(base.body_mass.shape[0], device=m.body_mass.device)
+  others = others != pelvis
+  fric = m.geom_friction[:, :, 0]
+  feet = (fric != base.geom_friction[:, 0]).any(0)
+  f0 = fric[:, feet]
+  damp_ok = bool(((m.dof_damping >= 0.8 * base.dof_damping)
+                  & (m.dof_damping <= 1.2 * base.dof_damping)).all())
+  print(f'config 5: pelvis mass x[{float(ratio.min()):.4f}, '
+        f'{float(ratio.max()):.4f}] (std {float(ratio.std()):.4f}) of '
+        f'{float(base.body_mass[pelvis]):.4f} kg; dof damping in [0.8, 1.2] '
+        f'x compiled: {damp_ok} (compiled damping max '
+        f'{float(base.dof_damping.max()):.4f}); {int(feet.sum())} foot geoms, '
+        f'friction [{float(f0.min()):.4f}, {float(f0.max()):.4f}] (std '
+        f'{float(f0.std()):.4f})', flush=True)
+  check(float(ratio.min()) >= 0.9 - 1e-6 and float(ratio.max()) <= 1.1 + 1e-6
+        and float(ratio.std()) > 0.02, 'pelvis mass not spread over '
+        'x[0.9, 1.1]')
+  check(torch.equal(m.body_mass[:, others],
+                    base.body_mass[others].expand(B, -1)),
+        'a mass other than the pelvis changed')
+  check(damp_ok, 'joint damping outside x[0.8, 1.2] of its compiled value')
+  check(int(feet.sum()) == 14 and float(f0.min()) >= 0.3
+        and float(f0.max()) <= 1.2 and float(f0.std()) > 0.2,
+        'foot friction is not spread over [0.3, 1.2]')
+  terms = env.observation_manager.groups['policy']
+  width = sum(t.dim for t in terms)
+  check(all(t.history == HISTORY for t in terms)
+        and env.observation_dims['policy'] == HISTORY * width,
+        f'policy obs {env.observation_dims["policy"]} is not {HISTORY} x '
+        f'{width}')
+  plan = k_smooth.plan_of(m)
+  check(plan.env_batch == B and plan.dims[15] == 1,
+        'K3 does not take config 5\'s bconst per env')
+
+  # ---- 7b: env-steps; launches and waits an env-step ----------------------
+  kernels = ('smooth_env', 'newton', 'pd_solve', 'smooth')
+  obs, _ = env.reset()
+  check(tuple(obs['policy'].shape) == (B, HISTORY * width),
+        f'obs policy has shape {tuple(obs["policy"].shape)}')
+  agen = torch.Generator(device='cuda').manual_seed(7)
+  acts = 0.3 * torch.randn(ENV_STEPS_5, B, env.action_dim, generator=agen,
+                           device='cuda')
+  per_step = []
+  torch.cuda.synchronize()
+  reset_launches()
+  total = {}
+  t0 = time.perf_counter()
+  for i in range(ENV_STEPS_5):
+    before = [LAUNCHES[k] for k in kernels]
+    obs, rew, _, _, extras = env.step(acts[i])
+    per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  check(bool(torch.isfinite(obs['policy']).all())
+        and bool(torch.isfinite(rew).all()), 'non-finite obs or reward')
+  tip_over(torch, env, 1)
+  before = [LAUNCHES[k] for k in kernels]
+  _, _, term, _, _ = env.step(acts[0])
+  per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+  shapes = sorted(set(per_step))
+  print(f'config 5: {ENV_STEPS_5} env-steps x {B} envs under random actions '
+        f'in {wall:.3f} s = {ENV_STEPS_5 * B / wall:.1f} env-steps/s '
+        f'({wall / ENV_STEPS_5 * 1e3:.2f} ms an env-step); launches per '
+        f'env-step (K3 per env, K2, K1, K3 shared): '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }; card {card}',
+        flush=True)
+  check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
+        f'an env-step launched {shapes}, not 4/4/8 or 5/5/9 with K3 per env')
+  check(bool(term[1]) and per_step[-1] == (5, 5, 9, 0),
+        'a tipped env did not reset with one more forward')
+  act = acts[1]
+
+  def three_steps():
+    for _ in range(3):
+      env.step(act)
+
+  _, syncs = count_syncs(torch, three_steps)
+  print(f'config 5: {len(syncs)} synchronizing calls in 3 env-steps',
+        flush=True)
+  check(len(syncs) == 3, 'env.step synchronizes other than once a step: '
+        + '; '.join(sorted(set(syncs))))
+
+  # ---- 7c: PPO through the runner at the registered widths ----------------
+  agent = registry.load_cfg(ENV_TASK, 'rl_cfg_entry_point')
+  runner = make_runner(env, agent)
+  net0 = {k: p.detach().clone() for k, p in runner.ts.net.named_parameters()}
+  T = agent.num_steps_per_env
+  learn_s = 0.0
+  for _ in range(TRAIN_ITERS):
+    logs = runner.learn(1, log_every=1)
+    learn_s += logs['wall_s']
+    print(f'config 5 iteration {logs["iteration"]}: collection '
+          f'{logs["collection_ms"]:.1f} ms, learning {logs["learning_ms"]:.1f}'
+          f' ms, resets {logs["resets"]:.0f} (fell_over '
+          f'{logs["Episode_Termination/fell_over"]:.0f}, time_out '
+          f'{logs["Episode_Termination/time_out"]:.0f}, physics_nan '
+          f'{logs["Episode_Termination/physics_nan"]:.0f}), loss '
+          f'{logs["loss"]:.4f} kl {logs["kl"]:.5f} std {logs["std"]:.4f}, '
+          f'mean reward {logs["mean_reward"]:.4f}; card {card}', flush=True)
+    check(all(math.isfinite(logs[k]) for k in ('loss', 'pg', 'v', 'ent',
+                                               'kl', 'std')),
+          f'non-finite loss logs at iteration {logs["iteration"]}')
+    check(logs['Episode_Termination/physics_nan'] == 0,
+          'physics_nan fired in training')
+  for k, p in runner.ts.net.named_parameters():
+    check(bool(torch.isfinite(p).all()), f'parameter {k} is not finite')
+    check(not torch.equal(p, net0[k]), f'parameter {k} did not move')
+  torch.cuda.synchronize()
+  launches = dict(LAUNCHES)
+  print(f'config 5: {TRAIN_ITERS * T * B / learn_s:.1f} training env-steps/s '
+        f'({TRAIN_ITERS} x {T} x {B} over {learn_s:.3f} s of learn); every '
+        f'parameter finite and moved; launches over the path {launches}; '
+        f'card {card}', flush=True)
+  check(launches.get('smooth', 0) == 0, 'config 5 launched K3\'s shared '
+        'form')
+  del runner, env
+
+  # ---- 7d: the card against the CPU ---------------------------------------
+  e_obs, e_rew, same, flips, kept = config5_card_vs_cpu(torch)
+  tol7 = 1e-3
+  print(f'config 5, 8 envs, 6 env-steps, the same per-env values, CUDA f32 '
+        f'vs CPU f64: obs err/(1+max|cpu|) {e_obs:.3e}, reward {e_rew:.3e} '
+        f'(tolerance {tol7:g}), done flags equal {same}; contact flips '
+        f'(env: env-step, |dist - margin| on the CPU in m) '
+        f'{ {e: (i, f"{g:.3e}") for e, (i, g) in flips.items()} } '
+        f'(allowed within {FLIP_GAP:g} m of the threshold), {kept} envs '
+        f'compared to the end', flush=True)
+  check(e_obs <= tol7 and e_rew <= tol7 and same,
+        'config 5 on the card disagrees with the CPU')
+  check(all(g <= FLIP_GAP for _, g in flips.values()) and kept >= 6,
+        'a contact flipped between the card and the CPU away from its '
+        'threshold, or in more than two envs')
+  return launches
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -904,6 +1234,92 @@ def main() -> None:
   print('K3 edge cases (worst output err/(1+max|plain|), tolerance '
         f'{tol3:g}): ' + ', '.join(f'{k} {v:.3e}' for k, v in edge3.items()),
         flush=True)
+
+  # ---- phase 2d: K3 with per-env constants (domain randomization) ---------
+  # every segment of the float table per env, then config 5's case (only
+  # body_mass, so only bconst per env), then the model variants
+  pgen = torch.Generator().manual_seed(4)
+  m_env = per_env_k3_model(torch, m, B, pgen)
+  plan_env = k_smooth.plan_of(m_env)
+  check(plan_env.dims[15] == 0b111111 and plan_env.env_batch == B,
+        'not every segment of K3\'s float table is per env')
+  kern_env = k_smooth.smooth_fused_cuda(m_env, d.qpos, d.qvel)
+  plain_env = smooth_fused.plain_all(m_env, d)
+  err3e = max(max_err(kern_env[key], getattr(plain_env, key))
+              for key in k_smooth.OUT_KEYS)
+  worst_e = k3_rel_err(torch, kern_env, plain_env, s.nsite)
+  spread = float((plain_env.qM[1:] - plain_env.qM[:1]).abs().max())
+  print(f'K3 per env, every segment: max abs err {err3e:.3e}, max '
+        f'err/(1+max|plain|) {worst_e:.3e} (tolerance {tol3:g}); qM spread '
+        f'over envs {spread:.3e}', flush=True)
+  check(worst_e <= tol3, 'K3 per env disagrees with its plain version')
+  check(spread > 1e-4, 'the per-env constants did not reach qM')
+  edge3e = {}
+
+  def k3_env_check(what, mv, dv):
+    kern = k_smooth.smooth_fused_cuda(mv, dv.qpos, dv.qvel)
+    check(k_smooth.plan_of(mv).env_batch == dv.qpos.shape[0],
+          f'K3 did not take the per-env form on {what}')
+    e = k3_rel_err(torch, kern, smooth_fused.plain_all(mv, dv),
+                   mv.stat.nsite)
+    check(e <= tol3, f'K3 per env disagrees with its plain version on '
+          f'{what}: {e:.3e}')
+    edge3e[what] = e
+
+  m_mass = per_env_k3_model(torch, m, B, pgen, fields=('body_mass',))
+  check(k_smooth.plan_of(m_mass).dims[15] == 1, 'body_mass alone put more '
+        'than bconst per env')
+  k3_env_check('body_mass alone', m_mass, d)
+  for eb in (1, 33):
+    k3_env_check(f'B={eb}', per_env_k3_model(torch, m, eb, pgen),
+                 g1_states(torch, phys, mj, m, eb, 0.0, ggen))
+  for name, arrays in k3_variants(mj).items():
+    mv = phys.put_model(arrays)
+    k3_env_check(name, per_env_k3_model(torch, mv, 33, pgen),
+                 g1_states(torch, phys, arrays, mv, 33, 0.0, ggen))
+  print('K3 per env, edge cases (worst output err/(1+max|plain|), tolerance '
+        f'{tol3:g}): ' + ', '.join(f'{k} {v:.3e}' for k, v in edge3e.items()),
+        flush=True)
+  # the two forms in turns on one card: shared, per env, per env, shared
+  k3_env = lambda: k_smooth.smooth_fused_cuda(m_env, d.qpos, d.qvel)
+  k3_mass = lambda: k_smooth.smooth_fused_cuda(m_mass, d.qpos, d.qvel)
+  k3_shared = lambda: k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
+  dev_shared = [time_ms(torch, k3_shared, 20, busy=busy)]
+  dev_env = time_ms(torch, k3_env, 20, busy=busy)
+  dev_mass = time_ms(torch, k3_mass, 20, busy=busy)
+  dev_shared.append(time_ms(torch, k3_shared, 20, busy=busy))
+  ms3e = time_ms(torch, k3_env, 20)
+  plain_ms3e = time_ms(torch, lambda: smooth_fused.plain_all(m_env, d), 5)
+  etab_bytes = 4 * plan_env.etab.numel()
+  b3e, by3e = bound_ms(bytes3 + etab_bytes, flops3)
+  b3m, _ = bound_ms(bytes3 + 4 * k_smooth.plan_of(m_mass).etab.numel(),
+                    flops3)
+  epb_env = plan_env.fits[k_smooth.ENVS_PER_BLOCK]
+  smem_env = k_smooth.smooth_smem_bytes(m_env, epb_env)
+  epb_shared = k_smooth.plan_of(m).fits[k_smooth.ENVS_PER_BLOCK]
+  smem_shared = k_smooth.smooth_smem_bytes(m, epb_shared)
+  regs = (k_smooth.smooth_num_regs(False), k_smooth.smooth_num_regs(True))
+  print(f'K3 per env, every segment: {ms3e:.4f} ms, {dev_env:.4f} ms behind '
+        f'a busy card, bound {b3e:.5f} ms by {by3e} (per-env table '
+        f'{etab_bytes} B); body_mass alone: {dev_mass:.4f} ms behind a busy '
+        f'card, bound {b3m:.5f} ms; plain {plain_ms3e:.4f} ms; registers '
+        f'{regs[1]} (shared-table form {regs[0]}); {smem_env} B of shared '
+        f'memory a block of {epb_env} envs (shared-table form {smem_shared} '
+        f'B, {epb_shared} envs); card {card}', flush=True)
+  print(f'K3 shared table, behind a busy card, before and after the '
+        f'per-env timings: {dev_shared[0]:.4f}, {dev_shared[1]:.4f} ms '
+        f'(phase 2a {dev_ms3:.4f} ms; before the per-env form, PERF.md: '
+        f'0.0872 ms); card {card}',
+        flush=True)
+  check(epb_shared == k_smooth.ENVS_PER_BLOCK,
+        f'the shared-table form takes {epb_shared} envs a block')
+  row_env = dict(name='smooth_fused per-env (K3)', route='cuda',
+                 source='mjlab_torch/csrc/smooth.cu',
+                 replaces='mjlab_tpu/ops/smooth_kernel.py:226',
+                 kernel=k_smooth.NAME_PER_ENV, max_abs_err=err3e, ms=ms3e,
+                 device_ms=dev_env, plain_ms=plain_ms3e, bound_ms=b3e,
+                 bound_by=by3e, library_ms=None)
+  del m_env, m_mass, kern_env, plain_env, plan_env
 
   # ---- phase 2b: K1 SPD solve on the implicitfast system -------------------
   df = pipeline.forward(m, d)
@@ -1193,14 +1609,26 @@ def main() -> None:
     check(r['train_path_launches'] > 0,
           f'{r["name"]} was not launched on the training path')
 
+  # ---- phase 7: config 5, every K3 launch in its per-env form ---------------
+  c5_launches = config5_path(torch, card)
+  for r in rows:
+    r['config5_path_launches'] = int(c5_launches.get(kernel_of[r['name']],
+                                                     0))
+  row_env['launches'] = int(c5_launches.get(row_env.pop('kernel'), 0))
+  row_env['config5_path_launches'] = row_env['launches']
+  check(row_env['launches'] > 0 and all(
+      r['config5_path_launches'] > 0 for r in rows[1:]),
+        'a kernel of the config-5 path was not launched on it')
+  rows.append(row_env)
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
-          f'bound {r["bound_ms"]:.5f} ms by {r["bound_by"]}), '
-          f'{r["launches"]} launches on the physics path, '
-          f'{r["env_path_launches"]} on the env path, '
-          f'{r["train_path_launches"]} on the training path; card {card}',
-          flush=True)
+          f'bound {r["bound_ms"]:.5f} ms by {r["bound_by"]}), launches on '
+          f'the physics path {r.get("launches") if r is not row_env else 0},'
+          f' the env path {r.get("env_path_launches", 0)}, the training path '
+          f'{r.get("train_path_launches", 0)}, the config-5 path '
+          f'{r["config5_path_launches"]}; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -49,8 +49,19 @@
 //    whole velocity, is a wide phase between the two.
 //  * The wide phases stride over items, not envs: bodies, geoms and sites,
 //    joints, dofs, the nv * nv entries of qM.
-//  * The model's tables (about 1.3 K floats and 0.7 K ints for the G1) are
+//  * The model's shared tables (1,092 floats and 824 ints for the G1) are
 //    copied into shared memory once a block.
+//  * Per-env constants (domain randomization), as the TPU kernel takes
+//    every segment batched: a segment of the float table (bconst, jconst,
+//    gconst, sconst, qpos0, armature) that the Model carries per env lives
+//    in a second table in global memory, one row of `etab_len` floats an
+//    env, and is left out of the shared table. A warp reads its env's row
+//    there (from L2: 1,089 floats an env on the G1 with every segment per
+//    env), so an env's shared-memory slice and the envs a block stay as
+//    they are. Gravity stays shared: opt.gravity is no field that domain
+//    randomization can name. The kernel is built twice: with every segment
+//    in shared memory (the pointers stay in the shared window), and with
+//    per-env segments (generic pointers, chosen per segment).
 //
 // Built with -DK3_PHASE_CLOCKS (tools/k3_phase_clocks.py), thread 0 of
 // every block adds the cycles of each phase to a global table.
@@ -88,13 +99,20 @@ struct Dims {
   int B, nb, nj, nv, nq, ng, ns, nlevel, gravity_off;
   int nj1, ng1, ns1;
   int itab_len, ftab_len;
+  // floats an env in the per-env table, and which segments are there (bit
+  // k: segment k of bconst, jconst, gconst, sconst, qpos0, armature)
+  int etab_len, env_segs;
   // offsets into the int table
   int o_order, o_level_ptr, o_sweep, o_anc_ptr, o_anc_idx, o_parent,
       o_jnt_of_body, o_jnt_type, o_jnt_qposadr, o_jnt_dofadr, o_rootid,
       o_geom_body, o_site_body, o_body_dofadr, o_dof_body, o_qm_mask;
-  // offsets into the float table
+  // offsets of the segments: into the shared float table, or into an
+  // env's row of the per-env table where the segment's bit is set
   int o_bconst, o_jconst, o_gconst, o_sconst, o_qpos0, o_arm, o_grav;
 };
+
+enum { kSegBody = 1, kSegJnt = 2, kSegGeom = 4, kSegSite = 8, kSegQpos0 = 16,
+       kSegArm = 32 };
 
 constexpr int kNumOut = 18;
 
@@ -151,8 +169,8 @@ struct Layout {
   }
 };
 
-// One block's shared memory, in floats: its envs' slices, then the float
-// and the int table.
+// One block's shared memory, in floats: its envs' slices, then the shared
+// float table and the int table.
 __host__ __device__ inline size_t smem_floats(const Dims& D,
                                               int envs_per_block) {
   return static_cast<size_t>(envs_per_block) * Layout(D).total +
@@ -253,10 +271,14 @@ __device__ __forceinline__ void local_frame(const float* c, const float* bpos,
   q2m(qq, mat);
 }
 
+// kPerEnv: some segments of the float table are read from the env's row of
+// `etab` (Dims::env_segs); without it `etab` is not read.
+template <bool kPerEnv>
 __global__ void smooth_kernel(const float* __restrict__ qpos,
                               const float* __restrict__ qvel,
                               const int* __restrict__ itab,
-                              const float* __restrict__ ftab, Dims D,
+                              const float* __restrict__ ftab,
+                              const float* __restrict__ etab, Dims D,
                               Outs O) {
   extern __shared__ __align__(16) float smem[];
 #ifdef K3_PHASE_CLOCKS
@@ -334,6 +356,16 @@ __global__ void smooth_kernel(const float* __restrict__ qpos,
   const float* qpos0 = ft + D.o_qpos0;
   const float* arm = ft + D.o_arm;
   const float* grav = ft + D.o_grav;
+  if (kPerEnv) {  // the env's own row for the segments it carries per env
+    const float* et = etab + bb * D.etab_len;
+    const int segs = D.env_segs;
+    if (segs & kSegBody) bconst = et + D.o_bconst;
+    if (segs & kSegJnt) jconst = et + D.o_jconst;
+    if (segs & kSegGeom) gconst = et + D.o_gconst;
+    if (segs & kSegSite) sconst = et + D.o_sconst;
+    if (segs & kSegQpos0) qpos0 = et + D.o_qpos0;
+    if (segs & kSegArm) arm = et + D.o_arm;
+  }
 
   // one contiguous output row of this env, from shared memory
   auto copy_out = [&](int which, const float* src, int n) {
@@ -711,27 +743,43 @@ extern "C" size_t smooth_smem_bytes(const int* dims, int envs_per_block) {
   return sizeof(float) * smem_floats(read_dims(dims), envs_per_block);
 }
 
-// One warp an env, `envs_per_block` (1 to 32) warps a block.
+// One warp an env, `envs_per_block` (1 to 32) warps a block. `etab` is
+// the per-env table, (B, etab_len), where Dims::env_segs is not 0.
 extern "C" int smooth_launch(const float* qpos, const float* qvel,
                              const int* itab, const float* ftab,
-                             const int* dims, float* const* outs,
-                             int envs_per_block, void* stream) {
+                             const float* etab, const int* dims,
+                             float* const* outs, int envs_per_block,
+                             void* stream) {
   const Dims D = read_dims(dims);
   Outs O;
   for (int k = 0; k < kNumOut; ++k) O.p[k] = outs[k];
   if (D.B <= 0) return 0;
   if (envs_per_block < 1 || envs_per_block > 32)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool per_env = D.env_segs != 0;
+  if (per_env && (etab == nullptr || D.etab_len <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = per_env ? smooth_kernel<true> : smooth_kernel<false>;
   const size_t smem = smooth_smem_bytes(dims, envs_per_block);
   cudaError_t e = cudaFuncSetAttribute(
-      smooth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (D.B + envs_per_block - 1) / envs_per_block;
-  smooth_kernel<<<blocks, kLanes * envs_per_block, smem,
-                  static_cast<cudaStream_t>(stream)>>>(qpos, qvel, itab, ftab,
-                                                       D, O);
+  kernel<<<blocks, kLanes * envs_per_block, smem,
+           static_cast<cudaStream_t>(stream)>>>(qpos, qvel, itab, ftab, etab,
+                                                D, O);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread of the kernel's shared-table form (per_env 0) or of
+// its per-env form use; a negative CUDA error code on failure.
+extern "C" int smooth_num_regs(int per_env) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, per_env ? reinterpret_cast<const void*>(smooth_kernel<true>)
+                  : reinterpret_cast<const void*>(smooth_kernel<false>));
+  return e == cudaSuccess ? a.numRegs : -static_cast<int>(e);
 }
 
 extern "C" int smooth_dims_count() {

@@ -19,7 +19,6 @@ import torch
 
 from mjlab_torch.managers.term_cfg import SceneEntityCfg
 from mjlab_torch.physics.tables import ix
-from mjlab_torch.sim.sim import PER_ENV_FIELDS
 from mjlab_torch.utils import math as tmath
 
 _DEFAULT = SceneEntityCfg('robot')
@@ -184,18 +183,15 @@ def randomize_field(
     operation: Literal['add', 'scale', 'abs'] = 'abs',
     asset_cfg: SceneEntityCfg = _DEFAULT,
     axes: Optional[List[int]] = None):
-  """Unified model-field randomization; writes the masked rows only.
+  """Unified model-field randomization; writes the masked rows only, with
+  `scale` and `add` acting on the current value.
 
   The model field must carry a leading env axis (the env expands it when
-  it is built). The engine reads `geom_friction` per env; the other fields
-  of FIELD_SPECS raise NotImplementedError."""
+  it is built); the engine reads every field of FIELD_SPECS per env.
+  Returns a new Model: the old one and its tensors are left as they were."""
   if field not in FIELD_SPECS:
     raise ValueError(f'unknown field {field!r}; supported: '
                      f'{list(FIELD_SPECS)}')
-  if field not in PER_ENV_FIELDS:
-    raise NotImplementedError(
-        f'per-env model field {field!r} is not supported by mjlab_torch yet '
-        f'(supported: {list(PER_ENV_FIELDS)})')
   spec = FIELD_SPECS[field]
   view = scene[asset_cfg.name]
   ids = ix(np.asarray(_entity_indices(view, asset_cfg, spec)), model.device)

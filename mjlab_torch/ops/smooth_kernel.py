@@ -7,11 +7,22 @@ physics/smooth_fused.py:plain_all (kinematics -> com_pos -> com_vel -> crb
 rule is the model-class gate (one FREE root joint, at most one HINGE or
 SLIDE joint on every other body, no mocap bodies).
 
+Model constants: the kernel reads a float table cut from the Model in
+segments (bconst, jconst, gconst, sconst, qpos0, armature, and gravity), as
+the TPU kernel takes them. A segment whose fields the Model carries with a
+leading env axis (per-env domain randomization) goes into a per-env table
+of one row an env, which the kernel reads from global memory; the others
+go into the shared table, which a block copies into its shared memory. A
+Model with no per-env segment launches the kernel's shared-table form
+(launches counted as `smooth`), any other its per-env form (`smooth_env`).
+Both tables are built once per Model (`_Plan`).
+
 Fit rule: a warp works on one env whose working set lies in the block's
-shared memory beside the model's tables, so a model runs when the library's
-own `smooth_smem_bytes` (csrc/smooth.cu, the one owner of the layout) for
-one env a block is at most the 227 KB a Hopper block may use; a larger
-model raises. The Unitree G1 needs about 13 KB an env and 8 KB of tables.
+shared memory beside the shared table and the int table, so a model runs
+when the library's own `smooth_smem_bytes` (csrc/smooth.cu, the one owner
+of the layout) for one env a block is at most the 227 KB a Hopper block may
+use; a larger model raises. On the Unitree G1 an env's slice is 13,600 B,
+and the tables are 1,092 floats (all shared) and 824 ints.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from mjlab_torch.ops import _build
 from mjlab_torch.physics.types import DisableBit, JointType
 
 NAME = 'smooth'
+NAME_PER_ENV = 'smooth_env'  # the launch count of the per-env form
 SMEM_LIMIT = _build.SMEM_LIMIT
 
 OUT_KEYS = ('xpos', 'xquat', 'xmat', 'xipos', 'ximat', 'xanchor', 'xaxis',
@@ -37,7 +49,10 @@ OUT_KEYS = ('xpos', 'xquat', 'xmat', 'xipos', 'ximat', 'xanchor', 'xaxis',
 # this, and no more than it takes to give every SM a block.
 ENVS_PER_BLOCK = 16
 
-# Model fields the kernel's float table is cut from (and opt.gravity).
+# Model fields the kernel's float table is cut from, in the order of its
+# segments (bconst: the six body fields; jconst; gconst; sconst; qpos0;
+# armature), then opt.gravity. Gravity is always shared: it is no field
+# that domain randomization can name, in either package.
 FLOAT_TABLE_FIELDS = ('body_pos', 'body_quat', 'body_ipos', 'body_iquat',
                       'body_inertia', 'body_mass', 'jnt_pos', 'jnt_axis',
                       'geom_pos', 'geom_quat', 'site_pos', 'site_quat',
@@ -155,21 +170,47 @@ def _table_sources(m) -> list:
   return [getattr(m, f) for f in FLOAT_TABLE_FIELDS] + [m.opt.gravity]
 
 
-def _float_table(sources):
-  """Model constants in one flat float table, with their offsets."""
+def _float_tables(sources, nsite: int):
+  """The model constants as the kernel reads them: (the shared table, flat;
+  the per-env table, (B, floats an env), or None; the offset of every
+  segment and of gravity in its own table; the bit mask of the per-env
+  segments). A segment is per env where one of its fields carries a
+  leading env axis; its shared fields are then repeated in every row."""
   (body_pos, body_quat, body_ipos, body_iquat, body_inertia, body_mass,
    jnt_pos, jnt_axis, geom_pos, geom_quat, site_pos, site_quat, qpos0,
    dof_armature, gravity) = sources
-  site = (torch.cat([site_pos, site_quat], -1) if site_pos.shape[0]
-          else qpos0.new_zeros((1, 7)))
-  parts = [
-      torch.cat([body_pos, body_quat, body_ipos, body_iquat, body_inertia,
-                 body_mass[:, None]], -1),
-      torch.cat([jnt_pos, jnt_axis], -1),
-      torch.cat([geom_pos, geom_quat], -1),
-      site, qpos0, dof_armature, gravity]
-  offsets = np.cumsum([0] + [p.numel() for p in parts])[:-1]
-  return torch.cat([p.reshape(-1) for p in parts]), [int(o) for o in offsets]
+  # segment k is bit k of Dims::env_segs; every part as rows of an entity,
+  # (n, k) shared or (B, n, k) per env
+  segments = [
+      [body_pos, body_quat, body_ipos, body_iquat, body_inertia,
+       body_mass[..., None]],
+      [jnt_pos, jnt_axis], [geom_pos, geom_quat],
+      [site_pos, site_quat] if nsite else [qpos0.new_zeros((1, 7))],
+      [qpos0[..., None]], [dof_armature[..., None]]]
+  batch = {t.shape[0] for seg in segments for t in seg if t.dim() == 3}
+  if len(batch) > 1:
+    raise ValueError(f'per-env model fields disagree on the number of envs: '
+                     f'{sorted(batch)}')
+  B = batch.pop() if batch else 0
+  shared, per_env, offsets, mask = [], [], [], 0
+  shared_at = env_at = 0
+  for k, seg in enumerate(segments):
+    if any(t.dim() == 3 for t in seg):
+      part = torch.cat([t.expand((B,) + t.shape[-2:]) for t in seg],
+                       -1).reshape(B, -1)
+      offsets.append(env_at)
+      env_at += part.shape[1]
+      per_env.append(part)
+      mask |= 1 << k
+    else:
+      part = torch.cat(seg, -1).reshape(-1)
+      offsets.append(shared_at)
+      shared_at += part.numel()
+      shared.append(part)
+  offsets.append(shared_at)
+  shared.append(gravity)
+  etab = torch.cat(per_env, -1).contiguous() if per_env else None
+  return torch.cat(shared), etab, offsets, mask
 
 
 def _table_key(sources) -> tuple:
@@ -179,21 +220,27 @@ def _table_key(sources) -> tuple:
 
 
 class _Plan:
-  """What a launch needs of one Model, built once: the float table on the
-  model's device, the argument block (Dims of csrc/smooth.cu) and the
-  output shapes. The Model carries it as `_smooth_plan`."""
+  """What a launch needs of one Model, built once: the shared and the
+  per-env float table on the model's device, the argument block (Dims of
+  csrc/smooth.cu) and the output shapes. The Model carries it as
+  `_smooth_plan`."""
 
   def __init__(self, m):
     tree = tree_of(m.stat)
     self.sources = _table_sources(m)  # kept alive: their ids are the key
     self.key = _table_key(self.sources)
-    self.ftab, foffs = _float_table(self.sources)
+    self.ftab, self.etab, foffs, env_segs = _float_tables(self.sources,
+                                                          tree.nsite)
+    # envs of the per-env table; 0: the shared-table form
+    self.env_batch = 0 if self.etab is None else self.etab.shape[0]
+    etab_len = 0 if self.etab is None else self.etab.shape[1]
     self.itab = tree.device_table(m.device)
     nb, nj, nv = tree.nbody, tree.njnt, tree.nv
     nj1, ng1, ns1 = max(nj, 1), max(tree.ngeom, 1), max(tree.nsite, 1)
     dims = [0, nb, nj, nv, tree.nq, tree.ngeom, tree.nsite, tree.nlevel,
             int(tree.gravity_off), nj1, ng1, ns1, len(tree.int_table),
-            self.ftab.numel()] + list(tree.int_offsets.values()) + foffs
+            self.ftab.numel(), etab_len, env_segs] + list(
+                tree.int_offsets.values()) + foffs
     self.dims = (ctypes.c_int * len(dims))(*dims)  # dims[0]: the batch
     self.shapes = [(nb, 3), (nb, 4), (nb, 3, 3), (nb, 3), (nb, 3, 3),
                    (nj1, 3), (nj1, 3), (ng1, 3), (ng1, 3, 3), (ns1, 3),
@@ -206,9 +253,10 @@ class _Plan:
 
 def plan_of(m) -> _Plan:
   """The Model's launch plan. It is rebuilt when a field of the float table
-  was replaced (`m.replace(...)` makes a new Model, which has no plan yet;
-  assigning to a field changes its identity) or written in place (the
-  tensor's version counter), so no launch sees a stale table."""
+  was replaced (`m.replace(...)` makes a new Model, which has no plan yet,
+  as `randomize_field` does; assigning to a field changes its identity) or
+  written in place (the tensor's version counter), so no launch sees a
+  stale table."""
   plan = m.__dict__.get('_smooth_plan')
   if plan is None or plan.key != _table_key(_table_sources(m)):
     plan = _Plan(m)
@@ -222,12 +270,24 @@ def _entry_points(lib):
   once."""
   ptr, c_int = ctypes.c_void_p, ctypes.c_int
   lib.smooth_launch.restype = c_int
-  lib.smooth_launch.argtypes = [ptr] * 6 + [c_int, ptr]
+  lib.smooth_launch.argtypes = [ptr] * 7 + [c_int, ptr]
   lib.smooth_smem_bytes.restype = ctypes.c_size_t
   lib.smooth_smem_bytes.argtypes = [ptr, c_int]
   for count in (lib.smooth_dims_count, lib.smooth_num_outputs):
     count.restype, count.argtypes = c_int, []
+  lib.smooth_num_regs.restype, lib.smooth_num_regs.argtypes = c_int, [c_int]
   return lib.smooth_launch, lib.smooth_smem_bytes
+
+
+def smooth_num_regs(per_env: bool) -> int:
+  """Registers a thread of the kernel's shared-table or per-env form uses,
+  as the CUDA runtime reports them (builds the library on first use)."""
+  lib = _build.library(NAME)
+  _entry_points(lib)
+  n = lib.smooth_num_regs(int(per_env))
+  if n < 0:
+    _build.check(lib, NAME, -n)
+  return n
 
 
 @functools.cache
@@ -268,7 +328,9 @@ def smooth_fused_cuda(m, qpos: torch.Tensor, qvel: torch.Tensor, *,
   smooth-stage outputs, batched on axis 0, keyed as Data fields; they are
   views of one allocation. `envs_per_block` overrides the module's choice.
   Fewer envs go into a block when the number asked for does not fit its
-  shared memory; a model of which one env does not fit raises."""
+  shared memory; a model of which one env does not fit raises. A Model
+  with per-env fields of the float table launches the per-env form, whose
+  envs must be the batch's."""
   s = m.stat
   B = qpos.shape[0]
   _build.require(qpos, 'qpos', (B, s.nq))
@@ -278,6 +340,9 @@ def smooth_fused_cuda(m, qpos: torch.Tensor, qvel: torch.Tensor, *,
   lib = _build.library(NAME)
   launch, _ = _entry_points(lib)
   plan = plan_of(m)
+  if plan.env_batch and plan.env_batch != B:
+    raise ValueError(f'the model carries per-env fields of {plan.env_batch} '
+                     f'envs, the batch has {B}')
   if envs_per_block is None:
     envs_per_block = min(ENVS_PER_BLOCK, max(-(-B // _sm_count(qpos.device)),
                                              1))
@@ -288,10 +353,12 @@ def smooth_fused_cuda(m, qpos: torch.Tensor, qvel: torch.Tensor, *,
       buf.split([B * n for n in plan.sizes]), plan.shapes)]
   outs_c = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
   err = launch(qpos.data_ptr(), qvel.data_ptr(), plan.itab.data_ptr(),
-               plan.ftab.data_ptr(), ctypes.addressof(plan.dims),
-               ctypes.addressof(outs_c), epb, _build.stream_ptr(qpos))
+               plan.ftab.data_ptr(),
+               None if plan.etab is None else plan.etab.data_ptr(),
+               ctypes.addressof(plan.dims), ctypes.addressof(outs_c), epb,
+               _build.stream_ptr(qpos))
   _build.check(lib, NAME, err)
-  _build.LAUNCHES[NAME] += 1
+  _build.LAUNCHES[NAME if plan.etab is None else NAME_PER_ENV] += 1
   res = dict(zip(OUT_KEYS, outs))
   if not plan.ngeom:
     res['geom_xpos'] = res['geom_xpos'][:, :0]

@@ -380,7 +380,8 @@ def make_efc(m: Model, d: Data) -> dict:
     qadr = _ix(s.jnt_qposadr[lay.limit_jnt], dev)
     dadr = _ix(s.jnt_dofadr[lay.limit_jnt], dev)
     q = d.qpos[:, qadr]
-    lo, hi = m.jnt_range[jids, 0], m.jnt_range[jids, 1]
+    # (nl,) or per env (B, nl)
+    lo, hi = m.jnt_range[..., jids, 0], m.jnt_range[..., jids, 1]
     dist_lo = q - lo
     dist_hi = hi - q
     use_lo = dist_lo <= dist_hi

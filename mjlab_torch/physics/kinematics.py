@@ -5,6 +5,11 @@ level (all bodies at one depth at once, with static gather indices), and
 bodies within a level are split by joint type on the host, so no per-env
 branching is needed. Subtree sums and velocities are dense masked matmuls
 over the static ancestor/subtree masks.
+
+A model field may carry a leading env axis (per-env domain randomization,
+sim.sim.PER_ENV_FIELDS): every read indexes the entity axis from the end
+(`[..., ids, :]`), so a field's rows broadcast over the batch whether it
+is shared or per env.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ def kinematics(m: Model, d: Data) -> Data:
     pid = _ix(s.body_parentid[ids], dev)
     p_pos = xpos[:, pid]
     p_quat = xquat[:, pid]
-    pos = p_pos + pmath.rot_vec_quat(m.body_pos[tids], p_quat)
-    quat = pmath.mul_quat(p_quat, m.body_quat[tids])
+    pos = p_pos + pmath.rot_vec_quat(m.body_pos[..., tids, :], p_quat)
+    quat = pmath.mul_quat(p_quat, m.body_quat[..., tids, :])
 
     max_jnt = int(s.body_jntnum[ids].max()) if len(ids) else 0
     for k in range(max_jnt):
@@ -61,8 +66,8 @@ def kinematics(m: Model, d: Data) -> Data:
           xaxis[:, jsel] = _mask(pmath._EZ, d.qpos)
           continue
 
-        jpos = m.jnt_pos[jsel]
-        jaxis = m.jnt_axis[jsel]
+        jpos = m.jnt_pos[..., jsel, :]
+        jaxis = m.jnt_axis[..., jsel, :]
         anchor = pos[:, sel] + pmath.rot_vec_quat(jpos, quat[:, sel])
         axis_w = pmath.rot_vec_quat(jaxis, quat[:, sel])
         xanchor[:, jsel] = anchor
@@ -70,12 +75,12 @@ def kinematics(m: Model, d: Data) -> Data:
 
         if jt == JointType.SLIDE:
           tq = _ix(qadr, dev)
-          delta = d.qpos[:, tq] - m.qpos0[tq]
+          delta = d.qpos[:, tq] - m.qpos0[..., tq]
           pos[:, sel] = pos[:, sel] + axis_w * delta[..., None]
         else:
           if jt == JointType.HINGE:
             tq = _ix(qadr, dev)
-            angle = d.qpos[:, tq] - m.qpos0[tq]
+            angle = d.qpos[:, tq] - m.qpos0[..., tq]
             qloc = pmath.axis_angle_to_quat(jaxis, angle)
           else:  # BALL
             qloc = pmath.normalize_quat(
@@ -114,15 +119,17 @@ def com_pos(m: Model, d: Data) -> Data:
   dev, dtype = d.qpos.device, d.qpos.dtype
   sub = _mask(s.subtree_mask, d.qpos)
 
-  mass = m.body_mass
-  weighted = mass[:, None] * d.xipos  # (B, nbody, 3)
-  subtree_mass = sub @ mass
-  subtree_com = (sub @ weighted) / subtree_mass.clamp_min(1e-12)[:, None]
+  mass = m.body_mass  # (nbody,) or (B, nbody)
+  weighted = mass[..., None] * d.xipos  # (B, nbody, 3)
+  subtree_mass = (sub @ mass[..., None])[..., 0]
+  subtree_com = (sub @ weighted) / subtree_mass.clamp_min(1e-12)[..., None]
 
   root = _ix(s.body_rootid, dev)
   croot = subtree_com[:, root]
-  inert_world = torch.einsum('nbij,bj,nbkj->nbik', d.ximat, m.body_inertia,
-                             d.ximat)
+  inertia = m.body_inertia
+  inert_world = torch.einsum(
+      'nbij,bj,nbkj->nbik' if inertia.dim() == 2 else 'nbij,nbj,nbkj->nbik',
+      d.ximat, inertia, d.ximat)
   cinr = pmath.spatial_inertia(mass, inert_world, d.xipos - croot)
 
   B = d.qpos.shape[0]

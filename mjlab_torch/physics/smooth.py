@@ -39,7 +39,8 @@ def crb(m: Model, d: Data) -> Data:
   L = raw * (mask * torch.ones_like(mask).tril())
   qM = L + L.transpose(-1, -2) - torch.diag_embed(
       torch.diagonal(L, dim1=-2, dim2=-1))
-  return d.replace(qM=qM + torch.diag(m.dof_armature))
+  # armature (nv,) or per env (B, nv)
+  return d.replace(qM=qM + torch.diag_embed(m.dof_armature))
 
 
 def rne(m: Model, d: Data) -> Data:
@@ -71,7 +72,7 @@ def passive(m: Model, d: Data) -> Data:
     jsel_np = np.nonzero(s.jnt_type == int(jt))[0]
     if len(jsel_np) == 0:
       continue
-    stiff = m.jnt_stiffness[_ix(jsel_np, dev)]
+    stiff = m.jnt_stiffness[..., _ix(jsel_np, dev)]  # (k,) or (B, k)
     qadr = s.jnt_qposadr[jsel_np]
     dadr = s.jnt_dofadr[jsel_np]
     if jt in (JointType.SLIDE, JointType.HINGE):

@@ -7,7 +7,9 @@ Counterpart of mjlab_tpu/physics/types.py, in PyTorch idiom:
   host-side object of numpy arrays and ints. Python loops over its tables
   take the place of the JAX code's trace-time unrolling.
 * `Model` holds the numeric model parameters as tensors on one device. It
-  is shared by every env of a batch.
+  is shared by every env of a batch, but for the fields that domain
+  randomization writes (sim.sim.PER_ENV_FIELDS), which may carry a leading
+  env axis.
 * `Data` is the dynamic state. Every tensor carries a leading env axis B:
   the engine is written natively batched (no vmap).
 """
@@ -251,7 +253,8 @@ class Option:
 
 @dataclasses.dataclass
 class Model:
-  """Numeric model parameters, one copy for the whole batch."""
+  """Numeric model parameters, one copy for the whole batch; a field of
+  sim.sim.PER_ENV_FIELDS may be (B, ...) instead, one row an env."""
   stat: ModelStatic
   opt: Option
 
@@ -314,7 +317,7 @@ class Model:
 
   @property
   def device(self) -> torch.device:
-    return self.qpos0.device
+    return self.qpos0.device  # qpos0 may be (nq,) or per env (B, nq)
 
   @property
   def dtype(self) -> torch.dtype:

@@ -23,11 +23,19 @@ _CONE = {'pyramidal': ConeType.PYRAMIDAL, 'elliptic': ConeType.ELLIPTIC}
 _INTEGRATOR = {'euler': IntegratorType.EULER,
                'implicitfast': IntegratorType.IMPLICITFAST}
 
-# Model fields the engine reads with a leading env axis. The other fields
-# that domain randomization may name (envs/mdp/events.py:FIELD_SPECS) feed
-# the constant tables of the fused smooth stage and of the Newton solve,
-# which are built for one model shared by every env.
-PER_ENV_FIELDS = ('geom_friction',)
+# Model fields the engine reads with a leading env axis: every field that
+# domain randomization may name (the keys of envs/mdp/events.py:
+# FIELD_SPECS). Each stage reads its env's row of an expanded field and the
+# one row of a shared one; the fused smooth stage's kernel (K3) takes the
+# segments of its float table per env where the Model carries them so. The
+# Newton solve (K2) reads no model table but `ldof`, a joint-limit index
+# list that no field here changes. Derived fields (body_subtreemass, the
+# *_invweight0) stay as compiled, as in the reference.
+PER_ENV_FIELDS = (
+    'dof_armature', 'dof_frictionloss', 'dof_damping', 'jnt_range',
+    'jnt_stiffness', 'body_mass', 'body_ipos', 'body_iquat', 'body_inertia',
+    'body_pos', 'body_quat', 'geom_friction', 'geom_pos', 'geom_quat',
+    'geom_rgba', 'site_pos', 'site_quat', 'qpos0')
 
 
 @dataclasses.dataclass
@@ -74,13 +82,14 @@ class SimulationCfg:
 def expand_model_fields(model: Model, fields: 'list[str]',
                         num_envs: int) -> Model:
   """Give the selected model fields a leading env axis (a fresh tensor per
-  field), so per-env domain randomization can write them."""
+  field), so per-env domain randomization can write them. A field outside
+  PER_ENV_FIELDS raises: the engine would read it as shared."""
   updates = {}
   for f in sorted(set(fields)):
     if f not in PER_ENV_FIELDS:
       raise NotImplementedError(
-          f'per-env model field {f!r} is not supported by mjlab_torch yet '
-          f'(supported: {list(PER_ENV_FIELDS)})')
+          f'per-env model field {f!r} is not supported by mjlab_torch '
+          f'(ROADMAP 12.11; supported: {list(PER_ENV_FIELDS)})')
     leaf = getattr(model, f)
     updates[f] = leaf.expand((num_envs,) + leaf.shape).clone()
   return model.replace(**updates)

@@ -1,19 +1,28 @@
 """The port's CUDA kernels against their plain versions on the card, at a
-small batch of G1 flat envs. They need an NVIDIA GPU and the CUDA toolkit
-and skip elsewhere; `python3 chip_smoke.py` holds the kernels at the main
+small batch of G1 flat envs, K3 also with per-env model constants (its
+per-env form). They need an NVIDIA GPU and the CUDA toolkit and skip
+elsewhere; `python3 chip_smoke.py` holds the kernels at the main
 path's full shapes."""
 
 import pytest
 import torch
 
 import mjlab_torch.physics as tphys
-from chip_smoke import g1_states, k3_rel_err, k3_variants, random_newton_args
+from chip_smoke import (
+    g1_states,
+    k3_rel_err,
+    k3_variants,
+    per_env_k3_model,
+    random_newton_args,
+)
 from mjlab_torch.asset_zoo import g1_flat_arrays
+from mjlab_torch.ops import LAUNCHES
 from mjlab_torch.ops import newton as tnewton
 from mjlab_torch.ops import pd_solve as tpd
 from mjlab_torch.ops import smooth_kernel as tsk
 from mjlab_torch.physics import constraint, linalg, pipeline, smooth
 from mjlab_torch.physics import smooth_fused, solver
+from mjlab_torch.sim.sim import expand_model_fields
 
 pytestmark = pytest.mark.cuda
 B = 64
@@ -114,6 +123,111 @@ def test_smooth_kernel_fit_rule(g1, monkeypatch):
   monkeypatch.setattr(tsk, 'SMEM_LIMIT', one - 4)
   with pytest.raises(ValueError, match='shared memory'):
     tsk.smooth_fused_cuda(m, d.qpos, d.qvel)
+
+
+# ---- K3's per-env form (per-env domain randomization) ----------------------
+
+
+def _per_env_both(m, d, **kw):
+  """A per-env model of `m` (chip_smoke.per_env_k3_model) through the
+  kernel, which must take its per-env form once, against plain_all."""
+  me = per_env_k3_model(torch, m, d.qpos.shape[0],
+                        torch.Generator().manual_seed(11), **kw)
+  before = (LAUNCHES['smooth'], LAUNCHES['smooth_env'])
+  err = _smooth_both(me, d)
+  assert (LAUNCHES['smooth'], LAUNCHES['smooth_env']) == (
+      before[0], before[1] + 1)
+  return me, err
+
+
+@pytest.mark.parametrize('batch', [33, 4096, 4099])
+def test_smooth_kernel_per_env_matches_plain(g1, batch):
+  """Every segment of the float table per env, at a ragged batch and at the
+  main path's 4096."""
+  m, _ = g1
+  gen = torch.Generator().manual_seed(batch)
+  d = g1_states(torch, tphys, g1_flat_arrays(), m, batch, 0.0, gen)
+  me, err = _per_env_both(m, d)
+  assert err < TOL
+  assert tsk.plan_of(me).dims[15] == 0b111111
+
+
+def test_smooth_kernel_per_env_body_mass_alone(g1):
+  """Config 5's case: only body_mass per env, so only bconst."""
+  m, d = g1
+  me, err = _per_env_both(m, d, fields=('body_mass',))
+  assert err < TOL
+  assert tsk.plan_of(me).dims[15] == 1
+
+
+@pytest.mark.parametrize('variant', ['slide', 'slide, gravity off',
+                                     'no sites'])
+def test_smooth_kernel_per_env_model_variants(g1, variant):
+  arrays = k3_variants(g1_flat_arrays())[variant]
+  m = tphys.put_model(arrays)
+  d = g1_states(torch, tphys, arrays, m, 33, 0.0,
+                torch.Generator().manual_seed(8))
+  assert _per_env_both(m, d)[1] < TOL
+
+
+def test_smooth_kernel_per_env_plan_once_and_after_randomize(g1,
+                                                               monkeypatch):
+  """The per-env table is built once per Model: launches on one Model
+  reuse it; `randomize_field` makes a new Model, whose first launch builds
+  its own, with the new values."""
+  from mjlab_torch.envs.mdp import randomize_field
+  from mjlab_torch.managers.term_cfg import SceneEntityCfg
+  from mjlab_torch.tasks import registry
+  m, d = g1
+  env = registry.make('Mjlab-Velocity-Flat-Unitree-G1',
+                      **{'scene.num_envs': B})
+  me = expand_model_fields(m, ['body_mass'], B)
+  built = []
+  init = tsk._Plan.__init__
+  monkeypatch.setattr(tsk._Plan, '__init__',
+                      lambda self, mm: (built.append(mm), init(self, mm))[1])
+  for _ in range(3):
+    tsk.smooth_fused_cuda(me, d.qpos, d.qvel)
+  assert len(built) == 1
+  mask = torch.arange(B, device='cuda') % 2 == 0
+  pelvis = SceneEntityCfg('robot', body_names=['pelvis']).resolve(env.scene)
+  m2 = randomize_field(me, env.scene, torch.Generator(device='cuda'), mask,
+                       field='body_mass', ranges=(2.0, 2.0),
+                       operation='scale', asset_cfg=pelvis)
+  assert _smooth_both(m2, d) < TOL
+  assert len(built) == 2 and built[-1] is m2
+  etab = tsk.plan_of(m2).etab
+  assert torch.equal(etab[mask, 18 + 17], 2 * m.body_mass[1].expand(B // 2))
+  assert torch.equal(etab[~mask, 18 + 17], m.body_mass[1].expand(B // 2))
+  assert tsk.plan_of(me) is not tsk.plan_of(m2) and len(built) == 2
+
+
+def test_smooth_kernel_forms_take_16_envs_a_block(g1):
+  """The shared-table form keeps its 16 envs a block; the per-env form
+  takes as many, with less shared memory (its per-env segments are read
+  from global memory)."""
+  m, d = g1
+  lib = tsk._build.library(tsk.NAME)
+  me = per_env_k3_model(torch, m, B, torch.Generator().manual_seed(1))
+  epb = tsk.ENVS_PER_BLOCK
+  assert tsk._fit(lib, tsk.plan_of(m), epb) == epb == 16
+  assert tsk._fit(lib, tsk.plan_of(me), epb) == epb
+  shared = tsk.smooth_smem_bytes(m, epb)
+  per_env = tsk.smooth_smem_bytes(me, epb)
+  assert shared <= tsk.SMEM_LIMIT
+  # the per-env segments leave the shared table (gravity stays)
+  gone = tsk.plan_of(m).ftab.numel() - tsk.plan_of(me).ftab.numel()
+  assert gone == tsk.plan_of(me).etab.shape[1] and 0 < shared - per_env <= \
+      4 * gone
+  assert _smooth_both(me, d, envs_per_block=epb) < TOL
+  assert tsk.smooth_num_regs(False) > 0 and tsk.smooth_num_regs(True) > 0
+
+
+def test_smooth_kernel_per_env_batch_must_match(g1):
+  m, d = g1
+  me = expand_model_fields(m, ['qpos0'], B + 1)
+  with pytest.raises(ValueError, match='per-env fields'):
+    tsk.smooth_fused_cuda(me, d.qpos, d.qvel)
 
 
 def test_pd_solve_kernel_matches_plain(g1):

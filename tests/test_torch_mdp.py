@@ -1,10 +1,11 @@
 """Every MDP term of the port against the JAX package's on the same EnvCtx
 contents (G1 flat velocity task, 4 envs, float64, 1e-9): observation, reward
 and termination terms one by one, the reset and interval events and
-`randomize_field` with point ranges (so no value depends on a draw), the
-command term and the managers' own arithmetic; and the engine's per-env
-`geom_friction`: `_mix_params` with an env axis against the JAX `vmap`, and
-bit-equal to the shared path where every env has the same friction."""
+`randomize_field` with point ranges (so no value depends on a draw) on
+every field of FIELD_SPECS, the command term and the managers' own
+arithmetic; and the engine's per-env `geom_friction`: `_mix_params` with an
+env axis against the JAX `vmap`, and bit-equal to the shared path where
+every env has the same friction."""
 
 import math
 
@@ -17,8 +18,10 @@ import torch
 from mjlab_tpu.managers import managers as jman
 from mjlab_tpu.managers import term_cfg as jtc
 from mjlab_tpu.physics import collision as jcol
+from mjlab_tpu.sim.sim import expand_model_fields as jexpand
 from mjlab_tpu.tasks.velocity import mdp as jmdp
 from mjlab_torch.envs.io import env_state_to_numpy
+from mjlab_torch.envs.mdp import events as tevents
 from mjlab_torch.managers import managers as tman
 from mjlab_torch.managers import term_cfg as ttc
 from mjlab_torch.physics import collision as tcol
@@ -257,21 +260,66 @@ def test_randomize_geom_friction_matches_jax(pair, operation, ranges, axes,
   assert got.geom_friction.shape == (N, tenv.model.stat.ngeom, 3)
 
 
-@pytest.mark.parametrize('field', sorted(
-    set(tmdp.FIELD_SPECS) - {'geom_friction'}))
-def test_other_per_env_fields_raise(pair, field):
-  """Only geom_friction is read per env by the engine: every other field
-  of FIELD_SPECS is refused by name, when the env would expand it and when
-  an event would write it."""
+# the entities each kind of field is randomized on: some of them, so that
+# the rows of the others must stay as they were
+DR_ENTITIES = {
+    'dof': SOME_JOINTS, 'joint': SOME_JOINTS, 'body': FEET,
+    'geom': FOOT_GEOMS, 'site': _entity(site_names=['.*_foot', 'left_palm']),
+}
+
+
+@pytest.mark.parametrize('field', sorted(tmdp.FIELD_SPECS))
+def test_randomize_field_matches_jax(pair, field):
+  """Every field of FIELD_SPECS, env-expanded in both packages with the same
+  distinct per-env values: `abs`, `scale` and `add` with a point range
+  write the same values into the masked envs' rows of the selected
+  entities, and leave every other row as it was."""
+  jenv, tenv, js, ts = pair
+  spec = tmdp.FIELD_SPECS[field]
+  jm, tm = js.model, ts.model
+  if field not in tenv.per_env_fields:
+    jm = jexpand(jm, [field], N)
+    tm = expand_model_fields(tm, [field], N)
+  rng = np.random.default_rng(len(field))
+  start = np.asarray(getattr(jm, field))
+  start = start * rng.uniform(0.8, 1.2, start.shape) + rng.uniform(
+      0.0, 0.1, start.shape)
+  jm = jm.replace(**{field: jnp.asarray(start)})
+  tm = tm.replace(**{field: torch.as_tensor(start)})
+  params = {'field': field, 'asset_cfg': DR_ENTITIES[spec.entity_type]}
+  ids = tevents._entity_indices(
+      tenv.scene['robot'],
+      _params(ttc, tman, tenv.scene, tmdp.randomize_field,
+              params)['asset_cfg'], spec)
+  picked = np.zeros(start.shape[1], bool)
+  picked[ids] = True
+  assert 0 < picked.sum() < len(picked)
+  for operation, ranges in (('abs', (0.37, 0.37)), ('scale', (1.1, 1.1)),
+                            ('add', (-0.05, -0.05))):
+    case = {**params, 'operation': operation, 'ranges': ranges}
+    want = jmdp.randomize_field(
+        jm, jenv.scene, KEY, jnp.asarray(MASK),
+        **_params(jtc, jman, jenv.scene, jmdp.randomize_field, case))
+    got = tmdp.randomize_field(
+        tm, tenv.scene, _gen(), torch.as_tensor(MASK),
+        **_params(ttc, tman, tenv.scene, tmdp.randomize_field, case))
+    new = getattr(got, field)
+    _close(new, getattr(want, field), f'{field} {operation}', 1e-12)
+    assert torch.equal(getattr(tm, field), torch.as_tensor(start)), \
+        'written in place'
+    changed = (new.numpy() != start).reshape(N, len(picked), -1).any(-1)
+    assert not changed[~MASK].any(), f'{operation}: an unmasked env changed'
+    assert not changed[:, ~picked].any(), \
+        f'{operation}: an entity outside the selection changed'
+    assert changed[MASK][:, picked].any(), f'{operation} wrote nothing'
+
+
+def test_unknown_fields_are_refused(pair):
+  """A field outside FIELD_SPECS is refused by name: the engine would read
+  it as shared."""
   _, tenv, _, ts = pair
-  with pytest.raises(NotImplementedError, match=field):
-    expand_model_fields(tenv.scene.model, [field], N)
-  with pytest.raises(NotImplementedError, match=field):
-    tmdp.randomize_field(ts.model, tenv.scene, _gen(),
-                         torch.as_tensor(MASK), field=field,
-                         ranges=(0.9, 1.1), operation='scale',
-                         asset_cfg=ttc.SceneEntityCfg('robot').resolve(
-                             tenv.scene))
+  with pytest.raises(NotImplementedError, match='geom_size'):
+    expand_model_fields(tenv.scene.model, ['geom_size'], N)
   with pytest.raises(ValueError, match='unknown field'):
     tmdp.randomize_field(ts.model, tenv.scene, _gen(),
                          torch.as_tensor(MASK), field='geom_size',

@@ -9,7 +9,8 @@ rule of cdof_dot (mjlab_tpu/ops/smooth_kernel.py:385-392).
 Also here, without a GPU: the schedule the CUDA kernel walks (`_Tree`: level
 table, sweep order, qM bit mask), replayed in numpy against `plain_all`;
 the once-per-model float table; and the model variants of the kernel's
-edge-case gates (slide joints, gravity off) through both packages."""
+edge-case gates (slide joints, gravity off) through both packages; the
+per-env tables of a Model whose fields carry an env axis."""
 
 import copy
 
@@ -28,6 +29,7 @@ from mjlab_torch.ops import smooth_kernel as tsk
 from mjlab_torch.physics import pipeline as tpipe
 from mjlab_torch.physics import smooth_fused as tsf
 from mjlab_torch.physics.io import ModelArrays
+from mjlab_torch.sim.sim import expand_model_fields
 from torch_parity import (
     g1_flat_mjmodel,
     g1_states,
@@ -202,6 +204,35 @@ def test_float_table_is_built_once_per_model():
   assert tsk.plan_of(m) is not plan3
   assert torch.equal(tsk.plan_of(m).ftab[plan.dims[-2]:plan.dims[-1]],
                      m.dof_armature)
+  assert plan.etab is None and plan.env_batch == 0 and plan.dims[15] == 0
+
+  # per-env segments: body_mass and qpos0 with an env axis put the bconst
+  # and qpos0 segments into a per-env table, one row an env, and out of the
+  # shared one; the other segments stay shared
+  n, nb, nq = 3, m.stat.nbody, m.stat.nq
+  e = expand_model_fields(
+      tphys.put_model(g1_flat_arrays(), device='cpu', dtype=torch.float32),
+      ['body_mass', 'qpos0', 'dof_damping'], n)
+  e.body_mass[1, 1] *= 2  # env 1's pelvis
+  pe = tsk.plan_of(e)
+  assert tsk.plan_of(e) is pe
+  assert pe.env_batch == n and pe.dims[15] == 0b010001  # bconst, qpos0
+  assert tuple(pe.etab.shape) == (n, 18 * nb + nq) == (n, pe.dims[14])
+  assert pe.ftab.numel() == plan.ftab.numel() - 18 * nb - nq
+  assert pe.etab[1, pe.dims[-7] + 18 + 17] == 2 * pe.etab[0, 18 + 17]
+  assert torch.equal(pe.etab[:, pe.dims[-3]:pe.dims[-3] + nq], e.qpos0)
+  assert torch.equal(pe.ftab[pe.dims[-2]:pe.dims[-1]], e.dof_armature)
+  # the shared table is the shared-table plan's without those segments
+  full = tsk.plan_of(tphys.put_model(g1_flat_arrays(), device='cpu')).ftab
+  d = plan.dims
+  assert torch.equal(pe.ftab, torch.cat([full[d[-6]:d[-3]], full[d[-2]:]]))
+  # a write of a per-env field rebuilds it, in place or by replace
+  e.body_mass[2, 3] += 1
+  assert tsk.plan_of(e) is not pe
+  e2 = e.replace(body_mass=e.body_mass * 1.1)
+  assert tsk.plan_of(e2).etab[1, 18 + 17] == e2.body_mass[1, 1]
+  with pytest.raises(ValueError, match='number of envs'):
+    tsk.plan_of(e.replace(qpos0=e.qpos0[:2]))
 
 
 def _variant_mjmodel(gravity_off):
