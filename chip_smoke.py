@@ -31,12 +31,13 @@ Phases, each of which exits non-zero on failure:
   6. run the training path: `python -m mjlab_torch.scripts.train` of the
      same task at 4096 envs and the registered network widths (6a: 3 PPO
      iterations through `train.main`, launches counted per rollout env-step,
-     logs, parameters and the checkpoint checked, then the synchronizing
-     calls of one rollout and one update counted; 6b: the checkpoint loaded
-     into a fresh runner bit for bit, and a run resumed from it; 6c: one
-     learn iteration of 8 envs on the card in float32 against the port on
-     the CPU with the env in float64; 6d: `scripts/play.main` of the
-     checkpoint);
+     logs, parameters and the checkpoint checked, the deployment ONNX
+     written beside it read back and evaluated in numpy against the
+     runner's inference policy, then the synchronizing calls of one rollout
+     and one update counted; 6b: the checkpoint loaded into a fresh runner
+     bit for bit, and a run resumed from it; 6c: one learn iteration of 8
+     envs on the card in float32 against the port on the CPU with the env
+     in float64; 6d: `scripts/play.main` of the checkpoint);
   7. run the G1 velocity shape of BASELINE config 5 (a policy observation
      history of 5; foot friction, pelvis mass and joint damping randomized
      per env at startup, as __graft_entry__.py builds it) at 4096 envs
@@ -44,18 +45,31 @@ Phases, each of which exits non-zero on failure:
      fields and the observation width; 7b: 50 env-steps, every K3 launch in
      its per-env form, launches and waits an env-step; 7c: 3 PPO iterations
      at the registered widths, resets by cause; 7d: 8 envs on the card in
-     float32 against the CPU in float64 with the same per-env values).
+     float32 against the CPU in float64 with the same per-env values);
+  8. run the Unitree Go1 flat velocity task (BASELINE config 2; nv 18,
+     57 contact slots without compaction, a box trunk) through its entry
+     points (8a: `registry.make` at 4096 envs and the model's widths; 8b:
+     100 env-steps under random actions with noise, pushes and resets on,
+     launches and waits an env-step, the plane-box pair active; 8c:
+     `scripts/demo.main` in a fresh log root, which finds no policy,
+     trains 3 PPO iterations at the registered 1024 envs through
+     `train.main`, exports the ONNX and plays; 8d: 8 envs on the card in
+     float32 against the CPU in float64).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
-form. The line before the last is a JSON object with one row per kernel
-(K3's per-env form a row of its own, its launches those of phase 7); the
-last line is {"ok": true, "device": {...}}. Needs one GPU; imports no JAX
-and no mujoco.
+form, and K1-K3 at the Go1's shapes (2e: 4096 Go1 envs on the floor, a
+third of them on their backs with the trunk box flat, so the plane-box
+rows are active). The line before the last is a JSON object with one row
+per kernel (K3's per-env form a row of its own, its launches those of
+phase 7; each row's `go1` holds its phase-2e numbers and
+`go1_path_launches` its launches in phase 8); the last line is {"ok":
+true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -69,6 +83,8 @@ ENV_STEPS = 150  # 3 s of the 50 Hz control loop
 ZERO_STEPS = 50
 TRAIN_ITERS = 3  # PPO iterations of phases 6a and 7c
 ENV_STEPS_5 = 50  # env-steps of phase 7b
+GO1_TASK = 'Mjlab-Velocity-Flat-Unitree-Go1'
+GO1_STEPS = 100  # env-steps of phase 8b
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -134,6 +150,20 @@ def chol_solve_flops(n: int) -> int:
   return chol + 2 * n * n
 
 
+def k3_work(k_smooth, s, d, kern) -> 'tuple[int, int]':
+  """(bytes, FLOPs) one K3 call needs for the batch `d` and the outputs
+  `kern`: qpos and qvel read once, every output written once."""
+  out_floats = sum(v.numel() for v in kern.values())
+  nbytes = 4 * (d.qpos.numel() + d.qvel.numel() + out_floats)
+  npairs = sum(len(p) for p in k_smooth.tree_of(s).qm_pairs)
+  # arithmetic of csrc/smooth.cu per env: per body (kinematics, frames,
+  # cinr, crb, RNE) ~572 FLOPs, per geom or site frame ~108, per dof (cdof,
+  # cdof_dot, velocity, qM row product, bias) ~150, per qM entry 12
+  flops = d.qpos.shape[0] * (572 * s.nbody + 108 * (s.ngeom + s.nsite)
+                             + 150 * s.nv + 12 * npairs)
+  return nbytes, flops
+
+
 def newton_steps(torch, solver, args, iters, polish, ldof, grad_th):
   """Per env, the Newton iterations that step before the freeze rule
   (||grad||^2 <= grad_th^2) stops it, counted on the plain solver: the
@@ -191,6 +221,32 @@ def g1_states(torch, phys, mj, m, batch: int, drop: float, gen):
       batch, -1).clone()
   d = phys.make_batched_data(m, batch)
   return d.replace(qpos=qpos.to(dev), qvel=qvel.to(dev), ctrl=ctrl.to(dev))
+
+
+def go1_floor_states(key_qpos, nv: int, batch: int, seed: int):
+  """`batch` Go1 flat states on the floor as numpy (qpos, qvel) from
+  numpy's default_rng(seed), in turns: upside down with the trunk box
+  lying flat 2 mm deep in the floor (its four lowest corners at one depth,
+  the tie the collider's stable sort decides), upside down and tilted up to
+  0.1 rad, and standing from `key_qpos` (the keyframe) with joint noise,
+  dropped 3 cm. Velocities are drawn with std 0.3."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  qpos = np.tile(np.asarray(key_qpos, np.float64), (batch, 1))
+  qpos[:, 7:] += 0.05 * rng.normal(size=(batch, qpos.shape[1] - 7))
+  kind = np.arange(batch) % 3
+  tilt = np.where(kind == 1, 1.0, 0.0)[:, None] * rng.uniform(
+      -0.1, 0.1, (batch, 2))
+  # (0, 1, 0, 0), half a turn about x, then the tilt about x and y
+  hx, hy = tilt[:, 0] / 2, tilt[:, 1] / 2
+  flip = np.stack([-np.sin(hx) * np.cos(hy), np.cos(hx) * np.cos(hy),
+                   np.sin(hx) * np.sin(hy), -np.cos(hx) * np.sin(hy)], -1)
+  up = kind < 2
+  qpos[up, 3:7] = flip[up]
+  qpos[up, 2] = np.where(kind[up] == 0, 0.048, 0.05)
+  qpos[~up, 2] -= 0.03
+  qvel = 0.3 * rng.normal(size=(batch, nv))
+  return qpos, qvel
 
 
 def g1_variant(base, slide=(), gravity_off=False, drop_sites=False):
@@ -320,7 +376,7 @@ def rel_err(a, b) -> float:
 
 
 def degenerate_ranges(cfg, num_envs):
-  """Collapse every sampling range of a G1 flat velocity cfg to a point, so
+  """Collapse every sampling range of a flat velocity cfg to a point, so
   that no output depends on a random draw while every code path still runs:
   resets move and turn the root, commands resample inside a few steps,
   pushes fire every third step, observation noise is a constant offset.
@@ -351,6 +407,12 @@ def degenerate_ranges(cfg, num_envs):
                'joint_pos', 'joint_vel'):
     term = getattr(pol, name)
     term.noise = dataclasses.replace(term.noise, n_min=term.noise.n_max)
+  # the command-velocity curriculum (on for the Go1) holds the ranges the
+  # command draws from: its base range and its stage, each a point
+  curr = cfg.curriculum.command_vel
+  if curr is not None:
+    params(curr, base_range=(0.6, 0.6), velocity_stages=[
+        {**s, 'range': (0.6, 0.6)} for s in curr.params['velocity_stages']])
   return cfg
 
 
@@ -462,8 +524,6 @@ class StageTimer:
     self.gpu, self.host = {}, {}
 
   def __call__(self, name):
-    import contextlib
-
     @contextlib.contextmanager
     def timed():
       start = self.torch.cuda.Event(enable_timing=True)
@@ -713,6 +773,28 @@ def train_card_vs_cpu(torch, num_envs: int = 8, steps: int = 4):
   return errs, flags, dones, max_diff, share, n_steps, lr
 
 
+@contextlib.contextmanager
+def launches_per_step(kernels):
+  """Within the block, every env-step of any env (ManagerBasedRlEnv's
+  `_step_fn`) appends its launches of `kernels` to the yielded list."""
+  from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
+  from mjlab_torch.ops import LAUNCHES
+  per_step = []
+  plain_step = ManagerBasedRlEnv._step_fn
+
+  def counted_step(self, *a, **kw):
+    before = [LAUNCHES[k] for k in kernels]
+    out = plain_step(self, *a, **kw)
+    per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+    return out
+
+  ManagerBasedRlEnv._step_fn = counted_step
+  try:
+    yield per_step
+  finally:
+    ManagerBasedRlEnv._step_fn = plain_step
+
+
 def train_path(torch, card: str) -> dict:
   """Phase 6: the training path at 4096 envs. Returns the kernels' launches
   over the 3 iterations of `train.main` (env build and reset included)."""
@@ -729,27 +811,14 @@ def _train_path(torch, card: str, root: str) -> dict:
   import math
   import os
 
-  from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
   from mjlab_torch.ops import LAUNCHES, reset_launches
   from mjlab_torch.rl.runner import OnPolicyRunner
   from mjlab_torch.scripts import play, train
 
   argv = [ENV_TASK, '--log-root', root, '--env.scene.num_envs', str(B)]
-  kernels = ('smooth', 'newton', 'pd_solve')
 
   # ---- 6a: 3 iterations through the entry point ----------------------------
-  # every env-step of the rollout records its kernels' launches
-  per_step = []
-  plain_step = ManagerBasedRlEnv._step_fn
-
-  def counted_step(self, *a, **kw):
-    before = [LAUNCHES[k] for k in kernels]
-    out = plain_step(self, *a, **kw)
-    per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
-    return out
-
-  ManagerBasedRlEnv._step_fn = counted_step
-  try:
+  with launches_per_step(('smooth', 'newton', 'pd_solve')) as per_step:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -758,8 +827,6 @@ def _train_path(torch, card: str, root: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-  finally:
-    ManagerBasedRlEnv._step_fn = plain_step
   cfg, env = runner.cfg, runner.env
   T = cfg.num_steps_per_env
   print(f'train path: {TRAIN_ITERS} iterations of {T} env-steps x {B} envs '
@@ -806,6 +873,7 @@ def _train_path(torch, card: str, root: str) -> dict:
 
   ckpt = os.path.join(run, f'model_{TRAIN_ITERS}.pt')
   check(os.path.exists(ckpt), f'{ckpt} was not written')
+  onnx_check(torch, runner, ckpt, 'train path')
   net0 = runner.alg.init_net(torch.Generator(device=env.device).manual_seed(
       cfg.seed + 1))
   moved = []
@@ -889,12 +957,13 @@ def _train_path(torch, card: str, root: str) -> dict:
 FLIP_GAP = 1e-6  # m: a contact this close to its threshold may flip in f32
 
 
-def config5_card_vs_cpu(torch, num_envs: int = 8, steps: int = 6):
-  """Config 5's env under the degenerate-range configuration on the card
-  in float32 against the port on the CPU in float64, the same distinct
-  per-env values of its three randomized fields written into both models
-  (distinct_dr_values: drawn once, copied to both), the same actions from
-  numpy's default_rng(0).
+def card_vs_cpu_flips(torch, task: str, make_cfg, steps: int,
+                      values=None):
+  """The env of `task` with the cfg `make_cfg()` builds (its sampling
+  ranges collapsed to a point) on the card in float32 against the port on
+  the CPU in float64, the same actions from numpy's default_rng(0), and
+  `values(model)` (per-env model fields as numpy, drawn once from the CPU
+  env's Model) written into both models.
 
   A contact that lies within float32 rounding of its threshold may be
   active on one side and not on the other; from that substep on the two
@@ -907,23 +976,21 @@ def config5_card_vs_cpu(torch, num_envs: int = 8, steps: int = 6):
   (env-step of its flip, |dist - includemargin| there)}, envs compared to
   the end)."""
   import numpy as np
-  from mjlab_torch.envs import mdp as env_mdp
-  from mjlab_torch.managers import term_cfg
   from mjlab_torch.physics import pipeline
   from mjlab_torch.tasks import registry
-  envs = []
-  for dev, dt in (('cuda', torch.float32), ('cpu', torch.float64)):
-    cfg = full_dr_history(degenerate_ranges(registry.load_cfg(ENV_TASK),
-                                            num_envs), env_mdp, term_cfg)
-    envs.append(registry.make(ENV_TASK, cfg=cfg, device=dev, dtype=dt))
+  envs = [registry.make(task, cfg=make_cfg(), device=dev, dtype=dt)
+          for dev, dt in (('cuda', torch.float32), ('cpu', torch.float64))]
   for env in envs:
     env.reset()
-  values = distinct_dr_values(envs[1].scene.model, num_envs)
-  for env in envs:
-    st = env.state
-    env._state = st.replace(model=st.model.replace(**{
-        f: torch.as_tensor(v, dtype=st.model.dtype, device=env.device)
-        for f, v in values.items()}))
+  if values is not None:
+    vals = values(envs[1].scene.model)
+    for env in envs:
+      st = env.state
+      env._state = st.replace(model=st.model.replace(**{
+          f: torch.as_tensor(v, dtype=st.model.dtype, device=env.device)
+          for f, v in vals.items()}))
+  num_envs = envs[1].num_envs
+  substeps = envs[1].cfg.decimation
   # each substep's contacts, by device: (active, dist - includemargin)
   contacts = {'cuda': [], 'cpu': []}
   plain_step = pipeline.step
@@ -943,11 +1010,11 @@ def config5_card_vs_cpu(torch, num_envs: int = 8, steps: int = 6):
   pipeline.step = recording_step
   try:
     for i in range(steps):
-      act = 0.3 * rng.normal(size=(num_envs, 29))
+      act = 0.3 * rng.normal(size=(num_envs, envs[1].action_dim))
       outs = [env.step(torch.as_tensor(act, dtype=env.state.actions.dtype,
                                        device=env.device)) for env in envs]
-      for (a_card, _), (a_cpu, gap) in zip(contacts['cuda'][-4:],
-                                           contacts['cpu'][-4:]):
+      for (a_card, _), (a_cpu, gap) in zip(contacts['cuda'][-substeps:],
+                                           contacts['cpu'][-substeps:]):
         differ = a_card != a_cpu
         for e in torch.nonzero(differ.any(-1) & keep).flatten().tolist():
           flips[e] = (i, float(gap[e][differ[e]].abs().max()))
@@ -961,6 +1028,24 @@ def config5_card_vs_cpu(torch, num_envs: int = 8, steps: int = 6):
   finally:
     pipeline.step = plain_step
   return worst_obs, worst_rew, flags_equal, flips, int(keep.sum())
+
+
+def config5_card_vs_cpu(torch, num_envs: int = 8, steps: int = 6):
+  """Config 5's env under the degenerate-range configuration on the card
+  against the CPU (card_vs_cpu_flips), the same distinct per-env values of
+  its three randomized fields written into both models
+  (distinct_dr_values)."""
+  from mjlab_torch.envs import mdp as env_mdp
+  from mjlab_torch.managers import term_cfg
+  from mjlab_torch.tasks import registry
+
+  def make_cfg():
+    return full_dr_history(degenerate_ranges(registry.load_cfg(ENV_TASK),
+                                             num_envs), env_mdp, term_cfg)
+
+  return card_vs_cpu_flips(
+      torch, ENV_TASK, make_cfg, steps,
+      values=lambda model: distinct_dr_values(model, num_envs))
 
 
 def config5_path(torch, card: str) -> dict:
@@ -1132,6 +1217,380 @@ def config5_path(torch, card: str) -> dict:
   return launches
 
 
+def onnx_check(torch, runner, path: str, what: str) -> float:
+  """The deployment ONNX the runner wrote beside the checkpoint `path`
+  (its .onnx and .onnx.meta.json) read back by parse_model and evaluated
+  in numpy on 256 of the rollout's observations, against the runner's
+  inference policy on the card. The tasks train without observation
+  normalization, so the graph's normalizer must be the identity; the
+  metadata's joints are the action term's. Returns the error over
+  (1 + max |actions|)."""
+  import os
+
+  import numpy as np
+  from mjlab_torch.rl import onnx_writer
+  onnx = os.path.splitext(path)[0] + '.onnx'
+  check(os.path.exists(onnx) and os.path.exists(onnx + '.meta.json'),
+        f'{what}: {onnx} or its sidecar was not written')
+  parsed = onnx_writer.parse_model(onnx)
+  with open(onnx + '.meta.json') as f:
+    meta = json.load(f)
+  alg = runner.alg
+  obs = {k: v[:256] for k, v in runner.ts.obs.items()}
+  want = runner.get_inference_policy()(obs).double().cpu()
+  got = onnx_writer.run_mlp_policy(
+      parsed, alg._cat_obs(obs, alg.actor_groups).cpu().numpy())
+  err = float((torch.as_tensor(got).double() - want).abs().max()) / scale(
+      want)
+  init = parsed['initializers']
+  identity = bool((init['obs_mean'] == 0).all() and (init['obs_std'] == 1)
+                  .all())
+  joints = list(runner.env.action_manager.terms['joint_pos'].joint_names)
+  print(f'{what}: {os.path.basename(onnx)} nodes '
+        f'{[n["op_type"] for n in parsed["nodes"]]}, graph in numpy vs the '
+        f'inference policy on the card, 256 observations: err/(1+max|a|) '
+        f'{err:.3e} (tolerance 1e-4); identity normalizer {identity}; '
+        f'{len(meta["joint_names"])} joints in the metadata', flush=True)
+  check(not runner.cfg.policy.actor_obs_normalization,
+        f'{what}: the task trains with normalization; the check expects an '
+        'identity normalizer')
+  check(err <= 1e-4, f'{what}: the ONNX graph disagrees with the policy')
+  check(identity, f'{what}: the ONNX graph folds in a normalizer the policy '
+        'does not use')
+  check(meta['joint_names'] == joints,
+        f'{what}: the ONNX metadata names other joints than the action term')
+  return err
+
+
+def go1_kernels(torch, card: str, busy) -> dict:
+  """Phase 2e: K1-K3 at the Go1's shapes (n = 18, 14 bodies, 57
+  uncompacted contact slots, 228 pyramid rows) on 4096 Go1 floor states
+  (go1_floor_states: a third of the trunks lying flat, so the plane-box
+  pair is active), each against its plain version and timed as in
+  phase 2. Returns {kernel: its numbers}."""
+  import numpy as np
+
+  import mjlab_torch.physics as phys
+  from mjlab_torch.asset_zoo import go1_flat_arrays
+  from mjlab_torch.ops import newton as k_newton
+  from mjlab_torch.ops import pd_solve as k_pd
+  from mjlab_torch.ops import smooth_kernel as k_smooth
+  from mjlab_torch.physics import constraint, linalg, pipeline, smooth
+  from mjlab_torch.physics import smooth_fused, solver
+  from mjlab_torch.physics.types import GeomType
+
+  arrays = go1_flat_arrays()
+  m = phys.put_model(arrays)
+  s = m.stat
+  qpos, qvel = go1_floor_states(arrays.key_qpos[0], s.nv, B, seed=5)
+  f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device='cuda')
+  d = phys.make_batched_data(m, B).replace(
+      qpos=f32(qpos), qvel=f32(qvel),
+      ctrl=f32(np.tile(arrays.key_ctrl[0], (B, 1))))
+  out = {}
+
+  # K3
+  check(smooth_fused.enabled(s), 'K3 refuses the Go1')
+  kern = k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
+  plain = smooth_fused.plain_all(m, d)
+  err = max(max_err(kern[k], getattr(plain, k)) for k in k_smooth.OUT_KEYS)
+  rel = k3_rel_err(torch, kern, plain, s.nsite)
+  check(rel <= 1e-4, f'K3 disagrees with its plain version on the Go1: '
+        f'{rel:.3e}')
+  call = lambda: k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
+  nbytes, flops = k3_work(k_smooth, s, d, kern)
+  bound, by = bound_ms(nbytes, flops)
+  epb = k_smooth.plan_of(m).fits[k_smooth.ENVS_PER_BLOCK]
+  out['smooth'] = dict(
+      max_abs_err=err, rel_err=rel, ms=time_ms(torch, call, 20),
+      device_ms=time_ms(torch, call, 20, busy=busy),
+      plain_ms=time_ms(torch, lambda: smooth_fused.plain_all(m, d), 5),
+      bound_ms=bound, bound_by=by, library_ms=None, envs_per_block=epb,
+      smem_bytes=k_smooth.smooth_smem_bytes(m, epb))
+
+  # K2
+  df = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
+  df = smooth.fwd_smooth(m, smooth.actuation(m, df))
+  efc = constraint.make_efc(m, df)
+  n, ncr, nl = s.nv, efc['c_J'].shape[1], efc['l_sign'].shape[1]
+  box = s.pairs.groups[(int(GeomType.PLANE), int(GeomType.BOX))][3]
+  box_envs = int(efc['c_active'][:, 4 * box:4 * box + 16].any(-1).sum())
+  print(f'Go1 K2 input: n {n}, ncr {ncr}, nl {nl}; {box_envs} of {B} envs '
+        f'with active plane-box rows, {int(efc["c_active"].sum())} active '
+        f'contact rows in all; K2 needs '
+        f'{k_newton.newton_smem_bytes(n, ncr, nl)} B of shared memory a '
+        f'block', flush=True)
+  check((n, ncr, nl) == (18, 228, 12), 'the Go1 rows are not 18/228/12')
+  check(k_newton.fits(n, ncr, nl), 'K2 does not fit the Go1')
+  check(box_envs > 0, 'no active plane-box rows in the Go1 K2 input')
+  args = solver.newton_args(df, efc)
+  iters, polish, ldof, grad_th = solver.solver_params(s)
+  kargs = dict(iterations=iters, ls_polish=polish, ldof=ldof,
+               grad_th=grad_th)
+  got = k_newton.newton_solve_cuda(*args, **kargs)
+  want = solver.newton_plain(*args, iters, polish, ldof, grad_th)
+  rel = max(rel_err(a, b) for a, b in zip(got, want))
+  check(rel <= 1e-3, f'K2 disagrees with its plain version on the Go1: '
+        f'{rel:.3e}')
+  call = lambda: k_newton.newton_solve_cuda(*args, **kargs)
+  need, nc, rows_b, nbytes, flops = newton_work(torch, solver, args, iters,
+                                                polish, ldof, grad_th)
+  bound, by = bound_ms(nbytes, flops)
+  out['newton'] = dict(
+      max_abs_err=max_err(got[0], want[0]), rel_err=rel,
+      ms=time_ms(torch, call, 20),
+      device_ms=time_ms(torch, call, 20, busy=busy),
+      plain_ms=time_ms(torch, lambda: solver.newton_plain(
+          *args, iters, polish, ldof, grad_th), 5),
+      bound_ms=bound, bound_by=by, library_ms=None,
+      newton_steps=float(need.double().mean()),
+      active_contact_rows=float(nc.double().mean()),
+      smem_bytes=k_newton.newton_smem_bytes(n, ncr, nl))
+
+  # K1 on the implicitfast system
+  dfw = pipeline.forward(m, d)
+  deriv = m.dof_damping - pipeline._actuator_vel_deriv(m, dfw)
+  H = (dfw.qM + m.opt.timestep * torch.diag_embed(deriv)).contiguous()
+  g = (dfw.qfrc_smooth + dfw.qfrc_constraint).contiguous()
+  x_k, x_p = k_pd.solve_pd_cuda(H, g), linalg.solve_pd(H, g)
+  rel = rel_err(x_k, x_p)
+  check(rel <= 1e-4, f'K1 disagrees with its plain version on the Go1: '
+        f'{rel:.3e}')
+  bound, by = bound_ms(4 * B * (n * n + 2 * n), B * chol_solve_flops(n))
+  out['pd_solve'] = dict(
+      max_abs_err=max_err(x_k, x_p), rel_err=rel,
+      ms=time_ms(torch, lambda: k_pd.solve_pd_cuda(H, g), 20),
+      device_ms=time_ms(torch, lambda: k_pd.solve_pd_cuda(H, g), 20,
+                        busy=busy),
+      plain_ms=time_ms(torch, lambda: linalg.solve_pd(H, g), 5),
+      bound_ms=bound, bound_by=by,
+      library_ms=time_ms(torch, lambda: torch.linalg.solve(H, g[..., None]),
+                         20))
+  for k, v in out.items():
+    print(f'Go1 {k}: max abs err {v["max_abs_err"]:.3e}, err/(1+max|plain|) '
+          f'{v["rel_err"]:.3e}; {v["ms"]:.4f} ms, {v["device_ms"]:.4f} ms '
+          f'behind a busy card, plain {v["plain_ms"]:.4f} ms, bound '
+          f'{v["bound_ms"]:.5f} ms by {v["bound_by"]}'
+          + (f', library {v["library_ms"]:.4f} ms'
+             if v['library_ms'] is not None else '')
+          + f'; card {card}', flush=True)
+  return out
+
+
+def go1_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
+  """Phase 8d: the Go1 env, its sampling ranges collapsed to a point, on
+  the card against the CPU (card_vs_cpu_flips)."""
+  from mjlab_torch.tasks import registry
+  return card_vs_cpu_flips(
+      torch, GO1_TASK,
+      lambda: degenerate_ranges(registry.load_cfg(GO1_TASK), num_envs),
+      steps)
+
+
+def go1_path(torch, card: str) -> dict:
+  """Phase 8: the Go1 flat velocity task. Returns the kernels' launches
+  over its env-steps (8b) and its demo (8c)."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_go1_')
+  try:
+    return _go1_path(torch, card, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _go1_path(torch, card: str, root: str) -> dict:
+  import math
+  import os
+
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  from mjlab_torch.physics import smooth_fused
+  from mjlab_torch.physics.types import GeomType
+  from mjlab_torch.scripts import demo
+  from mjlab_torch.tasks import registry
+
+  kernels = ('smooth', 'newton', 'pd_solve', 'smooth_env')
+  torch.cuda.synchronize()
+  reset_launches()
+
+  # ---- 8a: build the env; its model's widths -------------------------------
+  t0 = time.perf_counter()
+  env = registry.make(GO1_TASK, **{'scene.num_envs': B})  # cuda, float32
+  obs, _ = env.reset()
+  torch.cuda.synchronize()
+  s = env.model.stat
+  box_key = (int(GeomType.PLANE), int(GeomType.BOX))
+  groups = {f'{GeomType(k[0]).name}-{GeomType(k[1]).name}': len(v[0])
+            for k, v in s.pairs.groups.items()}
+  print(f'Go1: built and reset {B} envs in {time.perf_counter() - t0:.2f} s '
+        f'on {env.device}; nq {s.nq} nv {s.nv} nu {s.nu}, '
+        f'{s.pairs.ncon_max} contact slots, caps {s.ncon_cap}/{s.ncon_cap1}, '
+        f'pair groups {groups}; obs {env.observation_dims}, actions '
+        f'{env.action_dim}', flush=True)
+  check(env.device.type == 'cuda', 'the Go1 env is not on the card')
+  check((s.nv, s.pairs.ncon_max, s.ncon_cap, s.ncon_cap1) == (18, 57, 0, 0)
+        and box_key in s.pairs.groups, 'the Go1 model is not nv 18 with 57 '
+        'uncompacted slots and the plane-box pair')
+  check(smooth_fused.enabled(s), 'K3 refuses the Go1')
+  box = s.pairs.groups[box_key][3]
+
+  # ---- 8b: env-steps under random actions; launches and waits --------------
+  agen = torch.Generator(device='cuda').manual_seed(8)
+  acts = torch.randn(GO1_STEPS, B, env.action_dim, generator=agen,
+                     device='cuda')
+  ok = torch.ones((), dtype=torch.bool, device='cuda')
+  nan_count = torch.zeros((), dtype=torch.long, device='cuda')
+  resets = torch.zeros((), device='cuda')
+  box_steps = torch.zeros((), dtype=torch.long, device='cuda')
+  per_step = []
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for i in range(GO1_STEPS):
+    before = [LAUNCHES[k] for k in kernels]
+    obs, rew, _, _, extras = env.step(acts[i])
+    per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+    ok &= torch.isfinite(obs['policy']).all() & torch.isfinite(rew).all()
+    nan_count += extras['Episode_Termination/physics_nan']
+    resets += extras['reset_count']
+    c = env.state.data.contact
+    box_steps += (c.dist < c.includemargin)[:, box:box + 4].any()
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  # env 1 laid on its back, the trunk box flat 2 mm deep in the floor: its
+  # substeps take the plane-box rows, and the env-step resets it
+  from mjlab_torch.physics import pipeline
+  qpos = env.state.data.qpos.clone()
+  qpos[1, 2] = 0.048
+  qpos[1, 3:7] = torch.tensor([0.0, 1.0, 0.0, 0.0], device=qpos.device)
+  env._state = env.state.replace(data=env.state.data.replace(qpos=qpos))
+  laid = []
+  plain_step = pipeline.step
+
+  def recording_step(m, d):
+    out = plain_step(m, d)
+    c = out.contact
+    laid.append((c.dist < c.includemargin)[1, box:box + 4].all())
+    return out
+
+  pipeline.step = recording_step
+  try:
+    before = [LAUNCHES[k] for k in kernels]
+    _, _, term, _, _ = env.step(acts[0])
+    per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+  finally:
+    pipeline.step = plain_step
+  laid = int(torch.stack(laid).sum())
+  shapes = sorted(set(per_step))
+  print(f'Go1: {GO1_STEPS} env-steps x {B} envs under random actions in '
+        f'{wall:.3f} s = {GO1_STEPS * B / wall:.1f} env-steps/s '
+        f'({wall / GO1_STEPS * 1e3:.2f} ms an env-step); resets '
+        f'{int(resets)}, physics_nan {int(nan_count)}; plane-box contact '
+        f'active at the end of {int(box_steps)} of {GO1_STEPS} env-steps, and '
+        f'on all four corners in {laid} of the {env.cfg.decimation} '
+        f'substeps of env 1 laid on its back; launches per '
+        f'env-step (K3, K2, K1, K3 per env): '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }; card {card}',
+        flush=True)
+  check(bool(ok), 'non-finite observation or reward on the Go1 path')
+  check(int(nan_count) == 0, f'physics_nan fired {int(nan_count)} times')
+  check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
+        f'a Go1 env-step launched {shapes}, not 4/4/8 or 5/5/9')
+  check(bool(term[1]) and per_step[-1] == (5, 5, 9, 0),
+        'a Go1 env on its back did not reset with one more forward')
+  check(laid > 0, 'the plane-box pair was not active for a trunk lying on '
+        'the floor')
+  act = acts[1]
+
+  def three_steps():
+    for _ in range(3):
+      env.step(act)
+
+  _, syncs = count_syncs(torch, three_steps)
+  print(f'Go1: {len(syncs)} synchronizing calls in 3 env-steps', flush=True)
+  check(len(syncs) == 3, 'env.step synchronizes other than once a step: '
+        + '; '.join(sorted(set(syncs))))
+  del env, obs, acts
+
+  # ---- 8c: the demo trains at the registered envs, exports and plays ------
+  with launches_per_step(kernels) as per_step:
+    t0 = time.perf_counter()
+    out = demo.main(['--log-root', root, '--train-iterations',
+                     str(TRAIN_ITERS), '--steps', '50'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  runner = out['runner']
+  check(runner is not None, 'the demo found a policy and did not train')
+  cfg, env = runner.cfg, runner.env
+  T = cfg.num_steps_per_env
+  shapes = sorted(set(per_step))
+  print(f'Go1 demo: trained {TRAIN_ITERS} iterations of {T} env-steps x '
+        f'{env.num_envs} envs (widths actor {cfg.policy.actor_hidden_dims} '
+        f'critic {cfg.policy.critic_hidden_dims}, '
+        f'{cfg.algorithm.num_learning_epochs} epochs x '
+        f'{cfg.algorithm.num_mini_batches} minibatches), exported and played '
+        f'in {wall:.2f} s; launches per env-step (K3, K2, K1, K3 per env) '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
+  check(env.num_envs == 1024 and env.device.type == 'cuda',
+        'the demo did not train 1024 envs on the card')
+  check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
+        f'a demo env-step launched {shapes}, not 4/4/8 or 5/5/9')
+  run = os.path.join(root, cfg.experiment_name, 'demo')
+  with open(os.path.join(run, 'metrics.jsonl')) as f:
+    lines = [json.loads(line) for line in f]
+  for l_ in lines:
+    print(f'Go1 demo iteration {l_["iteration"]}: collection '
+          f'{l_["collection_ms"]:.1f} ms, learning {l_["learning_ms"]:.1f} '
+          f'ms, resets {l_["resets"]:.0f}, physics_nan '
+          f'{l_["Episode_Termination/physics_nan"]:.0f}, loss '
+          f'{l_["loss"]:.4f} kl {l_["kl"]:.5f}, mean reward '
+          f'{l_["mean_reward"]:.4f}; card {card}', flush=True)
+    check(all(math.isfinite(l_[k]) for k in ('loss', 'pg', 'v', 'ent', 'kl',
+                                              'std')),
+          f'non-finite loss logs at iteration {l_["iteration"]}')
+    check(l_['Episode_Termination/physics_nan'] == 0,
+          'physics_nan fired in the Go1 demo\'s training')
+  last = lines[-1]
+  print(f'Go1 demo: {TRAIN_ITERS * T * env.num_envs / last["wall_s"]:.1f} '
+        f'training env-steps/s ({TRAIN_ITERS} x {T} x {env.num_envs} over '
+        f'{last["wall_s"]:.3f} s of learn); card {card}', flush=True)
+  ckpt = os.path.join(run, f'model_{TRAIN_ITERS}.pt')
+  check(out['checkpoint'] == ckpt and os.path.exists(ckpt),
+        f'the demo did not write and play {ckpt}')
+  net0 = runner.alg.init_net(torch.Generator(device=env.device).manual_seed(
+      cfg.seed + 1))
+  for k, p in runner.ts.net.named_parameters():
+    check(bool(torch.isfinite(p).all()), f'parameter {k} is not finite')
+    check(not torch.equal(p, net0.get_parameter(k)),
+          f'parameter {k} did not move')
+  onnx_check(torch, runner, ckpt, 'Go1 demo')
+  stats = out['play']
+  print(f'Go1 demo play: {stats}', flush=True)
+  check(math.isfinite(stats['mean_reward']), 'the demo\'s play gave a '
+        'non-finite reward')
+  torch.cuda.synchronize()
+  launches = dict(LAUNCHES)
+  print(f'Go1 path launches: {launches}', flush=True)
+  check(launches.get('smooth_env', 0) == 0, 'the Go1 path launched K3\'s '
+        'per-env form')
+  del runner, env, out
+
+  # ---- 8d: the card against the CPU ---------------------------------------
+  e_obs, e_rew, same, flips, kept = go1_card_vs_cpu(torch)
+  tol8 = 1e-3
+  print(f'Go1, 8 envs, 5 env-steps, CUDA f32 vs CPU f64: obs err/(1+max|cpu|)'
+        f' {e_obs:.3e}, reward {e_rew:.3e} (tolerance {tol8:g}), done flags '
+        f'equal {same}; contact flips (env: env-step, |dist - margin| on the '
+        f'CPU in m) { {e: (i, f"{g:.3e}") for e, (i, g) in flips.items()} } '
+        f'(allowed within {FLIP_GAP:g} m of the threshold), {kept} envs '
+        f'compared to the end', flush=True)
+  check(e_obs <= tol8 and e_rew <= tol8 and same,
+        'the Go1 env on the card disagrees with the CPU')
+  check(all(g <= FLIP_GAP for _, g in flips.values()) and kept >= 6,
+        'a contact flipped between the card and the CPU away from its '
+        'threshold, or in more than two envs')
+  return launches
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -1185,15 +1644,7 @@ def main() -> None:
       torch, lambda: k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel), 20,
       busy=busy)
   plain_ms3 = time_ms(torch, lambda: smooth_fused.plain_all(m, d), 5)
-  tree = k_smooth.tree_of(s)
-  out_floats = sum(v.numel() for v in kern.values())
-  bytes3 = 4 * (d.qpos.numel() + d.qvel.numel() + out_floats)
-  npairs = sum(len(p) for p in tree.qm_pairs)
-  # arithmetic of csrc/smooth.cu per env: per body (kinematics, frames,
-  # cinr, crb, RNE) ~572 FLOPs, per geom or site frame ~108, per dof (cdof,
-  # cdof_dot, velocity, qM row product, bias) ~150, per qM entry 12
-  flops3 = B * (572 * s.nbody + 108 * (s.ngeom + s.nsite) + 150 * s.nv
-                + 12 * npairs)
+  bytes3, flops3 = k3_work(k_smooth, s, d, kern)
   b3, by3 = bound_ms(bytes3, flops3)
   rows.append(dict(name='smooth_fused (K3)', route='cuda',
                    source='mjlab_torch/csrc/smooth.cu',
@@ -1469,6 +1920,9 @@ def main() -> None:
 
   capped = k2_cap_check('the phase-2c input', args, need)
 
+  # ---- phase 2e: K1-K3 at the Go1's shapes ---------------------------------
+  go1 = go1_kernels(torch, card, busy)
+
   # ---- phase 3: the main path --------------------------------------------
   gen.manual_seed(1)
   d = phys.make_batched_data(m, B)
@@ -1621,6 +2075,16 @@ def main() -> None:
         'a kernel of the config-5 path was not launched on it')
   rows.append(row_env)
 
+  # ---- phase 8: the Go1 flat task: env-steps, the demo, card vs CPU ---------
+  go1_launches = go1_path(torch, card)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['go1_path_launches'] = int(go1_launches.get(kern, 0))
+    if kern in go1:
+      r['go1'] = go1[kern]
+      check(r['go1_path_launches'] > 0,
+            f'{r["name"]} was not launched on the Go1 path')
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -1628,7 +2092,8 @@ def main() -> None:
           f'the physics path {r.get("launches") if r is not row_env else 0},'
           f' the env path {r.get("env_path_launches", 0)}, the training path '
           f'{r.get("train_path_launches", 0)}, the config-5 path '
-          f'{r["config5_path_launches"]}; card {card}', flush=True)
+          f'{r["config5_path_launches"]}, the Go1 path '
+          f'{r["go1_path_launches"]}; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -27,14 +27,15 @@ from mjlab_torch.asset_zoo.unitree_g1 import (
 )
 
 
-def _add_actuators(spec: mujoco.MjSpec) -> None:
+def add_actuators(spec: mujoco.MjSpec, actuators) -> None:
   """One position servo per matched joint (gainprm[0] = kp, biasprm =
-  (0, -kp, -kd), forcerange = +/-effort), in spec joint order; the last
+  (0, -kp, -kd), forcerange = +/-effort), in spec joint order.
+  `actuators` holds (joint regexes, ElectricActuator, multiplier); the last
   matching motor class wins, as the JAX package's ActuatorSetCfg."""
   names = [j.name for j in spec.joints
            if j.type != mujoco.mjtJoint.mjJNT_FREE]
   chosen = {}
-  for exprs, act, mult in G1_ACTUATORS:
+  for exprs, act, mult in actuators:
     pats = [re.compile(e) for e in exprs]
     for name in names:
       if any(p.match(name) for p in pats):
@@ -89,10 +90,9 @@ def _foot_contact_sensors(spec: mujoco.MjSpec) -> None:
         intprm=[1, 3, 1])
 
 
-def _add_keyframe(spec: mujoco.MjSpec) -> None:
-  """'init_state' keyframe: qpos = [pos, rot, joint_pos], ctrl = the joint
-  targets."""
-  kf = KNEES_BENT_KEYFRAME
+def add_keyframe(spec: mujoco.MjSpec, kf) -> None:
+  """'init_state' keyframe of the EntityInitStateCfg `kf`: qpos = [pos,
+  rot, joint_pos], ctrl = the joint targets."""
   names = [j.name for j in spec.joints
            if j.type != mujoco.mjtJoint.mjJNT_FREE]
   jp = np.zeros(len(names))
@@ -110,21 +110,23 @@ def _add_keyframe(spec: mujoco.MjSpec) -> None:
 
 def robot_spec() -> mujoco.MjSpec:
   spec = build_robot_spec(SPEC_DATA)
-  _add_actuators(spec)
+  add_actuators(spec, G1_ACTUATORS)
   _full_collision(spec)
   _foot_contact_sensors(spec)
-  _add_keyframe(spec)
+  add_keyframe(spec, KNEES_BENT_KEYFRAME)
   return spec
 
 
-def scene_spec() -> mujoco.MjSpec:
+def flat_scene_spec(robot: mujoco.MjSpec) -> mujoco.MjSpec:
+  """A plane named `terrain`, `robot` attached under the prefix `robot/`,
+  and the velocity tasks' simulation options."""
   spec = mujoco.MjSpec()
   spec.stat.extent = 4.0
   spec.worldbody.add_geom(
       name='terrain', type=mujoco.mjtGeom.mjGEOM_PLANE,
       size=[0.0, 0.0, 0.05], rgba=[0.2, 0.3, 0.4, 1.0])
   frame = spec.worldbody.add_frame()
-  spec.attach(robot_spec(), prefix='robot/', frame=frame)
+  spec.attach(robot, prefix='robot/', frame=frame)
   opt = spec.option
   opt.timestep = 0.005
   opt.integrator = mujoco.mjtIntegrator.mjINT_IMPLICITFAST
@@ -140,7 +142,7 @@ def scene_spec() -> mujoco.MjSpec:
 
 def g1_flat_model() -> mujoco.MjModel:
   """The compiled G1 flat scene."""
-  return scene_spec().compile()
+  return flat_scene_spec(robot_spec()).compile()
 
 
 def write_snapshot() -> None:

@@ -9,34 +9,11 @@ scale. The compiled model itself comes from asset_zoo/g1_flat_scene.py
 
 from __future__ import annotations
 
-import dataclasses
-import math
-
 from mjlab_torch.entity.entity import EntityCfg, EntityInitStateCfg
-
-
-@dataclasses.dataclass(frozen=True)
-class ElectricActuator:
-  reflected_inertia: float
-  velocity_limit: float
-  effort_limit: float
-
-  def pd_gains(self, natural_freq_hz: float = 10.0,
-               damping_ratio: float = 2.0) -> 'tuple[float, float]':
-    """kp = armature * omega^2, kd = 2 * zeta * armature * omega."""
-    omega = 2.0 * math.pi * natural_freq_hz
-    kp = self.reflected_inertia * omega ** 2
-    kd = 2.0 * damping_ratio * self.reflected_inertia * omega
-    return kp, kd
-
-
-def reflected_inertia_two_stage_planetary(rotor_inertia, gear_ratio):
-  """Each element's inertia reflected through the downstream ratios
-  (gear_ratio[0] is the rotor itself, = 1)."""
-  assert gear_ratio[0] == 1
-  return (rotor_inertia[0] * (gear_ratio[1] * gear_ratio[2]) ** 2
-          + rotor_inertia[1] * gear_ratio[2] ** 2 + rotor_inertia[2])
-
+from mjlab_torch.utils.actuator import (
+    ElectricActuator,
+    reflected_inertia_two_stage_planetary,
+)
 
 _ARMATURE_5020 = reflected_inertia_two_stage_planetary(
     (0.139e-4, 0.017e-4, 0.169e-4), (1, 1 + 46 / 18, 1 + 56 / 16))

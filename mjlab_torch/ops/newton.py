@@ -10,10 +10,11 @@ rounded up to 4) and its row vectors in the shared memory of one block, so
 a model runs on the kernel when the kernel library's own
 `newton_smem_bytes(n, ncr, nl)` (csrc/newton.cu, the one owner of the
 layout) is at most the 227 KB a Hopper block may opt into. The Unitree G1
-flat scene (n=35, ncr=144, nl=29) needs about 34 KB; G1 tracking
-(ncr ~ 2400) needs about 400 KB and takes the plain path, as it takes the
-XLA path under the JAX package's VMEM rule. The gate is asked only on
-CUDA, where the library is built.
+flat scene (n=35, ncr=144, nl=29) needs about 34 KB; G1 tracking compiles
+to the same widths (533 candidate slots, caps 32 + 16, ncr 144), so the
+kernel serves it too. The Go1 flat scene (n=18, 57 uncompacted slots of
+condim 3, ncr=228, nl=12) fits as well. The gate is asked only on CUDA,
+where the library is built.
 """
 
 from __future__ import annotations

@@ -6,9 +6,10 @@ narrowphase call producing a fixed number of candidate contacts per pair.
 Inactive candidates keep dist >= includemargin and are masked out of the
 constraint rows.
 
-Implemented colliders: plane-sphere, plane-capsule, sphere-sphere,
-sphere-capsule and capsule-capsule (the pairs of the Unitree G1 scenes).
-Any other pair raises NotImplementedError naming it.
+Implemented colliders: plane-sphere, plane-capsule, plane-box,
+sphere-sphere, sphere-capsule and capsule-capsule (the pairs of the
+Unitree G1 and Go1 scenes). Any other pair raises NotImplementedError
+naming it.
 
 Contact conventions match MuJoCo: normal points from geom1 into geom2,
 dist < 0 means penetration, pos is the midpoint between the surfaces.
@@ -54,6 +55,27 @@ def _plane_capsule(p1, m1, s1, p2, m2, s2):
   return dist, pos, nrm, t1[..., None, :].expand(pos.shape)
 
 
+_BOX_SIGNS = np.asarray([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                         for z in (-1, 1)], np.float64)  # (8, 3)
+
+
+def _plane_box(p1, m1, s1, p2, m2, s2):
+  """The 4 deepest of the box's 8 corners, each at corner - n dist / 2,
+  with the plane's normal. The sort is stable: a box lying flat has four
+  corners at one depth, and their order fixes the contact slots' order,
+  as jnp.argsort's does in the reference."""
+  n = m1[..., :, 2]
+  corners_local = table(_BOX_SIGNS, p2.dtype, p2.device) * s2[..., None, :3]
+  corners = p2[..., None, :] + torch.einsum('...ij,...kj->...ki', m2,
+                                            corners_local)
+  cdist = ((corners - p1[..., None, :]) * n[..., None, :]).sum(-1)
+  idx = torch.argsort(cdist, dim=-1, stable=True)[..., :4]
+  dist = torch.take_along_dim(cdist, idx, dim=-1)
+  pts = torch.take_along_dim(corners, idx[..., None], dim=-2)
+  pos = pts - n[..., None, :] * (0.5 * dist)[..., None]
+  return dist, pos, n[..., None, :].expand(pos.shape)
+
+
 def _sphere_sphere_raw(p1, r1, p2, r2):
   delta = p2 - p1
   cd = torch.linalg.vector_norm(delta, dim=-1)
@@ -93,6 +115,7 @@ def _capsule_capsule(p1, m1, s1, p2, m2, s2):
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): _plane_sphere,
     (GeomType.PLANE, GeomType.CAPSULE): _plane_capsule,
+    (GeomType.PLANE, GeomType.BOX): _plane_box,
     (GeomType.SPHERE, GeomType.SPHERE): _sphere_sphere,
     (GeomType.SPHERE, GeomType.CAPSULE): _sphere_capsule,
     (GeomType.CAPSULE, GeomType.CAPSULE): _capsule_capsule,

@@ -184,9 +184,23 @@ class OnPolicyRunner:
 
 
 class VelocityOnPolicyRunner(OnPolicyRunner):
-  """The velocity task's runner. The reference also exports a deployment
-  ONNX on every save; that export is not ported yet (ROADMAP 12.6), so this
-  runner does what the base runner does."""
+  """The velocity task's runner: every checkpoint save also writes the
+  policy's deployment ONNX beside it (`model_{it}.onnx` and its
+  `.meta.json`, rl/exporter.py). As in the reference, a failed export is
+  printed and training goes on; the checkpoint is written first."""
+
+  def save(self, path: str, full_state: bool = True):
+    super().save(path, full_state)
+    try:
+      from mjlab_torch.rl.exporter import export_policy_as_onnx
+      pol = self.cfg.policy
+      export_policy_as_onnx(
+          self.ts.net, self.ts.actor_norm, self.env,
+          os.path.splitext(path)[0] + '.onnx',
+          normalize_obs=pol.actor_obs_normalization,
+          activation=pol.activation)
+    except Exception as e:  # an export never stops training
+      print(f'[export] onnx export failed: {e!r}', flush=True)
 
 
 def make_runner(env, cfg, log_dir=None, step_fn=None) -> OnPolicyRunner:

@@ -58,3 +58,4 @@ def make(task_id: str, cfg=None, device='cuda', dtype=torch.float32,
 def _import_all():
   """Import all task packages so their registrations run."""
   import mjlab_torch.tasks.velocity.config.g1  # noqa: F401
+  import mjlab_torch.tasks.velocity.config.go1  # noqa: F401

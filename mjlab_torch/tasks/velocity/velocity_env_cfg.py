@@ -1,8 +1,8 @@
 """Locomotion velocity-tracking task MDP (flat terrain).
 
 Counterpart of mjlab_tpu/tasks/velocity/velocity_env_cfg.py. Robot-specific
-configs (tasks/velocity/config/g1) specialize the scene, the action scale,
-the posture stds and the geoms whose friction is randomized.
+configs (tasks/velocity/config/{g1,go1}) specialize the scene, the action
+scale, the posture stds and the geoms whose friction is randomized.
 """
 
 from __future__ import annotations

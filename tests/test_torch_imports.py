@@ -1,8 +1,8 @@
 """The port stands alone: no module of mjlab_torch, and not chip_smoke.py,
-imports JAX, flax, orbax or the JAX package; the G1 flat environment is made
-and stepped without the mujoco package; its entry points default to the GPU
-and refuse to fall back to the CPU silently; its kernel wrappers refuse CPU
-tensors."""
+imports JAX, flax, orbax or the JAX package; the G1 and Go1 flat
+environments are made and stepped without the mujoco package; its entry
+points default to the GPU and refuse to fall back to the CPU silently; its
+kernel wrappers refuse CPU tensors."""
 
 import ast
 import os
@@ -41,7 +41,11 @@ def test_the_walk_reaches_every_subpackage():
                'managers.managers', 'tasks.velocity.config.g1.flat_env_cfg',
                'tasks.registry', 'rl.networks', 'scripts.play', 'sim.sim',
                'rl.config', 'rl.ppo', 'rl.runner', 'rl.writers', 'utils.cli',
-               'utils.tables', 'scripts.train'):
+               'utils.tables', 'scripts.train', 'rl.onnx_writer',
+               'rl.exporter', 'scripts.demo', 'scripts.list_envs',
+               'tasks.velocity.config.go1.flat_env_cfg',
+               'asset_zoo.unitree_go1', 'asset_zoo.go1_flat_scene',
+               'utils.actuator'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
@@ -64,6 +68,11 @@ actor = load_actor(G1_FLAT_POLICY, device='cpu')
 obs, _ = env.reset()
 obs, rew, term, trunc, extras = env.step(actor(obs))
 assert obs['policy'].shape == (2, 99) and bool(torch.isfinite(rew).all())
+go1 = registry.make('Mjlab-Velocity-Flat-Unitree-Go1', device='cpu',
+                    **{{'scene.num_envs': 2}})
+obs, _ = go1.reset()
+obs, rew, term, trunc, extras = go1.step(torch.zeros(2, 12))
+assert obs['policy'].shape == (2, 48) and bool(torch.isfinite(rew).all())
 loaded = [m for m in {BANNED + ('mujoco',)!r} if sys.modules.get(m)]
 assert not loaded, loaded
 print('ok')

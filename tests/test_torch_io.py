@@ -160,3 +160,22 @@ def test_equal_static_tables_compare_without_rehashing(monkeypatch):
   c = tio.model_static(arrays, ncon_cap=16)
   monkeypatch.undo()
   assert c != a
+
+
+def test_tracking_scene_has_the_g1_flat_widths():
+  """G1 tracking's compiled scene has G1 velocity's static widths (533
+  candidate slots, caps 32 + 16, 144 contact rows; nv 35), so the Newton
+  kernel's shared-memory fit rule takes it as it takes G1 flat."""
+  from mjlab_tpu.scene.scene import Scene
+  from mjlab_tpu.tasks import registry as jreg
+  from mjlab_torch.physics.constraint import efc_layout
+  cfg = jreg.load_cfg('Mjlab-Tracking-Flat-Unitree-G1')
+  scene = Scene(cfg.scene)
+  cfg.sim.mujoco.edit_spec(scene.spec)
+  widths = []
+  for mj in (scene.compile(), g1_flat_mjmodel()):
+    s = tphys.put_model(mj, device='cpu').stat
+    lay = efc_layout(s)
+    widths.append((s.nv, s.pairs.ncon_max, s.ncon_cap, s.ncon_cap1, lay.ncr,
+                   lay.nefc))
+  assert widths[0] == widths[1] == (35, 533, 32, 16, 144, 208)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at a
 small batch of G1 flat envs, K3 also with per-env model constants (its
-per-env form). They need an NVIDIA GPU and the CUDA toolkit and skip
+per-env form), and at the Go1's shapes (n 18, 228 uncompacted contact
+rows, trunks lying on the floor). They need an NVIDIA GPU and the CUDA toolkit and skip
 elsewhere; `python3 chip_smoke.py` holds the kernels at the main
 path's full shapes."""
 
@@ -10,12 +11,14 @@ import torch
 import mjlab_torch.physics as tphys
 from chip_smoke import (
     g1_states,
+    go1_card_vs_cpu,
+    go1_floor_states,
     k3_rel_err,
     k3_variants,
     per_env_k3_model,
     random_newton_args,
 )
-from mjlab_torch.asset_zoo import g1_flat_arrays
+from mjlab_torch.asset_zoo import g1_flat_arrays, go1_flat_arrays
 from mjlab_torch.ops import LAUNCHES
 from mjlab_torch.ops import newton as tnewton
 from mjlab_torch.ops import pd_solve as tpd
@@ -385,3 +388,61 @@ def test_env_step_waits_for_the_card_once(g1):
     torch.cuda.set_sync_debug_mode('default')
   syncs = [str(w.message) for w in caught if 'synchroniz' in str(w.message)]
   assert len(syncs) == 3, syncs
+
+
+@pytest.fixture(scope='module')
+def go1():
+  """The Go1 flat Model on the card (float32) and 257 floor states (a
+  ragged last block of K3's 16 envs), a third with the trunk flat on the
+  floor."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs an NVIDIA GPU')
+  arrays = go1_flat_arrays()
+  m = tphys.put_model(arrays)
+  qpos, qvel = go1_floor_states(arrays.key_qpos[0], m.stat.nv, 257, seed=1)
+  f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device='cuda')
+  d = tphys.make_batched_data(m, 257).replace(
+      qpos=f32(qpos), qvel=f32(qvel),
+      ctrl=f32(arrays.key_ctrl[0]).expand(257, -1).contiguous())
+  return m, d
+
+
+def test_smooth_kernel_at_go1_shapes(go1):
+  m, d = go1
+  assert smooth_fused.enabled(m.stat)
+  got = tsk.smooth_fused_cuda(m, d.qpos, d.qvel)
+  want = smooth_fused.plain_all(m, d)
+  for k in tsk.OUT_KEYS:
+    assert _rel(got[k], getattr(want, k)) < TOL, k
+
+
+def test_newton_kernel_at_go1_shapes(go1):
+  m, d = go1
+  d = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
+  d = smooth.fwd_smooth(m, smooth.actuation(m, d))
+  efc = constraint.make_efc(m, d)
+  assert tuple(efc['c_J'].shape[1:]) == (228, 18)
+  assert bool(efc['c_active'][:, 212:228].any())  # the plane-box rows
+  args = solver.newton_args(d, efc)
+  iters, polish, ldof, grad_th = solver.solver_params(m.stat)
+  assert tnewton.fits(18, 228, 12)
+  got = tnewton.newton_solve_cuda(*args, iterations=iters, ls_polish=polish,
+                                  ldof=ldof, grad_th=grad_th)
+  want = solver.newton_plain(*args, iters, polish, ldof, grad_th)
+  for g, w in zip(got, want):
+    assert _rel(g, w) < 1e-3
+
+
+def test_pd_solve_kernel_at_go1_shapes(go1):
+  m, d = go1
+  df = pipeline.forward(m, d)
+  deriv = m.dof_damping - pipeline._actuator_vel_deriv(m, df)
+  H = (df.qM + m.opt.timestep * torch.diag_embed(deriv)).contiguous()
+  g = (df.qfrc_smooth + df.qfrc_constraint).contiguous()
+  assert _rel(tpd.solve_pd_cuda(H, g), linalg.solve_pd(H, g)) < TOL
+
+
+def test_go1_env_on_the_card_matches_the_cpu(go1):
+  e_obs, e_rew, same, flips, kept = go1_card_vs_cpu(torch, 4, 3)
+  assert e_obs <= 1e-3 and e_rew <= 1e-3 and same
+  assert all(g <= 1e-6 for _, g in flips.values()) and kept >= 3

@@ -160,7 +160,8 @@ def test_runner_checkpoint_roundtrip(g1_env, tmp_path, full_state):
 
 def test_train_writes_a_run_that_resumes_and_plays(tmp_path):
   """scripts/train.main on the G1 flat env (2 envs, 2 steps an iteration,
-  one iteration), a resumed run, then scripts/play.main of the newest
+  one iteration; the velocity runner writes the deployment ONNX beside
+  the checkpoint), a resumed run, then scripts/play.main of the newest
   checkpoint and of the first one by path."""
   base = ['Mjlab-Velocity-Flat-Unitree-G1', '--device', 'cpu',
           '--log-root', str(tmp_path), '--env.scene.num_envs', '2',
@@ -168,7 +169,8 @@ def test_train_writes_a_run_that_resumes_and_plays(tmp_path):
   runner = train.main(base + SMALL + ['--run-name', 'first'])
   run = tmp_path / 'g1_flat' / 'first'
   assert sorted(os.listdir(run)) == ['agent_cfg.json', 'env_cfg.json',
-                                     'metrics.jsonl', 'model_1.pt']
+                                     'metrics.jsonl', 'model_1.onnx',
+                                     'model_1.onnx.meta.json', 'model_1.pt']
   agent = json.loads((run / 'agent_cfg.json').read_text())
   assert agent['policy']['actor_hidden_dims'] == [16, 16]
   assert agent['device'] == 'cpu' and agent['num_steps_per_env'] == 2

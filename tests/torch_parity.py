@@ -32,6 +32,18 @@ def g1_flat_mjmodel():
   return scene.compile()
 
 
+@functools.lru_cache(maxsize=1)
+def go1_flat_mjmodel():
+  """The MjModel `Mjlab-Velocity-Flat-Unitree-Go1` builds (JAX package),
+  visual meshes included."""
+  from mjlab_tpu.scene.scene import Scene
+  from mjlab_tpu.tasks import registry
+  cfg = registry.load_cfg('Mjlab-Velocity-Flat-Unitree-Go1')
+  scene = Scene(cfg.scene)
+  cfg.sim.mujoco.edit_spec(scene.spec)
+  return scene.compile()
+
+
 def model_leaves(jm) -> dict:
   """JAX Model -> dict of numpy leaves (with 'opt' nested)."""
   out = {f.name: np.asarray(getattr(jm, f.name))
@@ -161,16 +173,15 @@ def jax_env_f64(cfg):
     return jenv.ManagerBasedRlEnv(cfg)
 
 
-def g1_env_pair(num_envs, degenerate=True):
-  """(JAX env, port env) of the G1 flat velocity task on one compiled
-  model, both float64; the port's on the CPU."""
+def g1_env_pair(num_envs, degenerate=True, task=G1_FLAT_TASK):
+  """(JAX env, port env) of a velocity task (G1 flat unless `task` names
+  another) on one compiled model, both float64; the port's on the CPU."""
   from mjlab_tpu.tasks import registry as jreg
   from mjlab_torch.tasks import registry as treg
   edit = degenerate_ranges if degenerate else (
       lambda c, n: setattr(c.scene, 'num_envs', n) or c)
-  jenv = jax_env_f64(edit(jreg.load_cfg(G1_FLAT_TASK), num_envs))
-  tenv = treg.make(G1_FLAT_TASK, cfg=edit(treg.load_cfg(G1_FLAT_TASK),
-                                          num_envs),
+  jenv = jax_env_f64(edit(jreg.load_cfg(task), num_envs))
+  tenv = treg.make(task, cfg=edit(treg.load_cfg(task), num_envs),
                    device='cpu', dtype=torch.float64,
                    mj_model=jenv.scene.mj_model)
   return jenv, tenv
