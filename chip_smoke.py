@@ -54,7 +54,21 @@ Phases, each of which exits non-zero on failure:
      `scripts/demo.main` in a fresh log root, which finds no policy,
      trains 3 PPO iterations at the registered 1024 envs through
      `train.main`, exports the ONNX and plays; 8d: 8 envs on the card in
-     float32 against the CPU in float64).
+     float32 against the CPU in float64);
+  9. run the Unitree G1 motion-tracking task (BASELINE config 4) on the
+     shipped walk clip (9a: `registry.make` at 4096 envs, K3's per-env form
+     at the task's segments (bconst and qpos0) held against its plain
+     version and timed beside the shared form, 100 env-steps under the
+     shipped tracking policy with one env tipped past `anchor_ori` and one
+     with its arm folded into the torso, launches and waits an env-step,
+     one env-step stage by stage; 9b: 3 PPO iterations through
+     `train.main` at the registered widths with observation normalization
+     on, the motion-baked ONNX read back against the policy and the clip,
+     the checkpoint reloaded bit for bit and resumed; 9c: `scripts.demo` plays the shipped policy on its own
+     clip, then the Play cfg at 512 envs for 250 env-steps under the
+     shipped policy and under zero actions, whose episodes ended by
+     tracking terms are compared; 9d: 8 envs on the card in float32
+     against the CPU in float64).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -62,8 +76,9 @@ form, and K1-K3 at the Go1's shapes (2e: 4096 Go1 envs on the floor, a
 third of them on their backs with the trunk box flat, so the plane-box
 rows are active). The line before the last is a JSON object with one row
 per kernel (K3's per-env form a row of its own, its launches those of
-phase 7; each row's `go1` holds its phase-2e numbers and
-`go1_path_launches` its launches in phase 8); the last line is {"ok":
+phase 7 and its `tracking` its phase-9a numbers; each row's `go1` holds
+its phase-2e numbers, `go1_path_launches` its launches in phase 8 and
+`tracking_path_launches` those in phase 9); the last line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
 """
 
@@ -463,21 +478,78 @@ def distinct_dr_values(model, num_envs: int, seed: int = 0) -> dict:
   return out
 
 
-def tip_over_state(torch, state, env_id: int):
-  """`state` (an EnvState) with one env's root turned 80 degrees about x,
-  past `fell_over`'s 70: that env terminates on the next env-step."""
+def tip_over_state(torch, state, env_id: int, degrees: float = 80.0):
+  """`state` (an EnvState) with one env's root turned `degrees` about x,
+  by default past `fell_over`'s 70: that env terminates on the next
+  env-step."""
   import math
   qpos = state.data.qpos.clone()
-  half = math.radians(80.0) / 2
+  half = math.radians(degrees) / 2
   qpos[env_id, 3:7] = torch.tensor(
       [math.cos(half), math.sin(half), 0.0, 0.0], dtype=qpos.dtype,
       device=qpos.device)
   return state.replace(data=state.data.replace(qpos=qpos))
 
 
-def tip_over(torch, env, env_id: int) -> None:
+def tip_over(torch, env, env_id: int, degrees: float = 80.0) -> None:
   """Tip one env of `env`'s own state over (tip_over_state)."""
-  env._state = tip_over_state(torch, env.state, env_id)
+  env._state = tip_over_state(torch, env.state, env_id, degrees)
+
+
+TRACK_TASK = 'Mjlab-Tracking-Flat-Unitree-G1'
+TRACK_TIP = 90.0  # degrees: past anchor_ori's 0.8 on the gravity's z
+
+
+def tracking_degenerate_ranges(cfg, num_envs, motion_file):
+  """Collapse every sampling range of a G1 tracking cfg of either package to
+  a point, as degenerate_ranges does for velocity: RSI resets move, turn
+  and push the root and offset the joints by fixed non-zero amounts,
+  pushes fire every third step, the startup randomization of foot
+  friction, torso COM and qpos0 writes fixed values, observation noise is a
+  constant offset, and adaptive start sampling is off (every episode
+  starts at the clip's first frame), on the clip `motion_file`."""
+  import dataclasses
+  cfg.scene.num_envs = num_envs
+  motion = cfg.commands.motion
+  motion.motion_file = str(motion_file)
+  motion.pose_range = {'x': (0.02, 0.02), 'y': (-0.01, -0.01),
+                       'z': (0.005, 0.005), 'roll': (0.05, 0.05),
+                       'pitch': (-0.03, -0.03), 'yaw': (0.1, 0.1)}
+  motion.velocity_range = {'x': (0.1, 0.1), 'y': (-0.1, -0.1),
+                           'z': (0.05, 0.05), 'roll': (0.1, 0.1),
+                           'pitch': (-0.1, -0.1), 'yaw': (0.2, 0.2)}
+  motion.joint_position_range = (0.02, 0.02)
+  motion.disable_adaptive_sampling = True
+
+  def params(term, **new):
+    term.params = {**term.params, **new}
+
+  ev = cfg.events
+  ev.push_robot.interval_range_s = (0.06, 0.06)
+  params(ev.push_robot, velocity_range={
+      'x': (0.2, 0.2), 'y': (-0.1, -0.1), 'yaw': (0.3, 0.3)})
+  params(ev.foot_friction, ranges=(0.45, 0.45))
+  params(ev.com_randomize, ranges=(0.004, 0.004))
+  params(ev.qpos0_randomize, ranges=(0.003, 0.003))
+  pol = cfg.observations.policy
+  for name in ('motion_anchor_pos_b', 'motion_anchor_ori_b', 'base_lin_vel',
+               'base_ang_vel', 'joint_pos', 'joint_vel'):
+    term = getattr(pol, name)
+    term.noise = dataclasses.replace(term.noise, n_min=term.noise.n_max)
+  return cfg
+
+
+ARM_FOLD = {'left_shoulder_roll_joint': -0.2, 'left_elbow_joint': 0.6}
+
+
+def fold_arm_qpos(qpos, joint_names, qpos_adr, env_id: int):
+  """`qpos` (numpy or torch, one row an env) with one env's left arm rolled
+  into the torso (ARM_FOLD): its upper arm and elbow press 7-11 mm into
+  the torso, so the `self_collision` sensor counts two contacts.
+  `joint_names` and `qpos_adr` are the robot's (prefix stripped)."""
+  for name, value in ARM_FOLD.items():
+    qpos[env_id, int(qpos_adr[list(joint_names).index(name)])] = value
+  return qpos
 
 
 def env_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
@@ -1591,6 +1663,401 @@ def _go1_path(torch, card: str, root: str) -> dict:
   return launches
 
 
+TRACK_STEPS = 100  # env-steps of phase 9a
+TRACK_PLAY_ENVS = 512  # envs of phase 9c's play of the Play cfg
+TRACK_PLAY_STEPS = 250
+# phase 9c's gate, written before the first call on the card: the shipped
+# policy ends at most a tenth as many episodes by tracking terms as the
+# zero-action agent, which ends at least one an env
+TRACK_GATE_RATIO = 10
+
+
+def tracking_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
+  """Phase 9d: the G1 tracking env on the shipped walk clip, its sampling
+  ranges collapsed to a point (tracking_degenerate_ranges), on the card
+  against the CPU (card_vs_cpu_flips)."""
+  from mjlab_torch.asset_zoo.pretrained import G1_TRACKING_MOTION
+  from mjlab_torch.tasks import registry
+  return card_vs_cpu_flips(
+      torch, TRACK_TASK,
+      lambda: tracking_degenerate_ranges(registry.load_cfg(TRACK_TASK),
+                                         num_envs, G1_TRACKING_MOTION),
+      steps)
+
+
+def motion_onnx_check(torch, runner, path: str, what: str) -> float:
+  """The motion-baked ONNX the tracking runner wrote beside the checkpoint
+  `path`, read back by parse_model and evaluated by run_motion_policy on
+  256 of the run's own observations: the actions within 1e-6 of (1 + max
+  |a|) of the runner's inference policy on the card, the normalizer folded
+  in as the runner's running statistics, and the motion outputs at
+  time_step 0, 17, T - 1 and T + 5 the clip's rows (clipped to T - 1).
+  Returns the actions' error over (1 + max |actions|)."""
+  import os
+
+  import numpy as np
+  from mjlab_torch.rl import onnx_writer
+  onnx = os.path.splitext(path)[0] + '.onnx'
+  check(os.path.exists(onnx) and os.path.exists(onnx + '.meta.json'),
+        f'{what}: {onnx} or its sidecar was not written')
+  parsed = onnx_writer.parse_model(onnx)
+  alg, ts = runner.alg, runner.ts
+  obs = {k: v[:256] for k, v in ts.obs.items()}
+  a_obs = alg._cat_obs(obs, alg.actor_groups).cpu().numpy()
+  motion = runner.env.command_manager.terms['motion'].motion
+  T = motion.time_step_total
+  steps = np.tile([0, 17, T - 1, T + 5], 64)
+  out = onnx_writer.run_motion_policy(parsed, a_obs, steps)
+  want = runner.get_inference_policy()(obs).double().cpu()
+  err = float((torch.as_tensor(out['actions']).double() - want).abs().max()
+              ) / scale(want)
+  rows = np.minimum(steps, T - 1)
+  clip = {'joint_pos': motion.joint_pos[rows],
+          'joint_vel': motion.joint_vel[rows],
+          'anchor_pos_w': motion.body_pos_w[rows, 0],
+          'anchor_quat_w': motion.body_quat_w[rows, 0]}
+  frames = all(np.array_equal(out[k], v) for k, v in clip.items())
+  init = parsed['initializers']
+  norm = ts.actor_norm
+  folded = bool(
+      np.array_equal(init['obs_mean'], norm.mean.cpu().numpy())
+      and np.array_equal(init['obs_std'],
+                         np.sqrt(norm.var.cpu().numpy()) + 1e-2))
+  print(f'{what}: {os.path.basename(onnx)} outputs {parsed["outputs"]}, '
+        f'graph in numpy vs the inference policy on the card, 256 '
+        f'observations: err/(1+max|a|) {err:.3e} (tolerance 1e-6); the '
+        f'clip\'s rows at time_step 0, 17, {T - 1}, {T + 5}: {frames}; the '
+        f'running normalizer folded in: {folded}', flush=True)
+  check(runner.cfg.policy.actor_obs_normalization,
+        f'{what}: the tracking task trains without normalization')
+  check(err <= 1e-6, f'{what}: the ONNX graph disagrees with the policy')
+  check(frames, f'{what}: the ONNX graph\'s motion outputs are not the clip')
+  check(folded, f'{what}: the ONNX graph does not fold in the running '
+        'normalizer')
+  return err
+
+
+def tracking_path(torch, card: str, busy) -> 'tuple[dict, dict]':
+  """Phase 9: the G1 motion-tracking task (BASELINE config 4). Returns the
+  kernels' launches over its env-steps, training, demo and play, and K3's
+  per-env form timed at the tracking task's segments."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_tracking_')
+  try:
+    return _tracking_path(torch, card, busy, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _tracking_path(torch, card: str, busy, root: str):
+  import math
+  import os
+
+  from mjlab_torch.asset_zoo.pretrained import (
+      G1_TRACKING_MOTION,
+      G1_TRACKING_POLICY,
+  )
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  from mjlab_torch.ops import smooth_kernel as k_smooth
+  from mjlab_torch.physics import smooth_fused
+  from mjlab_torch.physics.constraint import efc_layout
+  from mjlab_torch.rl.networks import load_actor
+  from mjlab_torch.rl.runner import OnPolicyRunner
+  from mjlab_torch.scripts import demo, play, train
+  from mjlab_torch.tasks import registry
+
+  kernels = ('smooth', 'newton', 'pd_solve', 'smooth_env')
+  clip = str(G1_TRACKING_MOTION)
+  torch.cuda.synchronize()
+  reset_launches()
+
+  # ---- 9a: the env at 4096 envs on the walk clip ---------------------------
+  t0 = time.perf_counter()
+  env = registry.make(TRACK_TASK, **{'scene.num_envs': B,
+                                     'commands.motion.motion_file': clip})
+  actor = load_actor(G1_TRACKING_POLICY)
+  obs, _ = env.reset()
+  torch.cuda.synchronize()
+  s = env.model.stat
+  lay = efc_layout(s)
+  me = env.state.model
+  plan = k_smooth.plan_of(me)
+  motion = env.command_manager.terms['motion']
+  print(f'tracking: built and reset {B} envs in {time.perf_counter() - t0:.2f}'
+        f' s on {env.device}; nq {s.nq} nv {s.nv}, {s.pairs.ncon_max} contact '
+        f'slots, caps {s.ncon_cap}/{s.ncon_cap1}, ncr {lay.ncr}, nefc '
+        f'{lay.nefc}; per-env fields {env.per_env_fields}, K3 per-env '
+        f'segments {plan.dims[15]:#07b}; obs {env.observation_dims}, actions '
+        f'{env.action_dim}; clip {os.path.basename(clip)}, '
+        f'{motion.motion.time_step_total} frames, {motion.n_bins} bins',
+        flush=True)
+  check(env.device.type == 'cuda', 'the tracking env is not on the card')
+  check((s.nv, s.pairs.ncon_max, s.ncon_cap, s.ncon_cap1, lay.ncr, lay.nefc)
+        == (35, 533, 32, 16, 144, 208), 'the tracking model does not have '
+        'the G1 flat widths')
+  check(env.per_env_fields == ['body_ipos', 'geom_friction', 'qpos0']
+        and plan.dims[15] == 0b10001, 'the tracking env does not carry '
+        'bconst and qpos0 per env')
+  check(env.observation_dims == {'policy': 160, 'critic': 286}
+        and env.action_dim == 29, 'the tracking env\'s widths are not 160, '
+        '286 and 29')
+
+  # K3 at tracking's per-env segments on the env's reset state, beside its
+  # shared form on the same state (shared, per env, per env, shared); these
+  # launches compare and time the kernel and are taken out of the path's
+  # counts
+  counted = dict(LAUNCHES)
+  d = env.state.data
+  kern = k_smooth.smooth_fused_cuda(me, d.qpos, d.qvel)
+  plain = smooth_fused.plain_all(me, d)
+  err3 = max(max_err(kern[k], getattr(plain, k)) for k in k_smooth.OUT_KEYS)
+  rel3 = k3_rel_err(torch, kern, plain, s.nsite)
+  check(rel3 <= 1e-4, f'K3 at tracking\'s segments disagrees with its plain '
+        f'version: {rel3:.3e}')
+  m_shared = env.scene.model
+  k3_env = lambda: k_smooth.smooth_fused_cuda(me, d.qpos, d.qvel)
+  k3_shared = lambda: k_smooth.smooth_fused_cuda(m_shared, d.qpos, d.qvel)
+  dev_shared = [time_ms(torch, k3_shared, 20, busy=busy)]
+  dev_env = [time_ms(torch, k3_env, 20, busy=busy),
+             time_ms(torch, k3_env, 20, busy=busy)]
+  dev_shared.append(time_ms(torch, k3_shared, 20, busy=busy))
+  ms_env = time_ms(torch, k3_env, 20)
+  plain_env = time_ms(torch, lambda: smooth_fused.plain_all(me, d), 5)
+  nbytes, flops = k3_work(k_smooth, s, d, kern)
+  b_env, by_env = bound_ms(nbytes + 4 * plan.etab.numel(), flops)
+  k3_tracking = dict(max_abs_err=err3, ms=ms_env,
+                     device_ms=min(dev_env), plain_ms=plain_env,
+                     bound_ms=b_env, bound_by=by_env, library_ms=None,
+                     shared_device_ms=min(dev_shared))
+  print(f'K3 per env at tracking\'s segments (bconst, qpos0): {ms_env:.4f} '
+        f'ms, {dev_env[0]:.4f} and {dev_env[1]:.4f} ms behind a busy card '
+        f'(shared form on the same state {dev_shared[0]:.4f} and '
+        f'{dev_shared[1]:.4f} ms), bound {b_env:.5f} ms by {by_env} '
+        f'(per-env table {4 * plan.etab.numel()} B); plain {plain_env:.4f} '
+        f'ms; max abs err {err3:.3e}, err/(1+max|plain|) {rel3:.3e} '
+        f'(tolerance 1e-4); card {card}', flush=True)
+  del kern, plain
+  LAUNCHES.clear()
+  LAUNCHES.update(counted)
+
+  # 100 env-steps under the shipped policy; env 1 tipped past anchor_ori
+  # half-way, env 2's arm folded into its torso at the start
+  view = env.scene['robot']
+  qpos = fold_arm_qpos(env.state.data.qpos.clone(), view.idx.joint_names,
+                       view.idx.q_adr, 2)
+  env._state = env.state.replace(data=env.state.data.replace(qpos=qpos))
+  ok = torch.ones((), dtype=torch.bool, device='cuda')
+  nan_count = torch.zeros((), dtype=torch.long, device='cuda')
+  resets = torch.zeros((), device='cuda')
+  selfc = torch.zeros((), dtype=torch.long, device='cuda')
+  looped = torch.zeros((), dtype=torch.long, device='cuda')
+  per_step = []
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for i in range(TRACK_STEPS):
+    if i == TRACK_STEPS // 2:
+      tip_over(torch, env, 1, TRACK_TIP)
+    before = [LAUNCHES[k] for k in kernels]
+    ts_before = env.state.command['motion']['time_steps']
+    obs, rew, term, _, extras = env.step(actor(obs))
+    per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+    ok &= torch.isfinite(obs['policy']).all() & torch.isfinite(rew).all()
+    nan_count += extras['Episode_Termination/physics_nan']
+    resets += extras['reset_count']
+    selfc += (env.state.data.sensordata[:, 0] > 0).sum()
+    looped += ((ts_before == motion.motion.time_step_total - 1) & ~term).sum()
+    if i == TRACK_STEPS // 2:
+      tipped = term[1]
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  shapes = sorted(set(per_step))
+  st = env.state.command['motion']
+  print(f'tracking: {TRACK_STEPS} env-steps x {B} envs under the shipped '
+        f'policy in {wall:.3f} s = {TRACK_STEPS * B / wall:.1f} env-steps/s '
+        f'({wall / TRACK_STEPS * 1e3:.2f} ms an env-step); resets '
+        f'{int(resets)}, physics_nan {int(nan_count)}; env-steps of an env '
+        f'with a self-collision count {int(selfc)}; clip ends looped '
+        f'{int(looped)}; error_body_pos {float(st["metric/error_body_pos"].mean()):.4f} m; '
+        f'sampling entropy {float(st["metric/sampling_entropy"][0]):.4f}; '
+        f'launches per env-step (K3, K2, K1, K3 per env): '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }; card {card}',
+        flush=True)
+  check(bool(ok), 'non-finite observation or reward on the tracking path')
+  check(int(nan_count) == 0, f'physics_nan fired {int(nan_count)} times')
+  check(set(shapes) <= {(0, 4, 8, 4), (0, 5, 9, 5)},
+        f'a tracking env-step launched {shapes}, not 0/4/8/4 or 0/5/9/5')
+  check(bool(tipped), 'the tipped env did not end by a tracking term')
+  check(int(selfc) > 0, 'the self-collision sensor counted nothing')
+  check(int(looped) > 0, 'no env reached the clip\'s end')
+  act = actor(obs)
+
+  def three_steps():
+    for _ in range(3):
+      env.step(act)
+
+  _, syncs = count_syncs(torch, three_steps)
+  print(f'tracking: {len(syncs)} synchronizing calls in 3 env-steps',
+        flush=True)
+  check(len(syncs) <= 3, 'the tracking env-step synchronizes more than once '
+        'a step: ' + '; '.join(sorted(set(syncs))))
+  # one env-step stage by stage, as phase 5d times the velocity env's
+  runs = []
+  for _ in range(5):
+    timer = StageTimer(torch)
+    torch.cuda.synchronize()
+    with timer('actor'):
+      act = actor(obs)
+    env._state, out = env.step_fn(env.state, act, stage=timer)
+    obs = out[0]
+    runs.append(timer)
+  for name in runs[0].gpu:
+    g = statistics.median(r.gpu.get(name, 0.0) for r in runs)
+    h = statistics.median(r.host.get(name, 0.0) for r in runs)
+    print(f'tracking env-step stage {name}: {g:.3f} ms between events, '
+          f'{h:.3f} ms host issue (median of 5, {B} envs, {card})',
+          flush=True)
+  del env, obs, actor, me, d, m_shared, st
+
+  # ---- 9b: three PPO iterations through train.main -------------------------
+  argv = [TRACK_TASK, '--log-root', root, '--env.scene.num_envs', str(B),
+          '--env.commands.motion.motion_file', clip]
+  with launches_per_step(kernels) as per_step:
+    t0 = time.perf_counter()
+    runner = train.main(argv + ['--agent.max_iterations', str(TRAIN_ITERS),
+                                '--run-name', 'a'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  cfg, env = runner.cfg, runner.env
+  T = cfg.num_steps_per_env
+  shapes = sorted(set(per_step))
+  print(f'tracking train: {TRAIN_ITERS} iterations of {T} env-steps x '
+        f'{env.num_envs} envs through train.main in {wall:.2f} s (env build '
+        f'included); {type(runner).__name__}, widths actor '
+        f'{cfg.policy.actor_hidden_dims} critic '
+        f'{cfg.policy.critic_hidden_dims}, normalization actor '
+        f'{cfg.policy.actor_obs_normalization} critic '
+        f'{cfg.policy.critic_obs_normalization}; launches per env-step '
+        f'(K3, K2, K1, K3 per env) { {s_: per_step.count(s_) for s_ in shapes} }',
+        flush=True)
+  check(type(runner).__name__ == 'MotionTrackingOnPolicyRunner'
+        and env.num_envs == B and cfg.policy.actor_obs_normalization
+        and cfg.policy.critic_obs_normalization,
+        'train.main did not train 4096 tracking envs with the tracking '
+        'runner and normalization on')
+  check(set(shapes) <= {(0, 4, 8, 4), (0, 5, 9, 5)},
+        f'a tracking rollout env-step launched {shapes}')
+  run = os.path.join(root, cfg.experiment_name, 'a')
+  with open(os.path.join(run, 'metrics.jsonl')) as f:
+    lines = [json.loads(line) for line in f]
+  for l_ in lines:
+    print(f'tracking train iteration {l_["iteration"]}: collection '
+          f'{l_["collection_ms"]:.1f} ms, learning {l_["learning_ms"]:.1f} '
+          f'ms, resets {l_["resets"]:.0f}, physics_nan '
+          f'{l_["Episode_Termination/physics_nan"]:.0f}, loss '
+          f'{l_["loss"]:.4f} kl {l_["kl"]:.5f}, mean reward '
+          f'{l_["mean_reward"]:.4f}, error_body_pos '
+          f'{l_.get("Metrics/motion/error_body_pos", float("nan")):.4f}; '
+          f'card {card}', flush=True)
+    check(all(math.isfinite(l_[k]) for k in ('loss', 'pg', 'v', 'ent', 'kl',
+                                              'std')),
+          f'non-finite loss logs at iteration {l_["iteration"]}')
+    check(l_['Episode_Termination/physics_nan'] == 0,
+          'physics_nan fired in the tracking training')
+  last = lines[-1]
+  print(f'tracking train: {TRAIN_ITERS * T * B / last["wall_s"]:.1f} '
+        f'training env-steps/s ({TRAIN_ITERS} x {T} x {B} over '
+        f'{last["wall_s"]:.3f} s of learn); card {card}', flush=True)
+  ckpt = os.path.join(run, f'model_{TRAIN_ITERS}.pt')
+  check(os.path.exists(ckpt), f'{ckpt} was not written')
+  norm = runner.ts.actor_norm
+  check(float(norm.count) > 1.0, 'the actor normalizer was not updated')
+  motion_onnx_check(torch, runner, ckpt, 'tracking train')
+  fresh = OnPolicyRunner(env, cfg)
+  fresh.load(ckpt)
+  a, b = runner.ts, fresh.ts
+  same = (a.iteration == b.iteration == TRAIN_ITERS
+          and all(torch.equal(p, b.net.get_parameter(k))
+                  for k, p in a.net.named_parameters())
+          and all(torch.equal(x, y) for x, y in zip(
+              a.actor_norm.buffers(), b.actor_norm.buffers()))
+          and all(torch.equal(x, y) for x, y in zip(
+              a.critic_norm.buffers(), b.critic_norm.buffers())))
+  check(same, 'the tracking checkpoint did not load bit for bit')
+  del fresh, runner, env, a, b
+  resumed = train.main(argv + ['--agent.max_iterations', '1', '--run-name',
+                               'b', '--resume'])
+  ckpt4 = os.path.join(root, cfg.experiment_name, 'b',
+                       f'model_{TRAIN_ITERS + 1}.onnx')
+  print(f'tracking train: the checkpoint loads bit for bit (normalizers '
+        f'included); resumed from iteration {TRAIN_ITERS}, wrote '
+        f'{os.path.basename(ckpt4)}: {os.path.exists(ckpt4)}', flush=True)
+  check(resumed.ts.iteration == TRAIN_ITERS + 1 and os.path.exists(ckpt4),
+        'the resumed tracking run did not write its checkpoint and ONNX')
+  del resumed
+
+  # ---- 9c: the shipped policy on its clip, and against the zero agent -------
+  empty = os.path.join(root, 'no_runs')
+  out = demo.main(['--task', TRACK_TASK, '--log-root', empty, '--steps',
+                   '50'])
+  stats = out['play']
+  print(f'tracking demo: played {out["checkpoint"]} on '
+        f'{stats["motion_file"]}: {stats}', flush=True)
+  check(out['runner'] is None and out['checkpoint'] == str(
+      G1_TRACKING_POLICY), 'the demo did not play the shipped policy')
+  check(stats['motion_file'] == clip, 'the demo played the shipped policy '
+        'on another clip than its own')
+  ended = {}
+  for agent in ('trained', 'zero'):
+    t0 = time.perf_counter()
+    stats = play.main([TRACK_TASK + '-Play', '--agent', agent, '--log-root',
+                       empty, '--num-envs', str(TRACK_PLAY_ENVS), '--steps',
+                       str(TRACK_PLAY_STEPS),
+                       '--env.commands.motion.motion_file', clip])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    causes = stats['terminations']
+    ended[agent] = stats['resets'] - causes['time_out']
+    print(f'tracking play ({agent} agent, {TRACK_PLAY_ENVS} envs x '
+          f'{TRACK_PLAY_STEPS} env-steps, Play cfg, walk clip) in {wall:.2f} '
+          f's: episodes ended by tracking terms {ended[agent]} (anchor_pos '
+          f'{causes["anchor_pos"]}, anchor_ori {causes["anchor_ori"]}, '
+          f'ee_body_pos {causes["ee_body_pos"]}), time_out '
+          f'{causes["time_out"]}, physics_nan {causes["physics_nan"]}; '
+          f'error_body_pos {stats["metrics"]["motion/error_body_pos"]:.4f} m, '
+          f'error_anchor_rot {stats["metrics"]["motion/error_anchor_rot"]:.4f}'
+          f' rad, mean reward {stats["mean_reward"]:.4f}; card {card}',
+          flush=True)
+    check(causes['physics_nan'] == 0, f'physics_nan fired in the {agent} '
+          'agent\'s play')
+  check(ended['zero'] >= TRACK_PLAY_ENVS
+        and ended['trained'] * TRACK_GATE_RATIO <= ended['zero'],
+        f'the shipped policy ended {ended["trained"]} episodes by tracking '
+        f'terms, the zero agent {ended["zero"]}: not a tenth or fewer')
+  torch.cuda.synchronize()
+  launches = dict(LAUNCHES)
+  print(f'tracking path launches: {launches}', flush=True)
+  check(launches.get('smooth', 0) == 0, 'the tracking path launched K3\'s '
+        'shared-table form')
+
+  # ---- 9d: the card against the CPU ---------------------------------------
+  e_obs, e_rew, same, flips, kept = tracking_card_vs_cpu(torch)
+  tol9 = 1e-3
+  print(f'tracking, 8 envs, 5 env-steps, CUDA f32 vs CPU f64: obs '
+        f'err/(1+max|cpu|) {e_obs:.3e}, reward {e_rew:.3e} (tolerance '
+        f'{tol9:g}), done flags equal {same}; contact flips (env: env-step, '
+        f'|dist - margin| on the CPU in m) '
+        f'{ {e: (i, f"{g:.3e}") for e, (i, g) in flips.items()} } (allowed '
+        f'within {FLIP_GAP:g} m of the threshold), {kept} envs compared to '
+        f'the end', flush=True)
+  check(e_obs <= tol9 and e_rew <= tol9 and same,
+        'the tracking env on the card disagrees with the CPU')
+  check(all(g <= FLIP_GAP for _, g in flips.values()) and kept >= 6,
+        'a contact flipped between the card and the CPU away from its '
+        'threshold, or in more than two envs')
+  return launches, k3_tracking
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -2085,6 +2552,15 @@ def main() -> None:
       check(r['go1_path_launches'] > 0,
             f'{r["name"]} was not launched on the Go1 path')
 
+  # ---- phase 9: G1 motion tracking: env, training, shipped policy -----------
+  track_launches, row_env['tracking'] = tracking_path(torch, card, busy)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['tracking_path_launches'] = int(track_launches.get(kern, 0))
+    check((r['tracking_path_launches'] > 0) == (kern != 'smooth'),
+          f'{r["name"]} was launched {r["tracking_path_launches"]} times on '
+          'the tracking path')
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -2093,7 +2569,8 @@ def main() -> None:
           f' the env path {r.get("env_path_launches", 0)}, the training path '
           f'{r.get("train_path_launches", 0)}, the config-5 path '
           f'{r["config5_path_launches"]}, the Go1 path '
-          f'{r["go1_path_launches"]}; card {card}', flush=True)
+          f'{r["go1_path_launches"]}, the tracking path '
+          f'{r["tracking_path_launches"]}; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

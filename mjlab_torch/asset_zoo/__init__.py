@@ -1,17 +1,20 @@
 """Robot descriptions and scene builders of the port.
 
-`g1_flat_arrays()` and `go1_flat_arrays()` load the committed snapshots of
-the compiled Unitree G1 and Go1 flat scenes (data/g1_flat_model.npz and
-data/go1_flat_model.npz, written by `python -m
-mjlab_torch.asset_zoo.g1_flat_scene` and `... .go1_flat_scene`), so hosts
-without the mujoco package can build the engine's Model; tests check each
-against a fresh compile.
+`g1_flat_arrays()`, `go1_flat_arrays()` and `tracking_arrays()` load the
+committed snapshots of the compiled Unitree G1 and Go1 flat velocity scenes
+and of the G1 tracking scene (data/g1_flat_model.npz, data/go1_flat_model.npz
+and data/g1_tracking_model.npz, written by `python -m
+mjlab_torch.asset_zoo.g1_flat_scene`, `... .go1_flat_scene` and `...
+.g1_tracking_scene`), so hosts without the mujoco package can build the
+engine's Model; tests check each against a fresh compile.
 """
 
 from pathlib import Path
 
 G1_FLAT_SNAPSHOT = Path(__file__).parent / 'data' / 'g1_flat_model.npz'
 GO1_FLAT_SNAPSHOT = Path(__file__).parent / 'data' / 'go1_flat_model.npz'
+G1_TRACKING_SNAPSHOT = (Path(__file__).parent / 'data'
+                        / 'g1_tracking_model.npz')
 
 
 def g1_flat_arrays():
@@ -24,3 +27,9 @@ def go1_flat_arrays():
   """The compiled Go1 flat scene as a ModelArrays snapshot."""
   from mjlab_torch.physics.io import ModelArrays
   return ModelArrays.load(GO1_FLAT_SNAPSHOT)
+
+
+def tracking_arrays():
+  """The compiled G1 tracking scene as a ModelArrays snapshot."""
+  from mjlab_torch.physics.io import ModelArrays
+  return ModelArrays.load(G1_TRACKING_SNAPSHOT)

@@ -108,11 +108,14 @@ def add_keyframe(spec: mujoco.MjSpec, kf) -> None:
   key.ctrl = jp
 
 
-def robot_spec() -> mujoco.MjSpec:
+def robot_spec(add_sensors=_foot_contact_sensors) -> mujoco.MjSpec:
+  """The G1 with its actuators, full collision, the sensors that
+  `add_sensors(spec)` adds (the velocity tasks' foot contacts by default)
+  and the knees-bent keyframe."""
   spec = build_robot_spec(SPEC_DATA)
   add_actuators(spec, G1_ACTUATORS)
   _full_collision(spec)
-  _foot_contact_sensors(spec)
+  add_sensors(spec)
   add_keyframe(spec, KNEES_BENT_KEYFRAME)
   return spec
 

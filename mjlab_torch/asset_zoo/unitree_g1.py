@@ -1,9 +1,9 @@
-"""Unitree G1 humanoid (29 DoF): motors, keyframe and entity configuration.
+"""Unitree G1 humanoid (29 DoF): motors, keyframes and entity configuration.
 
 Counterpart of the constants of mjlab_tpu/asset_zoo/unitree_g1.py that need
 no mujoco package: the motor classes with their reflected inertias and PD
-gains, the knees-bent keyframe, the entity cfg and the per-joint action
-scale. The compiled model itself comes from asset_zoo/g1_flat_scene.py
+gains, the home and knees-bent keyframes, the entity cfg and the per-joint
+action scale. The compiled model itself comes from asset_zoo/g1_flat_scene.py
 (which needs mujoco) or from its committed snapshot.
 """
 
@@ -43,6 +43,20 @@ G1_ACTUATORS = (
 )
 
 FOOT_REGEX = r'^(left|right)_foot[1-7]_collision$'
+
+# the home pose the synthetic motions of scripts/motion.py start from
+HOME_KEYFRAME = EntityInitStateCfg(
+    pos=(0.0, 0.0, 0.783675),
+    joint_pos={
+        '.*_hip_pitch_joint': -0.1,
+        '.*_knee_joint': 0.3,
+        '.*_ankle_pitch_joint': -0.2,
+        '.*_shoulder_pitch_joint': 0.2,
+        '.*_elbow_joint': 1.28,
+        'left_shoulder_roll_joint': 0.2,
+        'right_shoulder_roll_joint': -0.2,
+    },
+    joint_vel={'.*': 0.0})
 
 KNEES_BENT_KEYFRAME = EntityInitStateCfg(
     pos=(0.0, 0.0, 0.76),

@@ -18,8 +18,9 @@ statistics in either way, which the learner updates whether or not the
 policy normalizes: its graph of a policy trained without normalization is
 not that policy. The port does not carry that over.
 
-The motion-baking export of the tracking task waits for the tracking
-slice (ROADMAP 12.2).
+The tracking task's export (`export_motion_policy_as_onnx`) bakes the
+motion clip into the graph: an int64 `time_step` input, clipped to the
+clip, gathers the joint targets and the anchor pose of that frame.
 """
 
 from __future__ import annotations
@@ -80,6 +81,16 @@ def _write_sidecar(path: str, meta: dict) -> None:
     json.dump(meta, f, indent=2)
 
 
+def _normalizer(normalizer, dim: int, normalize_obs: bool):
+  """(mean, std) the graph folds in: the running statistics' `mean` and
+  `sqrt(var) + 1e-2` where the policy normalizes, else the identity."""
+  if normalize_obs:
+    mean = _numpy(normalizer.mean).astype(np.float32)
+    std = (np.sqrt(_numpy(normalizer.var)) + 1e-2).astype(np.float32)
+    return mean, std
+  return np.zeros(dim, np.float32), np.ones(dim, np.float32)
+
+
 def export_policy_as_onnx(net, normalizer, env, path: str,
                           normalize_obs: bool, activation: str = 'elu',
                           metadata: 'dict | None' = None) -> str:
@@ -88,13 +99,32 @@ def export_policy_as_onnx(net, normalizer, env, path: str,
   `normalizer` (a RunningNorm) folded in where `normalize_obs`; the env's
   policy metadata and `metadata` go into the graph and the sidecar."""
   layers = _mlp_layers(net.actor)
-  dim = layers[0][0].shape[0]
-  if normalize_obs:
-    mean = _numpy(normalizer.mean).astype(np.float32)
-    std = (np.sqrt(_numpy(normalizer.var)) + 1e-2).astype(np.float32)
-  else:
-    mean, std = np.zeros(dim, np.float32), np.ones(dim, np.float32)
+  mean, std = _normalizer(normalizer, layers[0][0].shape[0], normalize_obs)
   meta = _gather_metadata(env, metadata)
   onnx_writer.write_mlp_policy(path, layers, mean, std, activation, meta)
+  _write_sidecar(path, meta)
+  return path
+
+
+def export_motion_policy_as_onnx(net, normalizer, env, motion, path: str,
+                                 normalize_obs: bool,
+                                 activation: str = 'elu',
+                                 metadata: 'dict | None' = None) -> str:
+  """The tracking task's export: the actor as in export_policy_as_onnx,
+  and the clip of `motion` (a MotionLoader) baked in. Inputs `obs` and
+  `time_step` (int64); outputs `actions` and the frame's `joint_pos`,
+  `joint_vel`, `anchor_pos_w` and `anchor_quat_w` (body 0 of the clip's
+  tracked bodies)."""
+  layers = _mlp_layers(net.actor)
+  mean, std = _normalizer(normalizer, layers[0][0].shape[0], normalize_obs)
+  motion_arrays = {
+      'joint_pos': np.asarray(motion.joint_pos, np.float32),
+      'joint_vel': np.asarray(motion.joint_vel, np.float32),
+      'anchor_pos_w': np.asarray(motion.body_pos_w[:, 0], np.float32),
+      'anchor_quat_w': np.asarray(motion.body_quat_w[:, 0], np.float32),
+  }
+  meta = _gather_metadata(env, metadata)
+  onnx_writer.write_motion_policy(path, layers, mean, std, motion_arrays,
+                                  activation, meta)
   _write_sidecar(path, meta)
   return path

@@ -20,7 +20,8 @@ ValueInfoProto{1:name, 2:type{1:tensor_type{1:elem_type, 2:shape{1:dim{
 OperatorSetIdProto{1:domain, 2:version}.
 
 A matching minimal decoder (`parse_model`) reads the graph back, and
-`run_mlp_policy` evaluates an exported policy graph in numpy.
+`run_mlp_policy` and `run_motion_policy` evaluate an exported policy graph
+in numpy.
 """
 
 from __future__ import annotations
@@ -399,18 +400,37 @@ _NUMPY_OPS = {
     'Tanh': np.tanh,
     'Sigmoid': lambda x: 1 / (1 + np.exp(-x)),
     'Gelu': _gelu,
+    'Clip': np.clip,  # min and max are inputs, as in opset 11+
+    'Gather': lambda data, idx: np.take(data, idx, axis=0),  # axis = 0
 }
+
+
+def _run(parsed: dict, inputs: dict) -> dict:
+  """Every value of the graph, its inputs given."""
+  vals = dict(parsed['initializers'])
+  vals.update(inputs)
+  for n in parsed['nodes']:
+    op = _NUMPY_OPS.get(n['op_type'])
+    if op is None:
+      raise NotImplementedError(f'op {n["op_type"]} in a policy graph')
+    vals[n['outputs'][0]] = op(*(vals[i] for i in n['inputs']))
+  return vals
 
 
 def run_mlp_policy(parsed: dict, obs: np.ndarray) -> np.ndarray:
   """The first output of a policy graph that `mlp_policy_graph` built, as
   `parse_model` returns it, evaluated in float32 numpy on `obs` (batch,
   obs_dim), with the attributes this writer gives its nodes."""
-  vals = dict(parsed['initializers'])
-  vals[parsed['inputs'][0]] = np.asarray(obs, np.float32)
-  for n in parsed['nodes']:
-    op = _NUMPY_OPS.get(n['op_type'])
-    if op is None:
-      raise NotImplementedError(f'op {n["op_type"]} in a policy graph')
-    vals[n['outputs'][0]] = op(*(vals[i] for i in n['inputs']))
+  vals = _run(parsed, {parsed['inputs'][0]: np.asarray(obs, np.float32)})
   return vals[parsed['outputs'][0]]
+
+
+def run_motion_policy(parsed: dict, obs: np.ndarray,
+                      time_step: np.ndarray) -> dict:
+  """Every output of a graph that `write_motion_policy` wrote, by name,
+  evaluated in numpy on `obs` (batch, obs_dim) and `time_step` (batch,),
+  int64: the actions, and the clip's frames at `time_step` clipped to the
+  clip (`Clip`, then `Gather` on axis 0)."""
+  vals = _run(parsed, {'obs': np.asarray(obs, np.float32),
+                       'time_step': np.asarray(time_step, np.int64)})
+  return {name: vals[name] for name in parsed['outputs']}

@@ -203,15 +203,44 @@ class VelocityOnPolicyRunner(OnPolicyRunner):
       print(f'[export] onnx export failed: {e!r}', flush=True)
 
 
-def make_runner(env, cfg, log_dir=None, step_fn=None) -> OnPolicyRunner:
-  """The task's runner: the velocity runner; a motion-tracking task (a
-  command term with a motion) is not ported yet."""
+def _motion(env):
+  """The motion clip of the env's motion command term, or None."""
   cm = getattr(env, 'command_manager', None)
-  if cm is not None and any(getattr(t, 'motion', None) is not None
-                            for t in cm.terms.values()):
-    raise NotImplementedError(
-        'the motion-tracking runner is not ported yet (ROADMAP 12.2)')
-  return VelocityOnPolicyRunner(env, cfg, log_dir=log_dir, step_fn=step_fn)
+  for term in (cm.terms.values() if cm is not None else ()):
+    if getattr(term, 'motion', None) is not None:
+      return term.motion
+  return None
+
+
+class MotionTrackingOnPolicyRunner(OnPolicyRunner):
+  """The tracking task's runner: every checkpoint save also writes the
+  policy's deployment ONNX with the env's motion clip baked in
+  (`export_motion_policy_as_onnx`). A failed export is printed and
+  training goes on, as in the velocity runner."""
+
+  def save(self, path: str, full_state: bool = True):
+    super().save(path, full_state)
+    try:
+      from mjlab_torch.rl.exporter import export_motion_policy_as_onnx
+      motion = _motion(self.env)
+      if motion is None:
+        raise RuntimeError('no motion command term found')
+      pol = self.cfg.policy
+      export_motion_policy_as_onnx(
+          self.ts.net, self.ts.actor_norm, self.env, motion,
+          os.path.splitext(path)[0] + '.onnx',
+          normalize_obs=pol.actor_obs_normalization,
+          activation=pol.activation)
+    except Exception as e:  # an export never stops training
+      print(f'[export] onnx export failed: {e!r}', flush=True)
+
+
+def make_runner(env, cfg, log_dir=None, step_fn=None) -> OnPolicyRunner:
+  """The task's runner: the tracking runner for an env whose command term
+  has a motion, else the velocity runner."""
+  cls = (MotionTrackingOnPolicyRunner if _motion(env) is not None
+         else VelocityOnPolicyRunner)
+  return cls(env, cfg, log_dir=log_dir, step_fn=step_fn)
 
 
 def get_checkpoint_path(log_root: str, run_regex: str = '.*',

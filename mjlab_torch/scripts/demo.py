@@ -9,7 +9,9 @@ experiment under `--log-root` (a policy the user trained wins), the task's
 shipped policy (`pretrained_policy` in the registry), or a policy trained
 here for `--train-iterations` PPO iterations at `--num-envs` envs through
 scripts/train.py, which also exports its ONNX on every save. Then
-scripts/play.py plays it for `--steps` env-steps at up to 16 envs. Runs on
+scripts/play.py plays it for `--steps` env-steps at up to 16 envs; the
+shipped tracking policy plays on the clip it was trained on, which ships
+beside it, unless `--env.commands.motion.motion_file` names another. Runs on
 the GPU unless `--device cpu` is given. Other `--env.*` and `--agent.*`
 flags go to both scripts. Returns the checkpoint played, the training
 runner (None when nothing was trained) and play's statistics.

@@ -11,13 +11,18 @@ runner checkpoint (`model_{it}.pt`: the one `--checkpoint` names, else the
 newest under `--log-root/<experiment_name>`) through the runner's inference
 policy; an actor .npz (rl/networks.py:save_actor) named by `--checkpoint`
 plays as it is, and the task's shipped policy plays when there is no run.
+The shipped tracking policy plays on the clip it was trained on, shipped
+beside it, unless `--env.commands.motion.motion_file` names another.
 `--env.*` and `--agent.*` set fields of the env and the agent cfg (the
-agent's network widths must be those of the checkpoint).
+agent's network widths must be those of the checkpoint). The statistics
+count the resets by cause and average each command metric over the
+steps and envs.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None):
@@ -48,8 +53,22 @@ def main(argv=None):
   agent_cfg.device = args.device
   if args.num_envs is not None:
     env_cfg.scene.num_envs = args.num_envs
+  ckpt = args.checkpoint
+  if args.agent == 'trained':
+    if ckpt is None:
+      try:
+        ckpt = get_checkpoint_path(
+            f'{args.log_root}/{agent_cfg.experiment_name}',
+            agent_cfg.load_run, agent_cfg.load_checkpoint)
+      except FileNotFoundError:
+        ckpt = str(registry.load_cfg(args.task, 'pretrained_policy'))
+    _shipped_policy_motion(args.task, ckpt, env_cfg, env_over)
   env = registry.make(args.task, cfg=env_cfg, device=args.device)
   dev = env.device
+  motion_file = getattr(getattr(env_cfg.commands, 'motion', None),
+                        'motion_file', None)
+  if motion_file:
+    print(f'[play] motion {motion_file}')
 
   if args.agent == 'zero':
     policy = lambda obs: torch.zeros((env.num_envs, env.action_dim),
@@ -60,14 +79,6 @@ def main(argv=None):
     policy = lambda obs: torch.randn((env.num_envs, env.action_dim),
                                      generator=gen, device=dev)
   else:
-    ckpt = args.checkpoint
-    if ckpt is None:
-      try:
-        ckpt = get_checkpoint_path(
-            f'{args.log_root}/{agent_cfg.experiment_name}',
-            agent_cfg.load_run, agent_cfg.load_checkpoint)
-      except FileNotFoundError:
-        ckpt = registry.load_cfg(args.task, 'pretrained_policy')
     print(f'[play] loading {ckpt}')
     if ckpt.endswith('.npz'):
       policy = load_actor(ckpt, device=dev)
@@ -77,23 +88,49 @@ def main(argv=None):
       policy = runner.get_inference_policy()
 
   obs, _ = env.reset()
+  cm = env.command_manager
   # sums stay on the device; the host reads them once, after the loop
   rew_sum = torch.zeros((), device=dev)
   resets = torch.zeros((), dtype=torch.long, device=dev)
   ep_len_sum = torch.zeros((), device=dev)
+  causes, metrics = {}, {}
   for _ in range(args.steps):
     obs, rew, term, trunc, extras = env.step(policy(obs))
     rew_sum += rew.mean()
     resets += (term | trunc).sum()
     ep_len_sum += extras['episode_length_sum']
+    for k, v in extras.items():
+      if k.startswith('Episode_Termination/'):
+        causes[k.split('/', 1)[1]] = causes.get(k.split('/', 1)[1], 0) + v
+    for name, t in cm.terms.items():
+      for k, v in t.metrics(env.state.command[name]).items():
+        metrics[f'{name}/{k}'] = metrics.get(f'{name}/{k}', 0) + v.mean()
   stats = {'mean_reward': float(rew_sum) / args.steps, 'resets': int(resets),
            'mean_episode_length': (float(ep_len_sum) / int(resets)
-                                   if int(resets) else None)}
+                                   if int(resets) else None),
+           'terminations': {k: int(v) for k, v in causes.items()},
+           'metrics': {k: float(v) / args.steps for k, v in metrics.items()},
+           'motion_file': motion_file}
   ep_msg = (f', mean episode length: {stats["mean_episode_length"]:.1f}'
             if stats['resets'] else '')
   print(f'[play] {args.steps} steps, mean reward/step: '
-        f'{stats["mean_reward"]:.4f}, resets: {stats["resets"]}{ep_msg}')
+        f'{stats["mean_reward"]:.4f}, resets: {stats["resets"]}{ep_msg}; '
+        f'by cause {stats["terminations"]}')
   return stats
+
+
+def _shipped_policy_motion(task, ckpt, env_cfg, env_over):
+  """The task's shipped policy plays on the motion clip it was trained on
+  (the registry's `pretrained_motion`), unless the caller names a clip."""
+  from mjlab_torch.tasks import registry
+  try:
+    shipped = registry.load_cfg(task, 'pretrained_policy')
+    clip = registry.load_cfg(task, 'pretrained_motion')
+  except KeyError:
+    return
+  named = any('motion_file' in tok for tok in env_over)
+  if os.path.abspath(ckpt) == os.path.abspath(shipped) and not named:
+    env_cfg.commands.motion.motion_file = str(clip)
 
 
 if __name__ == '__main__':

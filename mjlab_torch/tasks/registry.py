@@ -59,3 +59,4 @@ def _import_all():
   """Import all task packages so their registrations run."""
   import mjlab_torch.tasks.velocity.config.g1  # noqa: F401
   import mjlab_torch.tasks.velocity.config.go1  # noqa: F401
+  import mjlab_torch.tasks.tracking.config.g1  # noqa: F401

@@ -1,6 +1,7 @@
 """The port stands alone: no module of mjlab_torch, and not chip_smoke.py,
-imports JAX, flax, orbax or the JAX package; the G1 and Go1 flat
-environments are made and stepped without the mujoco package; its entry
+imports JAX, flax, optax, orbax or the JAX package; the G1 and Go1 flat
+environments and the G1 tracking environment are made and stepped without
+the mujoco package; its entry
 points default to the GPU and refuse to fall back to the CPU silently; its
 kernel wrappers refuse CPU tensors."""
 
@@ -23,7 +24,7 @@ from mjlab_torch.ops import pd_solve as tpd
 from mjlab_torch.ops import smooth_kernel as tsk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ('jax', 'jaxlib', 'flax', 'orbax', 'mjlab_tpu')
+BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mjlab_tpu')
 SUBPACKAGES = ('utils', 'sim', 'entity', 'scene', 'terrains', 'managers',
                'envs', 'tasks', 'rl', 'scripts', 'physics', 'ops', 'asset_zoo')
 
@@ -45,14 +46,22 @@ def test_the_walk_reaches_every_subpackage():
                'rl.exporter', 'scripts.demo', 'scripts.list_envs',
                'tasks.velocity.config.go1.flat_env_cfg',
                'asset_zoo.unitree_go1', 'asset_zoo.go1_flat_scene',
-               'utils.actuator'):
+               'utils.actuator', 'asset_zoo.g1_tracking_scene',
+               'scripts.motion', 'tasks.tracking.tracking_env_cfg',
+               'tasks.tracking.mdp.commands',
+               'tasks.tracking.mdp.observations',
+               'tasks.tracking.mdp.rewards',
+               'tasks.tracking.mdp.terminations',
+               'tasks.tracking.config.g1.flat_env_cfg'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
-def test_env_is_made_and_stepped_without_jax_or_mujoco():
+def test_env_is_made_and_stepped_without_jax_or_mujoco(tmp_path):
   """The registry, the G1 flat env from the committed snapshot, a reset and
-  a step under the shipped actor, with jax, flax, orbax, the JAX package
-  and mujoco all unimportable."""
+  a step under the shipped actor, the Go1 and the G1 tracking env (its
+  default squat clip written by the port's motion pipeline into an empty
+  cache), with jax, flax, orbax, the JAX package and mujoco all
+  unimportable."""
   block = '; '.join(f'sys.modules[{b!r}] = None'
                     for b in BANNED + ('mujoco',))
   code = f"""
@@ -73,12 +82,21 @@ go1 = registry.make('Mjlab-Velocity-Flat-Unitree-Go1', device='cpu',
 obs, _ = go1.reset()
 obs, rew, term, trunc, extras = go1.step(torch.zeros(2, 12))
 assert obs['policy'].shape == (2, 48) and bool(torch.isfinite(rew).all())
+from mjlab_torch.asset_zoo.pretrained import G1_TRACKING_POLICY
+track = registry.make('Mjlab-Tracking-Flat-Unitree-G1', device='cpu',
+                      **{{'scene.num_envs': 2}})
+assert track.cfg.commands.motion.motion_file.startswith({str(tmp_path)!r})
+obs, _ = track.reset()
+obs, rew, term, trunc, extras = track.step(
+    load_actor(G1_TRACKING_POLICY, device='cpu')(obs))
+assert obs['policy'].shape == (2, 160) and bool(torch.isfinite(rew).all())
 loaded = [m for m in {BANNED + ('mujoco',)!r} if sys.modules.get(m)]
 assert not loaded, loaded
 print('ok')
 """
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, 'MJLAB_TORCH_CACHE': str(tmp_path)})
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == 'ok'
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at a
 small batch of G1 flat envs, K3 also with per-env model constants (its
-per-env form), and at the Go1's shapes (n 18, 228 uncompacted contact
-rows, trunks lying on the floor). They need an NVIDIA GPU and the CUDA toolkit and skip
+per-env form, with every segment per env, with config 5's and with the
+tracking task's), at the Go1's shapes (n 18, 228 uncompacted contact
+rows, trunks lying on the floor), and on the G1 tracking env. They need an NVIDIA GPU and the CUDA toolkit and skip
 elsewhere; `python3 chip_smoke.py` holds the kernels at the main
 path's full shapes."""
 
@@ -17,8 +18,13 @@ from chip_smoke import (
     k3_variants,
     per_env_k3_model,
     random_newton_args,
+    tracking_card_vs_cpu,
 )
-from mjlab_torch.asset_zoo import g1_flat_arrays, go1_flat_arrays
+from mjlab_torch.asset_zoo import (
+    g1_flat_arrays,
+    go1_flat_arrays,
+    tracking_arrays,
+)
 from mjlab_torch.ops import LAUNCHES
 from mjlab_torch.ops import newton as tnewton
 from mjlab_torch.ops import pd_solve as tpd
@@ -224,6 +230,19 @@ def test_smooth_kernel_forms_take_16_envs_a_block(g1):
       4 * gone
   assert _smooth_both(me, d, envs_per_block=epb) < TOL
   assert tsk.smooth_num_regs(False) > 0 and tsk.smooth_num_regs(True) > 0
+
+
+@pytest.mark.parametrize('batch', [33, 4096])
+def test_smooth_kernel_per_env_at_tracking_segments(g1, batch):
+  """The tracking task's startup randomization on its own scene: body_ipos
+  and qpos0 per env, so the bconst and qpos0 segments (bits 0 and 4)."""
+  arrays = tracking_arrays()
+  m = tphys.put_model(arrays)
+  d = g1_states(torch, tphys, arrays, m, batch, 0.0,
+                torch.Generator().manual_seed(batch))
+  me, err = _per_env_both(m, d, fields=('body_ipos', 'qpos0'))
+  assert err < TOL
+  assert tsk.plan_of(me).dims[15] == 0b10001
 
 
 def test_smooth_kernel_per_env_batch_must_match(g1):
@@ -446,3 +465,30 @@ def test_go1_env_on_the_card_matches_the_cpu(go1):
   e_obs, e_rew, same, flips, kept = go1_card_vs_cpu(torch, 4, 3)
   assert e_obs <= 1e-3 and e_rew <= 1e-3 and same
   assert all(g <= 1e-6 for _, g in flips.values()) and kept >= 3
+
+
+# ---- the G1 tracking env -----------------------------------------------------
+
+
+def test_tracking_env_step_launches_each_kernel(g1):
+  """An env-step of the tracking env launches K3 in its per-env form 4
+  times (body_ipos and qpos0 per env), K2 4 and K1 8, with one more of K3
+  and K2 and K1 where an env resets; never K3's shared form."""
+  from mjlab_torch.tasks import registry
+  env = registry.make('Mjlab-Tracking-Flat-Unitree-G1',
+                      **{'scene.num_envs': B})
+  env.reset()
+  kernels = ('smooth_env', 'newton', 'pd_solve', 'smooth')
+  seen = set()
+  for _ in range(3):
+    before = [LAUNCHES[k] for k in kernels]
+    env.step(torch.zeros(B, env.action_dim, device='cuda'))
+    seen.add(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+  assert seen <= {(4, 4, 8, 0), (5, 5, 9, 0)}, seen
+
+
+def test_tracking_env_on_the_card_matches_the_cpu(g1):
+  """chip_smoke phase 9d at 8 envs and 5 env-steps."""
+  e_obs, e_rew, same, flips, kept = tracking_card_vs_cpu(torch)
+  assert e_obs <= 1e-3 and e_rew <= 1e-3 and same
+  assert all(g <= 1e-6 for _, g in flips.values()) and kept >= 6

@@ -1,8 +1,8 @@
 """The port's training path alone, on the CPU: PPO learns a contextual toy
 task, a runner checkpoint round trip (with and without the env's state) on
 the G1 flat env, `scripts/train.py` and `scripts/play.py` end to end, the
-flags that are not ported yet, and the rollout's reads of device values on
-the host. The parity with the JAX learner is in test_torch_rl.py."""
+flags that are not ported yet, make_runner's choice of runner, and the
+rollout's reads of device values on the host. The parity with the JAX learner is in test_torch_rl.py."""
 
 import json
 import os
@@ -207,17 +207,22 @@ def test_unported_flags_exit_nonzero(tmp_path, flags, item):
   assert not os.listdir(tmp_path)
 
 
-def test_motion_task_runner_is_not_ported():
+def test_motion_task_gets_the_tracking_runner():
+  """An env whose command term has a motion gets the tracking runner; an
+  env without one, the velocity runner."""
+  from mjlab_torch.rl.runner import (MotionTrackingOnPolicyRunner,
+                                     VelocityOnPolicyRunner)
+
   class Term:
     motion = object()
 
   class Commands:
-    terms = {'motion': Term()}
+    terms = {'twist': object(), 'motion': Term()}
 
   env = FakeEnv()
+  assert type(make_runner(env, _cfg())) is VelocityOnPolicyRunner
   env.command_manager = Commands()
-  with pytest.raises(NotImplementedError, match='ROADMAP 12.2'):
-    make_runner(env, _cfg())
+  assert type(make_runner(env, _cfg())) is MotionTrackingOnPolicyRunner
 
 
 def test_rollout_reads_one_device_value_an_env_step(g1_env, monkeypatch):

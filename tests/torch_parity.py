@@ -33,6 +33,18 @@ def g1_flat_mjmodel():
 
 
 @functools.lru_cache(maxsize=1)
+def g1_tracking_mjmodel():
+  """The MjModel `Mjlab-Tracking-Flat-Unitree-G1` builds (JAX package),
+  visual meshes included."""
+  from mjlab_tpu.scene.scene import Scene
+  from mjlab_tpu.tasks import registry
+  cfg = registry.load_cfg('Mjlab-Tracking-Flat-Unitree-G1')
+  scene = Scene(cfg.scene)
+  cfg.sim.mujoco.edit_spec(scene.spec)
+  return scene.compile()
+
+
+@functools.lru_cache(maxsize=1)
 def go1_flat_mjmodel():
   """The MjModel `Mjlab-Velocity-Flat-Unitree-Go1` builds (JAX package),
   visual meshes included."""

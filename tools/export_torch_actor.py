@@ -5,11 +5,14 @@ layers and the actor's observation normalizer, and writes them as the .npz
 that `mjlab_torch.rl.networks.load_actor` reads (which needs neither orbax
 nor flax). Whether the policy normalizes its observations comes from the
 task's runner configuration. Before writing it checks the checkpoint
-against the exported policy's metadata beside it: the observation width
-(3 + 3 + 3 + 3 * joints + 3) and the action width equal the joint count.
+against the exported policy's metadata beside it: the action width equals
+the joint count, and the observation width is the task's (velocity: 3 + 3
++ 3 + 3 * joints + 3; tracking: 2 * joints + 3 + 6 + 3 + 3 + 3 * joints).
 
-Usage (defaults: the shipped G1 flat policy):
-  python tools/export_torch_actor.py [<task> <src_ckpt_dir> <dst_npz>]
+Usage (the shipped G1 flat policy, the shipped G1 tracking policy, or any):
+  python tools/export_torch_actor.py
+  python tools/export_torch_actor.py tracking
+  python tools/export_torch_actor.py <task> <src_ckpt_dir> <dst_npz>
 """
 from __future__ import annotations
 
@@ -30,6 +33,18 @@ G1_FLAT = ('Mjlab-Velocity-Flat-Unitree-G1',
                         'model_4500.ckpt'),
            os.path.join(ROOT, 'mjlab_torch/asset_zoo/pretrained/g1_flat/'
                         'model_4500.npz'))
+G1_TRACKING = ('Mjlab-Tracking-Flat-Unitree-G1',
+               os.path.join(ROOT, 'mjlab_tpu/asset_zoo/pretrained/'
+                            'g1_tracking/model_6000.ckpt'),
+               os.path.join(ROOT, 'mjlab_torch/asset_zoo/pretrained/'
+                            'g1_tracking/model_6000.npz'))
+
+
+def obs_width(task: str, joints: int) -> int:
+  """The policy observation width of a velocity or tracking task."""
+  if task.startswith('Mjlab-Tracking-'):
+    return 5 * joints + 15
+  return 3 * joints + 12
 
 
 def restore(src: str) -> dict:
@@ -51,7 +66,7 @@ def export(task: str, src: str, dst: str) -> None:
   meta_path = os.path.splitext(src)[0] + '.onnx.meta.json'
   with open(meta_path) as f:
     joints = json.load(f)['joint_names']
-  if act_dim != len(joints) or obs_dim != 12 + 3 * len(joints):
+  if act_dim != len(joints) or obs_dim != obs_width(task, len(joints)):
     raise ValueError(
         f'{src}: actor maps {obs_dim} -> {act_dim}, but {meta_path} names '
         f'{len(joints)} joints')
@@ -63,4 +78,9 @@ def export(task: str, src: str, dst: str) -> None:
 
 
 if __name__ == '__main__':
-  export(*(sys.argv[1:4] if len(sys.argv) > 1 else G1_FLAT))
+  if len(sys.argv) == 1:
+    export(*G1_FLAT)
+  elif sys.argv[1:] == ['tracking']:
+    export(*G1_TRACKING)
+  else:
+    export(*sys.argv[1:4])
