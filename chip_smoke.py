@@ -68,7 +68,29 @@ Phases, each of which exits non-zero on failure:
      clip, then the Play cfg at 512 envs for 250 env-steps under the
      shipped policy and under zero actions, whose episodes ended by
      tracking terms are compared; 9d: 8 envs on the card in float32
-     against the CPU in float64).
+     against the CPU in float64);
+ 10. run the rough-terrain velocity tasks (heightfield terrain regenerated
+     from its seed, the terrain-level curriculum): 10a:
+     `registry.make('Mjlab-Velocity-Rough-Unitree-G1')` at 4096 envs, the
+     heightfield's size and bytes on the card, the slots, caps, contact rows
+     and nefc, and whether K2 takes them; 10b: 150 env-steps under the
+     shipped G1 flat actor with noise, pushes and resets on, launches and
+     waits an env-step, every heightfield pair active, the collision gate
+     (no active heightfield contact deeper than ROUGH_PEN_GATE), the
+     active heightfield contacts whose normal points down, the
+     curriculum's levels, fell_over by level, one env-step and one substep
+     stage by stage, peak memory; 10c: 3 PPO iterations through
+     `train.main`, the terrain-level metric logged, the ONNX read back,
+     then `scripts.play` of the G1 rough Play cfg at 4096 envs with that
+     checkpoint; 10d: `Mjlab-Velocity-Rough-Unitree-Go1` at 4096 envs for
+     100 env-steps under random actions (91 slots compacted to 64, 256
+     contact rows), K2 at that shape against its plain version and timed,
+     then `scripts.demo` of the Go1 rough task (3 PPO iterations at 4096
+     envs through `train.main`, the ONNX read back, play) and
+     `scripts.play` of its Play cfg at 4096 envs; 10e: 8 envs of each
+     rough task on the card in float32 against the CPU in float64. The
+     launches of phase 10 are those of the path's own runs: env builds
+     and resets, env-steps, training and play.
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -77,8 +99,10 @@ third of them on their backs with the trunk box flat, so the plane-box
 rows are active). The line before the last is a JSON object with one row
 per kernel (K3's per-env form a row of its own, its launches those of
 phase 7 and its `tracking` its phase-9a numbers; each row's `go1` holds
-its phase-2e numbers, `go1_path_launches` its launches in phase 8 and
-`tracking_path_launches` those in phase 9); the last line is {"ok":
+its phase-2e numbers, `go1_path_launches` its launches in phase 8,
+`tracking_path_launches` those in phase 9 and `rough_path_launches` those
+in phase 10; K2's row holds its phase-10d numbers as `rough_go1`); the last
+line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
 """
 
@@ -478,17 +502,26 @@ def distinct_dr_values(model, num_envs: int, seed: int = 0) -> dict:
   return out
 
 
-def tip_over_state(torch, state, env_id: int, degrees: float = 80.0):
+def tip_over_state(torch, state, env_id: int, degrees: float = 80.0,
+                   quat=None, pos=None):
   """`state` (an EnvState) with one env's root turned `degrees` about x,
   by default past `fell_over`'s 70: that env terminates on the next
-  env-step."""
+  env-step; or turned to `quat` (w, x, y, z). With `pos`, the root is put
+  there, at rest."""
   import math
-  qpos = state.data.qpos.clone()
-  half = math.radians(degrees) / 2
-  qpos[env_id, 3:7] = torch.tensor(
-      [math.cos(half), math.sin(half), 0.0, 0.0], dtype=qpos.dtype,
-      device=qpos.device)
-  return state.replace(data=state.data.replace(qpos=qpos))
+  data = state.data
+  qpos = data.qpos.clone()
+  if quat is None:
+    half = math.radians(degrees) / 2
+    quat = [math.cos(half), math.sin(half), 0.0, 0.0]
+  qpos[env_id, 3:7] = torch.tensor(quat, dtype=qpos.dtype,
+                                   device=qpos.device)
+  if pos is not None:
+    qpos[env_id, :3] = pos.to(qpos.dtype)
+    qvel = data.qvel.clone()
+    qvel[env_id] = 0.0
+    data = data.replace(qvel=qvel)
+  return state.replace(data=data.replace(qpos=qpos))
 
 
 def tip_over(torch, env, env_id: int, degrees: float = 80.0) -> None:
@@ -845,19 +878,41 @@ def train_card_vs_cpu(torch, num_envs: int = 8, steps: int = 4):
   return errs, flags, dones, max_diff, share, n_steps, lr
 
 
+class _PerStep(list):
+  """Each env-step's launches, and `envs`: the envs that stepped."""
+
+  def __init__(self):
+    super().__init__()
+    self.envs = set()
+
+
+@contextlib.contextmanager
+def counted(total):
+  """Within the block the kernels' launch counts start from 0; at its end
+  they are added to `total` (a Counter). Kernel calls outside such blocks
+  (a stage run alone, a kernel against its plain version) count for no
+  path."""
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  reset_launches()
+  yield
+  total.update(LAUNCHES)
+
+
 @contextlib.contextmanager
 def launches_per_step(kernels):
   """Within the block, every env-step of any env (ManagerBasedRlEnv's
-  `_step_fn`) appends its launches of `kernels` to the yielded list."""
+  `_step_fn`) appends its launches of `kernels` to the yielded list, and
+  adds its env's (num_envs, device type) to the list's `envs`."""
   from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
   from mjlab_torch.ops import LAUNCHES
-  per_step = []
+  per_step = _PerStep()
   plain_step = ManagerBasedRlEnv._step_fn
 
   def counted_step(self, *a, **kw):
     before = [LAUNCHES[k] for k in kernels]
     out = plain_step(self, *a, **kw)
     per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+    per_step.envs.add((self.num_envs, self.device.type))
     return out
 
   ManagerBasedRlEnv._step_fn = counted_step
@@ -1100,6 +1155,15 @@ def card_vs_cpu_flips(torch, task: str, make_cfg, steps: int,
   finally:
     pipeline.step = plain_step
   return worst_obs, worst_rew, flags_equal, flips, int(keep.sum())
+
+
+def task_card_vs_cpu(torch, task: str, num_envs: int = 8, steps: int = 5):
+  """The env of `task`, its sampling ranges collapsed to a point, on the
+  card against the CPU (card_vs_cpu_flips); phases 8d and 10e."""
+  from mjlab_torch.tasks import registry
+  return card_vs_cpu_flips(
+      torch, task,
+      lambda: degenerate_ranges(registry.load_cfg(task), num_envs), steps)
 
 
 def config5_card_vs_cpu(torch, num_envs: int = 8, steps: int = 6):
@@ -1450,13 +1514,9 @@ def go1_kernels(torch, card: str, busy) -> dict:
 
 
 def go1_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
-  """Phase 8d: the Go1 env, its sampling ranges collapsed to a point, on
-  the card against the CPU (card_vs_cpu_flips)."""
-  from mjlab_torch.tasks import registry
-  return card_vs_cpu_flips(
-      torch, GO1_TASK,
-      lambda: degenerate_ranges(registry.load_cfg(GO1_TASK), num_envs),
-      steps)
+  """Phase 8d: the Go1 flat env on the card against the CPU
+  (task_card_vs_cpu)."""
+  return task_card_vs_cpu(torch, GO1_TASK, num_envs, steps)
 
 
 def go1_path(torch, card: str) -> dict:
@@ -2058,6 +2118,609 @@ def _tracking_path(torch, card: str, busy, root: str):
   return launches, k3_tracking
 
 
+ROUGH_TASK = 'Mjlab-Velocity-Rough-Unitree-G1'
+ROUGH_GO1_TASK = 'Mjlab-Velocity-Rough-Unitree-Go1'
+ROUGH_STEPS = 150  # env-steps of phase 10b
+ROUGH_GO1_STEPS = 100  # env-steps of phase 10d
+ROUGH_PLAY_STEPS = 50  # env-steps of each Play cfg's scripts.play
+# phase 10b's collision gate, written before the first call on the card:
+# over the run, no active heightfield contact of the G1 is deeper than this
+# (m). Soft contacts hold a standing or fallen robot within a few mm to cm
+# of the surface; a robot sinking through the terrain reads tens of cm.
+ROUGH_PEN_GATE = 0.05
+
+
+def hfield_groups(s) -> dict:
+  """{'SPHERE' | 'CAPSULE' | 'BOX': (first slot, slots)} of the heightfield
+  pair groups of a model's static pair table."""
+  from mjlab_torch.physics.types import GeomType
+  return {GeomType(k[1]).name: (v[3], len(v[0]) * v[4])
+          for k, v in s.pairs.groups.items()
+          if k[0] == int(GeomType.HFIELD)}
+
+
+@contextlib.contextmanager
+def hfield_recorder(torch, groups: dict, ncon: int, device):
+  """Within the block, every physics substep (pipeline.step) adds, per
+  heightfield pair group, the envs with an active slot of it, and the
+  active heightfield contacts whose world normal points down (z < 0: they
+  push their geom into the terrain); and lowers the deepest active
+  heightfield contact's dist, where it was (env * ncon + slot), its
+  normal's z and its env's downward contacts in that substep, and the
+  deepest downward contact's dist. All stay on the card. Yields {'hits':
+  {group: count}, 'down': (), 'deepest': (), 'at': (), 'nz_at': (),
+  'down_at': (), 'down_deepest': ()}."""
+  from mjlab_torch.physics import pipeline
+  hf = torch.zeros(ncon, dtype=torch.bool, device=device)
+  for first, n in groups.values():
+    hf[first:first + n] = True
+  zero = lambda dtype: torch.zeros((), dtype=dtype, device=device)
+  rec = {'hits': {k: zero(torch.long) for k in groups},
+         'down': zero(torch.long),
+         'deepest': torch.full((), 1e9, device=device),
+         'at': zero(torch.long), 'nz_at': zero(torch.float32),
+         'down_at': zero(torch.long),
+         'down_deepest': torch.full((), 1e9, device=device)}
+  plain_step = pipeline.step
+
+  def recording_step(m, d):
+    out = plain_step(m, d)
+    c = out.contact
+    active = c.dist < c.includemargin
+    for k, (first, n) in groups.items():
+      rec['hits'][k] += active[:, first:first + n].any(-1).sum()
+    nz = c.frame[..., 0, 2]
+    down = active & hf & (nz < 0)
+    rec['down'] += down.sum()
+    far = torch.full_like(c.dist, 1e9)
+    rec['down_deepest'] = torch.minimum(
+        rec['down_deepest'], torch.where(down, c.dist, far).min())
+    low, at = torch.where(active & hf, c.dist, far).flatten().min(0)
+    deeper = low < rec['deepest']
+    rec['deepest'] = torch.where(deeper, low, rec['deepest'])
+    rec['at'] = torch.where(deeper, at, rec['at'])
+    # index_select: indexing by a tensor of no dims would read it on the host
+    pick = lambda x, i: x.index_select(0, i.view(1))[0]
+    rec['nz_at'] = torch.where(deeper, pick(nz.flatten(), at).float(),
+                               rec['nz_at'])
+    rec['down_at'] = torch.where(deeper, pick(down.sum(-1), at // ncon),
+                                 rec['down_at'])
+    return out
+
+  pipeline.step = recording_step
+  try:
+    yield rec
+  finally:
+    pipeline.step = plain_step
+
+
+def lay_on_back(torch, env, env_id: int, height: float, quat) -> None:
+  """Put env `env_id`'s root at its spawn origin + `height`, turned to
+  `quat` (w, x, y, z), at rest (tip_over_state)."""
+  org = env.state.curriculum['terrain_levels']['origins'][env_id]
+  pos = org + torch.tensor([0.0, 0.0, height], device=org.device)
+  env._state = tip_over_state(torch, env.state, env_id, quat=quat, pos=pos)
+
+
+def rough_widths(torch, env, what: str) -> dict:
+  """Phase 10a/10d: the rough env's heightfield and its widths (slots, caps,
+  contact rows ncr, nefc) as constraint.make_efc builds them on its state,
+  and whether K2 takes them."""
+  from mjlab_torch.ops import newton as k_newton
+  from mjlab_torch.physics import constraint, pipeline, smooth
+  m, s = env.scene.model, env.model.stat
+  d = pipeline.fwd_velocity(m, pipeline.fwd_position(m, env.state.data))
+  efc = constraint.make_efc(m, smooth.fwd_smooth(m, smooth.actuation(m, d)))
+  ncr, nl = efc['c_J'].shape[1], efc['l_sign'].shape[1]
+  out = dict(nrow=s.hfield_nrow, ncol=s.hfield_ncol,
+             hfield_bytes=m.hfield_data.numel() * m.hfield_data.element_size(),
+             slots=s.pairs.ncon_max, caps=(s.ncon_cap, s.ncon_cap1), ncr=ncr,
+             nl=nl, nefc=constraint.efc_layout(s).nefc,
+             fits=k_newton.fits(s.nv, ncr, nl),
+             smem=k_newton.newton_smem_bytes(s.nv, ncr, nl),
+             groups=hfield_groups(s))
+  print(f'{what}: heightfield {out["nrow"]} x {out["ncol"]} samples, '
+        f'{out["hfield_bytes"]} B on {m.hfield_data.device}; '
+        f'{out["slots"]} contact slots, caps {out["caps"][0]} frictional + '
+        f'{out["caps"][1]} frictionless, ncr {ncr}, nl {nl}, nefc '
+        f'{out["nefc"]}; hfield groups (first slot, slots) {out["groups"]}; '
+        f'K2 fits: {out["fits"]} ({out["smem"]} B of shared memory a block)',
+        flush=True)
+  check(env.device.type == 'cuda', f'{what}: the env is not on the card')
+  check(out['fits'], f'{what}: K2 does not take n {s.nv}, ncr {ncr}, nl {nl}')
+  return out
+
+
+def substep_stages(torch, m, d, card: str, what: str) -> dict:
+  """The physics substep of pipeline.step stage by stage on the state `d`:
+  per stage, the median over 5 of the ms between CUDA events around it and
+  of its host issue time (as phase 3b). Returns {stage: (gpu, host)}."""
+  from mjlab_torch.physics import collision, constraint, pipeline, sensor
+  from mjlab_torch.physics import smooth, smooth_fused, solver
+  efc = {}
+
+  def run_efc(d):
+    efc['v'] = constraint.make_efc(m, d)
+    return d
+
+  stages = (
+      ('smooth_all (K3)', lambda d: smooth_fused.smooth_all(m, d)),
+      ('collision', lambda d: smooth.transmission(
+          m, collision.collision(m, d))),
+      ('passive+actuation', lambda d: smooth.actuation(
+          m, pipeline.fwd_velocity(m, d))),
+      ('fwd_smooth (K1)', lambda d: smooth.fwd_smooth(m, d)),
+      ('make_efc', run_efc),
+      ('solve (K2)', lambda d: solver.solve(m, d, efc['v'])),
+      ('sensors', lambda d: sensor.sensors(
+          m, d.replace(qacc_warmstart=d.qacc))),
+      ('implicitfast (K1)', lambda d: pipeline._implicitfast(m, d)),
+  )
+  gpu = {name: [] for name, _ in stages}
+  host = {name: [] for name, _ in stages}
+  for _ in range(5):
+    torch.cuda.synchronize()
+    for name, fn in stages:
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      t0 = time.perf_counter()
+      start.record()
+      d = fn(d)
+      end.record()
+      host[name].append((time.perf_counter() - t0) * 1e3)
+      end.synchronize()
+      gpu[name].append(start.elapsed_time(end))
+  out = {name: (statistics.median(gpu[name]), statistics.median(host[name]))
+         for name, _ in stages}
+  total = sum(g for g, _ in out.values())
+  for name, (g, h) in out.items():
+    print(f'{what} substep stage {name}: {g:.3f} ms between events '
+          f'({g / total:.3f} of the substep), {h:.3f} ms host issue (median '
+          f'of 5, {d.qpos.shape[0]} envs, {card})', flush=True)
+  return out
+
+
+def rough_path(torch, card: str, busy) -> 'tuple[dict, dict]':
+  """Phase 10: the rough-terrain velocity tasks (heightfield terrain, the
+  terrain-level curriculum). Returns the kernels' launches over the path's
+  own runs (the envs' builds, resets and steps, training and play of both
+  robots), and K2's numbers at the Go1 rough shape."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_rough_')
+  try:
+    return _rough_path(torch, card, busy, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def rough_training(torch, runner, run: str, what: str, card: str) -> None:
+  """Phase 10's checks of a rough task's training run `run` (its runner
+  and log directory): finite losses, no physics_nan, the terrain-level
+  metric logged, the parameters moved, the ONNX beside the last
+  checkpoint read back against the inference policy."""
+  import math
+  import os
+  cfg, env = runner.cfg, runner.env
+  T = cfg.num_steps_per_env
+  with open(os.path.join(run, 'metrics.jsonl')) as f:
+    lines = [json.loads(line) for line in f]
+  for l_ in lines:
+    print(f'{what} iteration {l_["iteration"]}: collection '
+          f'{l_["collection_ms"]:.1f} ms, learning {l_["learning_ms"]:.1f} ms,'
+          f' resets {l_["resets"]:.0f}, physics_nan '
+          f'{l_["Episode_Termination/physics_nan"]:.0f}, fell_over '
+          f'{l_["Episode_Termination/fell_over"]:.0f}, terrain level '
+          f'{l_.get("Curriculum/terrain_levels", float("nan")):.4f}, loss '
+          f'{l_["loss"]:.4f} kl {l_["kl"]:.5f}, mean reward '
+          f'{l_["mean_reward"]:.4f}; card {card}', flush=True)
+    check(all(math.isfinite(l_[k]) for k in ('loss', 'pg', 'v', 'ent', 'kl',
+                                              'std')),
+          f'{what}: non-finite loss logs at iteration {l_["iteration"]}')
+    check(l_['Episode_Termination/physics_nan'] == 0,
+          f'{what}: physics_nan fired')
+    check(math.isfinite(l_.get('Curriculum/terrain_levels', math.nan)),
+          f'{what}: Curriculum/terrain_levels was not logged')
+  last = lines[-1]
+  print(f'{what}: {TRAIN_ITERS * T * env.num_envs / last["wall_s"]:.1f} '
+        f'training env-steps/s ({TRAIN_ITERS} x {T} x {env.num_envs} over '
+        f'{last["wall_s"]:.3f} s of learn); card {card}', flush=True)
+  ckpt = os.path.join(run, f'model_{TRAIN_ITERS}.pt')
+  check(os.path.exists(ckpt), f'{ckpt} was not written')
+  net0 = runner.alg.init_net(torch.Generator(device=env.device).manual_seed(
+      cfg.seed + 1))
+  for k, p in runner.ts.net.named_parameters():
+    check(bool(torch.isfinite(p).all()), f'parameter {k} is not finite')
+    check(not torch.equal(p, net0.get_parameter(k)),
+          f'parameter {k} did not move')
+  onnx_check(torch, runner, ckpt, what)
+
+
+def rough_play(torch, task: str, ckpt: str, root: str, card: str,
+               kernels, path) -> dict:
+  """`scripts.play` of the rough Play cfg `task` with the checkpoint `ckpt`
+  at B envs on the card for ROUGH_PLAY_STEPS env-steps, its launches added
+  to `path`: finite statistics, no physics_nan, 4/4/8 (5/5/9) launches an
+  env-step."""
+  import math
+
+  from mjlab_torch.scripts import play
+  with counted(path), launches_per_step(kernels) as per_step:
+    t0 = time.perf_counter()
+    stats = play.main([task, '--checkpoint', ckpt, '--num-envs', str(B),
+                       '--steps', str(ROUGH_PLAY_STEPS), '--log-root', root])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  shapes = sorted(set(per_step))
+  print(f'{task}: scripts.play of {ckpt.rsplit("/", 2)[-2]}/'
+        f'{ckpt.rsplit("/", 1)[-1]}, {ROUGH_PLAY_STEPS} env-steps x envs '
+        f'{sorted(per_step.envs)} in {wall:.2f} s (env build included); mean '
+        f'reward {stats["mean_reward"]:.4f}, resets {stats["resets"]} by '
+        f'cause {stats["terminations"]}; launches per env-step (K3, K2, K1, '
+        f'K3 per env) { {s_: per_step.count(s_) for s_ in shapes} }; card '
+        f'{card}', flush=True)
+  check(per_step.envs == {(B, 'cuda')} and len(per_step) == ROUGH_PLAY_STEPS,
+        f'{task} did not play {B} envs on the card')
+  check(math.isfinite(stats['mean_reward'])
+        and stats['terminations'].get('physics_nan', 0) == 0,
+        f'{task}: non-finite reward or physics_nan in play')
+  check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
+        f'a {task} env-step launched {shapes}, not 4/4/8 or 5/5/9')
+  return stats
+
+
+def _rough_path(torch, card: str, busy, root: str):
+  import collections
+  import os
+
+  from mjlab_torch.asset_zoo.pretrained import G1_FLAT_POLICY
+  from mjlab_torch.ops import LAUNCHES
+  from mjlab_torch.ops import newton as k_newton
+  from mjlab_torch.physics import constraint, pipeline, smooth, solver
+  from mjlab_torch.physics import smooth_fused
+  from mjlab_torch.rl.networks import load_actor
+  from mjlab_torch.scripts import demo, train
+  from mjlab_torch.tasks import registry
+
+  kernels = ('smooth', 'newton', 'pd_solve', 'smooth_env')
+  # the launches of the path's own runs (env build, reset and steps,
+  # training, play); rough_widths, substep_stages and K2 against its plain
+  # version run outside them
+  path = collections.Counter()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+
+  # ---- 10a: build the G1 rough env; its heightfield and widths -------------
+  t0 = time.perf_counter()
+  with counted(path):
+    env = registry.make(ROUGH_TASK, **{'scene.num_envs': B})  # cuda, f32
+    obs, _ = env.reset()
+  torch.cuda.synchronize()
+  print(f'G1 rough: built and reset {B} envs in '
+        f'{time.perf_counter() - t0:.2f} s; obs {env.observation_dims}, '
+        f'actions {env.action_dim}', flush=True)
+  w = rough_widths(torch, env, 'G1 rough')
+  check((w['slots'], w['caps'], w['ncr'], w['nefc']) == (568, (32, 16), 144,
+                                                         208)
+        and set(w['groups']) == {'SPHERE', 'CAPSULE'},
+        'the G1 rough model is not 568 slots, caps 32 + 16, ncr 144, nefc '
+        '208 with the hfield-sphere and -capsule pairs')
+  check(smooth_fused.enabled(env.model.stat), 'K3 refuses the G1 rough scene')
+  terrain = env.scene.terrain
+  max_level = terrain.max_level
+
+  # ---- 10b: 150 env-steps under the shipped G1 flat actor ------------------
+  actor = load_actor(G1_FLAT_POLICY)
+  width = actor.norm.mean.shape[-1]
+  check(width == env.observation_dims['policy'],
+        f'the shipped actor takes {width} observations, the rough env gives '
+        f'{env.observation_dims["policy"]}')
+  dev = env.device
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  nan_count = torch.zeros((), dtype=torch.long, device=dev)
+  resets = torch.zeros((), device=dev)
+  moved = torch.zeros((), dtype=torch.long, device=dev)
+  lvl_lo = torch.full((), max_level, dtype=torch.long, device=dev)
+  lvl_hi = torch.zeros((), dtype=torch.long, device=dev)
+  falls = torch.zeros(max_level, device=dev)
+  exposure = torch.zeros(max_level, device=dev)
+  per_step = []
+  ncon = env.state.data.contact.dist.shape[1]
+  # the env on the highest level is tipped over at env-step 10: at least
+  # one reset demotes an env
+  tipped = int(env.state.curriculum['terrain_levels']['levels'].argmax())
+  with counted(path), hfield_recorder(torch, w['groups'], ncon, dev) as rec:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ROUGH_STEPS):
+      if i == 10:
+        tip_over(torch, env, tipped)
+      before = [LAUNCHES[k] for k in kernels]
+      levels0 = env.state.curriculum['terrain_levels']['levels'].long()
+      obs, rew, term, trunc, extras = env.step(actor(obs))
+      per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels,
+                                                             before)))
+      ok &= torch.isfinite(obs['policy']).all() & torch.isfinite(rew).all()
+      nan_count += extras['Episode_Termination/physics_nan']
+      resets += extras['reset_count']
+      levels = env.state.curriculum['terrain_levels']['levels'].long()
+      moved += ((levels != levels0) & (term | trunc)).sum()
+      lvl_lo = torch.minimum(lvl_lo, levels.min())
+      lvl_hi = torch.maximum(lvl_hi, levels.max())
+      falls.index_add_(0, levels0, term.float())
+      exposure.index_add_(0, levels0, torch.ones_like(rew))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the gate's, before env 3 is laid
+    gate = {k: rec[k].clone() for k in ('deepest', 'at', 'nz_at', 'down_at',
+                                        'down', 'down_deepest')}
+    # env 3 laid on its back on its spawn platform, the pelvis sphere 2 mm
+    # (the torso capsule 16 mm) into the surface: its substeps take the
+    # hfield-sphere rows
+    lay_on_back(torch, env, 3, 0.068, (0.7071068, 0.0, -0.7071068, 0.0))
+    before = [LAUNCHES[k] for k in kernels]
+    obs, *_ = env.step(actor(obs))
+    per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)))
+  shapes = sorted(set(per_step))
+  deep = float(gate['deepest'])
+  st = env.model.stat
+  e_at, slot_at = divmod(int(gate['at']), ncon)
+  level_at = int(env.state.curriculum['terrain_levels']['levels'][e_at])
+  print(f'G1 rough: the deepest active hfield contact was env {e_at}\'s '
+        f'{st.geom_names[st.con_geom2[slot_at]]} (slot {slot_at}), its '
+        f'world normal\'s z {float(gate["nz_at"]):.5f}, with '
+        f'{int(gate["down_at"])} active hfield contacts of that env '
+        f'pointing down in that substep; that env is now on level '
+        f'{level_at}, type {int(terrain.terrain_types[e_at])}. Active hfield '
+        f'contacts with a downward world normal over the '
+        f'{env.cfg.decimation * ROUGH_STEPS} substeps, summed over envs: '
+        f'{int(gate["down"])}, the deepest of them '
+        f'{float(gate["down_deepest"]):.5f} m', flush=True)
+  print(f'G1 rough: {ROUGH_STEPS} env-steps x {B} envs under the shipped '
+        f'flat actor in {wall:.3f} s = {ROUGH_STEPS * B / wall:.1f} '
+        f'env-steps/s ({wall / ROUGH_STEPS * 1e3:.2f} ms an env-step, the '
+        f'contact recorder on); resets {int(resets)}, physics_nan '
+        f'{int(nan_count)}; launches per env-step (K3, K2, K1, K3 per env) '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }; substeps with an '
+        f'active hfield contact of each pair, summed over envs (env 3 laid '
+        f'on its back for the last env-step) '
+        f'{ {k: int(v) for k, v in rec["hits"].items()} }; deepest active '
+        f'hfield contact over the {env.cfg.decimation * ROUGH_STEPS} '
+        f'substeps of the '
+        f'{ROUGH_STEPS} env-steps {deep:.5f} m (gate: above '
+        f'-{ROUGH_PEN_GATE:g} m); curriculum: {int(moved)} '
+        f'resets moved a level, levels seen {int(lvl_lo)}..{int(lvl_hi)} of '
+        f'0..{max_level - 1}; card {card}', flush=True)
+  fell = (falls / exposure.clamp_min(1)).tolist()
+  print('G1 rough, the shipped flat actor: episodes ended by fell_over per '
+        'env-step at each terrain level '
+        + ', '.join(f'{lv}: {f:.5f} ({int(n)} env-steps)' for lv, (f, n)
+                    in enumerate(zip(fell, exposure.tolist())) if n)
+        + f'; card {card}', flush=True)
+  check(bool(ok), 'non-finite observation or reward on the G1 rough path')
+  check(int(nan_count) == 0, f'physics_nan fired {int(nan_count)} times')
+  check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)}
+        and (5, 5, 9, 0) in shapes,
+        f'a G1 rough env-step launched {shapes}, not 4/4/8 or 5/5/9')
+  check(all(int(v) > 0 for v in rec['hits'].values()),
+        'an hfield pair group was never active on the G1 rough path')
+  check(deep > -ROUGH_PEN_GATE, f'an active hfield contact reached {deep:.4f}'
+        f' m, deeper than the gate\'s {ROUGH_PEN_GATE:g} m')
+  check(int(moved) > 0 and int(lvl_lo) >= 0 and int(lvl_hi) < max_level,
+        'the curriculum moved no level on a reset, or a level left its range')
+  act = actor(obs)
+
+  def three_steps():
+    for _ in range(3):
+      env.step(act)
+
+  with counted(path):
+    _, syncs = count_syncs(torch, three_steps)
+  print(f'G1 rough: {len(syncs)} synchronizing calls in 3 env-steps',
+        flush=True)
+  check(len(syncs) == 3, 'env.step synchronizes other than once a step: '
+        + '; '.join(sorted(set(syncs))))
+  runs = []
+  with counted(path):
+    for _ in range(5):
+      timer = StageTimer(torch)
+      torch.cuda.synchronize()
+      with timer('actor'):
+        act = actor(obs)
+      env._state, out = env.step_fn(env.state, act, stage=timer)
+      obs = out[0]
+      runs.append(timer)
+  for name in runs[0].gpu:
+    g = statistics.median(r.gpu.get(name, 0.0) for r in runs)
+    h = statistics.median(r.host.get(name, 0.0) for r in runs)
+    print(f'G1 rough env-step stage {name}: {g:.3f} ms between events, '
+          f'{h:.3f} ms host issue (median of 5, {B} envs, {card})',
+          flush=True)
+  substep_stages(torch, env.state.model, env.state.data, card, 'G1 rough')
+  peak = torch.cuda.max_memory_allocated()
+  print(f'G1 rough: peak device memory {peak / 2**30:.2f} GiB '
+        f'(torch.cuda.max_memory_allocated since phase 10 began); card '
+        f'{card}', flush=True)
+  del env, obs, act
+
+  # ---- 10c: 3 PPO iterations through train.main; play of the Play cfg ------
+  argv = [ROUGH_TASK, '--log-root', root, '--env.scene.num_envs', str(B),
+          '--agent.max_iterations', str(TRAIN_ITERS), '--run-name', 'a']
+  with counted(path), launches_per_step(kernels) as per_step:
+    t0 = time.perf_counter()
+    runner = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  cfg, env = runner.cfg, runner.env
+  shapes = sorted(set(per_step))
+  print(f'G1 rough train: {TRAIN_ITERS} iterations of '
+        f'{cfg.num_steps_per_env} env-steps x {env.num_envs} envs through '
+        f'train.main in {wall:.2f} s (env build included); widths actor '
+        f'{cfg.policy.actor_hidden_dims} critic '
+        f'{cfg.policy.critic_hidden_dims}; launches per rollout env-step '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
+  check(per_step.envs == {(B, 'cuda')},
+        'the rough training env is not 4096 envs on the card')
+  check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
+        f'a rough rollout env-step launched {shapes}')
+  run = os.path.join(root, cfg.experiment_name, 'a')
+  rough_training(torch, runner, run, 'G1 rough train', card)
+  del runner, env
+  rough_play(torch, ROUGH_TASK + '-Play',
+             os.path.join(run, f'model_{TRAIN_ITERS}.pt'), root, card,
+             kernels, path)
+
+  # ---- 10d: the Go1 rough env under random actions --------------------------
+  with counted(path):
+    env = registry.make(ROUGH_GO1_TASK, **{'scene.num_envs': B})
+    obs, _ = env.reset()
+  wg = rough_widths(torch, env, 'Go1 rough')
+  check((wg['slots'], wg['caps'], wg['ncr'], wg['nefc']) == (91, (64, 0),
+                                                             256, 286)
+        and set(wg['groups']) == {'SPHERE', 'CAPSULE', 'BOX'},
+        'the Go1 rough model is not 91 slots, 64 kept, ncr 256, nefc 286 '
+        'with the three hfield pairs')
+  # env 1 laid on its back, the trunk box 2 mm into the surface; env 2's
+  # trunk lowered 4 cm, so its calves touch: the first env-step takes the
+  # hfield-box and hfield-capsule rows
+  lay_on_back(torch, env, 1, 0.048, (0.0, 1.0, 0.0, 0.0))
+  key = torch.as_tensor(env.scene.mj_model.key_qpos[0][:7],
+                        dtype=torch.float32)
+  lay_on_back(torch, env, 2, float(key[2]) - 0.04, key[3:7].tolist())
+  agen = torch.Generator(device='cuda').manual_seed(10)
+  acts = torch.randn(ROUGH_GO1_STEPS, B, env.action_dim, generator=agen,
+                     device='cuda')
+  ok = torch.ones((), dtype=torch.bool, device='cuda')
+  nan_count = torch.zeros((), dtype=torch.long, device='cuda')
+  per_step = []
+  ncon = env.state.data.contact.dist.shape[1]
+  with counted(path), hfield_recorder(torch, wg['groups'], ncon,
+                                      env.device) as rec:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ROUGH_GO1_STEPS):
+      before = [LAUNCHES[k] for k in kernels]
+      obs, rew, _, _, extras = env.step(acts[i])
+      per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels,
+                                                             before)))
+      ok &= torch.isfinite(obs['policy']).all() & torch.isfinite(rew).all()
+      nan_count += extras['Episode_Termination/physics_nan']
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  shapes = sorted(set(per_step))
+  print(f'Go1 rough: {ROUGH_GO1_STEPS} env-steps x {B} envs under random '
+        f'actions in {wall:.3f} s = {ROUGH_GO1_STEPS * B / wall:.1f} '
+        f'env-steps/s (the contact recorder on); physics_nan '
+        f'{int(nan_count)}; launches per env-step (K3, K2, K1, K3 per env) '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }; substeps with an '
+        f'active hfield contact of each pair, summed over envs '
+        f'{ {k: int(v) for k, v in rec["hits"].items()} }; deepest active '
+        f'hfield contact {float(rec["deepest"]):.5f} m (its world normal\'s '
+        f'z {float(rec["nz_at"]):.5f}, {int(rec["down_at"])} downward '
+        f'contacts in its env); active hfield contacts with a downward '
+        f'world normal {int(rec["down"])}, the deepest '
+        f'{float(rec["down_deepest"]):.5f} m; card {card}', flush=True)
+  check(bool(ok), 'non-finite observation or reward on the Go1 rough path')
+  check(int(nan_count) == 0, f'physics_nan fired {int(nan_count)} times')
+  check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
+        f'a Go1 rough env-step launched {shapes}, not 4/4/8 or 5/5/9')
+  check(all(int(v) > 0 for v in rec['hits'].values()),
+        'an hfield pair group was never active on the Go1 rough path')
+
+  # K2 at the Go1 rough shape against newton_plain, on the state the Go1s
+  # reached on the terrain, and timed
+  m = env.state.model
+  df = pipeline.fwd_velocity(m, pipeline.fwd_position(m, env.state.data))
+  df = smooth.fwd_smooth(m, smooth.actuation(m, df))
+  efc = constraint.make_efc(m, df)
+  s = env.model.stat
+  n, ncr, nl = s.nv, efc['c_J'].shape[1], efc['l_sign'].shape[1]
+  check((n, ncr, nl) == (18, 256, 12), 'the Go1 rough rows are not 18/256/12')
+  args = solver.newton_args(df, efc)
+  iters, polish, ldof, grad_th = solver.solver_params(s)
+  kargs = dict(iterations=iters, ls_polish=polish, ldof=ldof,
+               grad_th=grad_th)
+  got = k_newton.newton_solve_cuda(*args, **kargs)
+  want = solver.newton_plain(*args, iters, polish, ldof, grad_th)
+  rel = max(rel_err(a, b) for a, b in zip(got, want))
+  call = lambda: k_newton.newton_solve_cuda(*args, **kargs)
+  need, nc, rows_b, nbytes, flops = newton_work(torch, solver, args, iters,
+                                                polish, ldof, grad_th)
+  bound, by = bound_ms(nbytes, flops)
+  k2 = dict(max_abs_err=max_err(got[0], want[0]), rel_err=rel,
+            ms=time_ms(torch, call, 20),
+            device_ms=time_ms(torch, call, 20, busy=busy),
+            plain_ms=time_ms(torch, lambda: solver.newton_plain(
+                *args, iters, polish, ldof, grad_th), 5),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            newton_steps=float(need.double().mean()),
+            active_contact_rows=float(nc.double().mean()), ncr=ncr,
+            smem_bytes=k_newton.newton_smem_bytes(n, ncr, nl))
+  print(f'Go1 rough K2 (n {n}, ncr {ncr}, nl {nl}): max abs err '
+        f'{k2["max_abs_err"]:.3e}, worst output err/(1+max|plain|) {rel:.3e} '
+        f'(tolerance 1e-3); {k2["ms"]:.4f} ms, {k2["device_ms"]:.4f} ms behind '
+        f'a busy card, plain {k2["plain_ms"]:.4f} ms, bound {bound:.5f} ms by '
+        f'{by} (dev / bound {k2["device_ms"] / bound:.1f}x); Newton steps an '
+        f'env {k2["newton_steps"]:.2f}, active contact rows an env '
+        f'{k2["active_contact_rows"]:.2f} of {ncr}; {k2["smem_bytes"]} B of '
+        f'shared memory a block; card {card}', flush=True)
+  check(rel <= 1e-3, f'K2 disagrees with its plain version at the Go1 rough '
+        f'shape: {rel:.3e}')
+  substep_stages(torch, m, env.state.data, card, 'Go1 rough')
+  del env, obs, acts, args, efc, df, m
+
+  # the demo finds no Go1 rough policy: it trains at B envs through
+  # train.main, exports and plays; then the Play cfg plays its checkpoint
+  with counted(path), launches_per_step(kernels) as per_step:
+    t0 = time.perf_counter()
+    out = demo.main(['--task', ROUGH_GO1_TASK, '--log-root', root,
+                     '--num-envs', str(B), '--train-iterations',
+                     str(TRAIN_ITERS), '--steps', str(ROUGH_PLAY_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  runner = out['runner']
+  check(runner is not None, 'the Go1 rough demo found a policy and did not '
+        'train')
+  shapes = sorted(set(per_step))
+  print(f'Go1 rough demo: trained {TRAIN_ITERS} iterations at '
+        f'{runner.env.num_envs} envs, exported and played in {wall:.2f} s; '
+        f'envs that stepped {sorted(per_step.envs)}; launches per env-step '
+        f'(K3, K2, K1, K3 per env) { {s_: per_step.count(s_) for s_ in shapes} }'
+        f'; card {card}', flush=True)
+  check((B, 'cuda') in per_step.envs and runner.env.num_envs == B,
+        f'the Go1 rough demo did not train {B} envs on the card')
+  check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
+        f'a Go1 rough demo env-step launched {shapes}')
+  run = os.path.join(root, runner.cfg.experiment_name, 'demo')
+  rough_training(torch, runner, run, 'Go1 rough demo', card)
+  ckpt = out['checkpoint']
+  del runner, out
+  rough_play(torch, ROUGH_GO1_TASK + '-Play', ckpt, root, card, kernels,
+             path)
+  launches = dict(path)
+  print(f'rough path launches (10a-10d: env builds and resets, env-steps, '
+        f'training, play): {launches}', flush=True)
+  check(launches.get('smooth_env', 0) == 0, 'the rough path launched K3\'s '
+        'per-env form')
+
+  # ---- 10e: the card against the CPU ---------------------------------------
+  for task in (ROUGH_TASK, ROUGH_GO1_TASK):
+    e_obs, e_rew, same, flips, kept = task_card_vs_cpu(torch, task)
+    print(f'{task}, 8 envs, 5 env-steps, CUDA f32 vs CPU f64: obs '
+          f'err/(1+max|cpu|) {e_obs:.3e}, reward {e_rew:.3e} (tolerance '
+          f'1e-3), done flags equal {same}; contact flips (env: env-step, '
+          f'|dist - margin| on the CPU in m) '
+          f'{ {e: (i, f"{g:.3e}") for e, (i, g) in flips.items()} } (allowed '
+          f'within {FLIP_GAP:g} m of the threshold), {kept} envs compared to '
+          f'the end', flush=True)
+    check(e_obs <= 1e-3 and e_rew <= 1e-3 and same,
+          f'{task} on the card disagrees with the CPU')
+    check(all(g <= FLIP_GAP for _, g in flips.values()) and kept >= 6,
+          'a contact flipped between the card and the CPU away from its '
+          'threshold, or in more than two envs')
+  return launches, k2
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -2071,8 +2734,8 @@ def main() -> None:
   from mjlab_torch.ops import newton as k_newton
   from mjlab_torch.ops import pd_solve as k_pd
   from mjlab_torch.ops import smooth_kernel as k_smooth
-  from mjlab_torch.physics import collision, constraint, linalg, pipeline
-  from mjlab_torch.physics import sensor, smooth, smooth_fused, solver
+  from mjlab_torch.physics import constraint, linalg, pipeline
+  from mjlab_torch.physics import smooth, smooth_fused, solver
 
   # ---- phase 1: the card, the build --------------------------------------
   smi = subprocess.run(
@@ -2428,45 +3091,7 @@ def main() -> None:
         f'each), {SUBSTEPS / wall:.1f} substeps/s; card {card}', flush=True)
 
   # ---- phase 3b: where a main-path substep's time goes --------------------
-  # the substep of pipeline.step stage by stage; per stage, the GPU time
-  # between CUDA events around it and the host time to issue it (no sync)
-  efc = {}
-
-  def run_efc(d):
-    efc['v'] = constraint.make_efc(m, d)
-    return d
-
-  stages = (
-      ('smooth_all (K3)', lambda d: smooth_fused.smooth_all(m, d)),
-      ('collision', lambda d: smooth.transmission(
-          m, collision.collision(m, d))),
-      ('passive+actuation', lambda d: smooth.actuation(
-          m, pipeline.fwd_velocity(m, d))),
-      ('fwd_smooth (K1)', lambda d: smooth.fwd_smooth(m, d)),
-      ('make_efc', run_efc),
-      ('solve (K2)', lambda d: solver.solve(m, d, efc['v'])),
-      ('sensors', lambda d: sensor.sensors(
-          m, d.replace(qacc_warmstart=d.qacc))),
-      ('implicitfast (K1)', lambda d: pipeline._implicitfast(m, d)),
-  )
-  gpu = {name: [] for name, _ in stages}
-  host = {name: [] for name, _ in stages}
-  for _ in range(5):
-    torch.cuda.synchronize()
-    for name, fn in stages:
-      start = torch.cuda.Event(enable_timing=True)
-      end = torch.cuda.Event(enable_timing=True)
-      t0 = time.perf_counter()
-      start.record()
-      d = fn(d)
-      end.record()
-      host[name].append((time.perf_counter() - t0) * 1e3)
-      end.synchronize()
-      gpu[name].append(start.elapsed_time(end))
-  for name, _ in stages:
-    print(f'substep stage {name}: {statistics.median(gpu[name]):.3f} ms '
-          f'between events, {statistics.median(host[name]):.3f} ms host '
-          f'issue (median of 5, {B} envs, {card})', flush=True)
+  substep_stages(torch, m, d, card, 'main path')
 
   # ---- phase 3c: K2 alone on the state the main path settled into ---------
   ds = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
@@ -2561,6 +3186,17 @@ def main() -> None:
           f'{r["name"]} was launched {r["tracking_path_launches"]} times on '
           'the tracking path')
 
+  # ---- phase 10: rough terrain, the G1 and the Go1 ---------------------------
+  rough_launches, rough_k2 = rough_path(torch, card, busy)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['rough_path_launches'] = int(rough_launches.get(kern, 0))
+    check((r['rough_path_launches'] > 0) == (kern != 'smooth_env'),
+          f'{r["name"]} was launched {r["rough_path_launches"]} times on '
+          'the rough path')
+    if kern == 'newton':
+      r['rough_go1'] = rough_k2
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -2570,7 +3206,8 @@ def main() -> None:
           f'{r.get("train_path_launches", 0)}, the config-5 path '
           f'{r["config5_path_launches"]}, the Go1 path '
           f'{r["go1_path_launches"]}, the tracking path '
-          f'{r["tracking_path_launches"]}; card {card}', flush=True)
+          f'{r["tracking_path_launches"]}, the rough path '
+          f'{r["rough_path_launches"]}; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -120,14 +120,19 @@ def robot_spec(add_sensors=_foot_contact_sensors) -> mujoco.MjSpec:
   return spec
 
 
-def flat_scene_spec(robot: mujoco.MjSpec) -> mujoco.MjSpec:
+def flat_scene_spec(robot: mujoco.MjSpec, generator=None) -> mujoco.MjSpec:
   """A plane named `terrain`, `robot` attached under the prefix `robot/`,
-  and the velocity tasks' simulation options."""
+  and the velocity tasks' simulation options. With a TerrainGenerator
+  `generator`, its heightfield geom named `terrain` takes the plane's
+  place (the rough scenes)."""
   spec = mujoco.MjSpec()
   spec.stat.extent = 4.0
-  spec.worldbody.add_geom(
-      name='terrain', type=mujoco.mjtGeom.mjGEOM_PLANE,
-      size=[0.0, 0.0, 0.05], rgba=[0.2, 0.3, 0.4, 1.0])
+  if generator is None:
+    spec.worldbody.add_geom(
+        name='terrain', type=mujoco.mjtGeom.mjGEOM_PLANE,
+        size=[0.0, 0.0, 0.05], rgba=[0.2, 0.3, 0.4, 1.0])
+  else:
+    generator.build(spec)
   frame = spec.worldbody.add_frame()
   spec.attach(robot, prefix='robot/', frame=frame)
   opt = spec.option

@@ -122,6 +122,8 @@ class ManagerBasedRlEnv:
     self.termination_manager = TerminationManager(cfg.terminations,
                                                   self.scene)
     self.curriculum_manager = CurriculumManager(cfg.curriculum, self.scene)
+    # the terrain-level curriculum carries per-env spawn origins in its state
+    self._origin_term = self.curriculum_manager.origin_term()
 
     # --- template state (also used to measure observation widths) ---
     self._gen = torch.Generator(device=dev)
@@ -157,6 +159,11 @@ class ManagerBasedRlEnv:
   # context
   # ------------------------------------------------------------------
   def _make_ctx(self, state: EnvState) -> EnvCtx:
+    origins = self.scene.env_origins
+    if self._origin_term is not None:
+      curr = state.curriculum.get(self._origin_term)
+      if curr is not None:
+        origins = curr['origins']
     return EnvCtx(
         model=state.model, data=state.data, scene=self.scene, state=state,
         actions=state.actions, prev_actions=state.prev_actions,
@@ -166,9 +173,10 @@ class ManagerBasedRlEnv:
         step_dt=self.step_dt, physics_dt=self.physics_dt,
         max_episode_length=self.max_episode_length,
         num_envs=self.num_envs,
-        env_origins=self.scene.env_origins,
+        env_origins=origins,
         terminated=torch.zeros(self.num_envs, dtype=torch.bool,
-                               device=self.device))
+                               device=self.device),
+        generator=self._gen)
 
   # ------------------------------------------------------------------
   # functional core
@@ -203,7 +211,8 @@ class ManagerBasedRlEnv:
                                       device=self.device)
                    for k, v in curr_metrics.items()})
     # rebuild ctx so the command reset below samples from the ranges the
-    # curriculum has just set
+    # curriculum has just set, and the reset events spawn at the origins
+    # the terrain-level curriculum has just moved
     state = state.replace(curriculum=curr_state)
     ctx = self._make_ctx(state)
     ctx.terminated = terminated

@@ -58,6 +58,13 @@ class EnvCtx:
   num_envs: int
   env_origins: torch.Tensor
   terminated: Any = None  # set by the env before reward computation
+  # the env's one torch.Generator, for terms that draw outside a manager's
+  # own generator argument (the terrain-level curriculum)
+  generator: 'torch.Generator | None' = None
+
+  @property
+  def max_episode_length_s(self) -> float:
+    return self.max_episode_length * self.step_dt
 
   def command_value(self, name: str) -> torch.Tensor:
     return self.commands[name]

@@ -450,6 +450,14 @@ class CurriculumManager:
       self.terms[name] = tcfg
       self.params[name] = _resolve_params(tcfg.params, scene, tcfg.func)
 
+  def origin_term(self) -> 'str | None':
+    """The name of the term (if any) whose state carries the per-env spawn
+    origins (the terrain-level curriculum)."""
+    for name, tcfg in self.terms.items():
+      if getattr(tcfg.func, 'provides_env_origins', False):
+        return name
+    return None
+
   @property
   def active_terms(self):
     return list(self.terms)

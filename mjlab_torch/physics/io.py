@@ -255,8 +255,8 @@ def _check_supported(m) -> None:
     unsupported.append('multi-state actuators')
   if m.na and np.asarray(m.actuator_actearly).any():
     unsupported.append('actearly')
-  if m.nhfield:
-    unsupported.append('heightfields')
+  if m.nhfield > 1:
+    unsupported.append('more than one heightfield')
   if m.nmocap:
     unsupported.append('mocap bodies')
   if (m.opt.density != 0 or m.opt.viscosity != 0
@@ -307,10 +307,31 @@ def _compaction_caps(pairs: CollisionPairs, slot_dims: np.ndarray,
   return ncon_cap, ncon_cap1
 
 
+def _hfield(m) -> dict:
+  """The one heightfield's static sizes and its grid in meters (MuJoCo
+  stores elevations normalized to [0, 1] and scales them by size[2]); a
+  (1, 1) zero grid when the model has none."""
+  if not m.nhfield:
+    return dict(nhfield=0, hfield_nrow=0, hfield_ncol=0,
+                hfield_size=np.zeros(4), hfield_geomid=-1,
+                data=np.zeros((1, 1)))
+  nrow, ncol = int(m.hfield_nrow[0]), int(m.hfield_ncol[0])
+  size = np.asarray(m.hfield_size[0], np.float64).copy()
+  data = np.asarray(m.hfield_data)[:nrow * ncol].reshape(nrow, ncol)
+  data = data * size[2]
+  geomid = -1
+  for g in range(m.ngeom):
+    if m.geom_type[g] == int(GeomType.HFIELD):
+      geomid = g
+  return dict(nhfield=1, hfield_nrow=nrow, hfield_ncol=ncol,
+              hfield_size=size, hfield_geomid=geomid, data=data)
+
+
 def model_static(m, ncon_cap: 'int | None' = None
                  ) -> ModelStatic:
   """The host-side static tables of a compiled model."""
   _check_supported(m)
+  hf = _hfield(m)
   pairs = _build_pairs(m)
   con_geom1, con_geom2, con_dim = contact_slot_meta(m, pairs)
   ncon_cap, ncon_cap1 = _compaction_caps(pairs, con_dim, ncon_cap)
@@ -386,6 +407,7 @@ def model_static(m, ncon_cap: 'int | None' = None
       neq=int(m.neq),
       newton_tolerance=float(m.opt.tolerance),
       meaninertia=float(m.stat.meaninertia),
+      **{k: v for k, v in hf.items() if k != 'data'},
   )
 
 
@@ -396,7 +418,8 @@ MODEL_FIELDS = tuple(f.name for f in dataclasses.fields(Model)
 
 def _model_arrays(m) -> dict:
   out = {name: getattr(m, name) for name in MODEL_FIELDS
-         if not name.startswith('pair_')}
+         if not name.startswith('pair_') and name != 'hfield_data'}
+  out['hfield_data'] = _hfield(m)['data']
   out.update(
       pair_friction=m.pair_friction if m.npair else np.zeros((1, 5)),
       pair_solref=m.pair_solref if m.npair else np.zeros((1, 2)),
@@ -544,6 +567,13 @@ SNAPSHOT_ARRAYS = (
     'pair_solreffriction', 'exclude_signature', 'key_qpos', 'key_ctrl',
     'names', 'name_bodyadr', 'name_jntadr', 'name_geomadr', 'name_siteadr',
     'name_actuatoradr', 'name_sensoradr')
+# the heightfield's arrays, in a snapshot only when the model has one
+HFIELD_ARRAYS = {
+    'hfield_nrow': np.zeros(0, np.int32),
+    'hfield_ncol': np.zeros(0, np.int32),
+    'hfield_size': np.zeros((0, 4)),
+    'hfield_data': np.zeros(0, np.float32),
+}
 
 
 class ModelArrays:
@@ -559,6 +589,8 @@ class ModelArrays:
     self.stat = _Namespace({'meaninertia': self._arrays['stat.meaninertia']})
     for k in SNAPSHOT_ARRAYS:
       setattr(self, k, self._arrays[k])
+    for k, empty in HFIELD_ARRAYS.items():
+      setattr(self, k, self._arrays.get(k, empty))
 
   @classmethod
   def of(cls, m) -> 'ModelArrays':
@@ -569,6 +601,8 @@ class ModelArrays:
     arrays.update({f'opt.{k}': np.asarray(getattr(m.opt, k))
                    for k in _SNAPSHOT_OPT})
     arrays['stat.meaninertia'] = np.asarray(m.stat.meaninertia)
+    if m.nhfield:
+      arrays.update({k: np.asarray(getattr(m, k)) for k in HFIELD_ARRAYS})
     return cls(arrays)
 
   def save(self, path) -> None:

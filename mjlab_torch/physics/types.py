@@ -231,6 +231,14 @@ class ModelStatic(StaticBase):
   ntendon: int = 0
   neq: int = 0
 
+  # heightfield terrain (at most one hfield asset): generated rough terrain
+  # collides as one hfield geom; Model.hfield_data holds its grid
+  nhfield: int = 0
+  hfield_nrow: int = 0
+  hfield_ncol: int = 0
+  hfield_size: np.ndarray = None  # (4,) radius_x, radius_y, elevation, base
+  hfield_geomid: int = -1
+
   # Newton early exit: stop once |grad| < tolerance*meaninertia*max(1,nv)
   newton_tolerance: float = 1e-8
   meaninertia: float = 1.0
@@ -312,6 +320,10 @@ class Model:
   pair_solref: torch.Tensor
   pair_solimp: torch.Tensor
   pair_margin: torch.Tensor
+
+  # heightfield elevations in meters, (hfield_nrow, hfield_ncol), rows
+  # along y; (1, 1) zeros when the model has no hfield
+  hfield_data: torch.Tensor
 
   replace = _replace
 

@@ -4,8 +4,9 @@ Counterpart of mjlab_tpu/scene/scene.py. There the scene composes MjSpecs
 and compiles them; the port takes the compiled scene (a `mujoco.MjModel`,
 or its `ModelArrays` snapshot such as the committed G1 flat scene, which
 needs no mujoco package), builds the engine `Model` on one device and one
-`EntityView` per entity, and gives `env_origins`. Everything dynamic lives
-in the batched `Data`.
+`EntityView` per entity, and gives the terrain's `env_origins` (while the
+terrain-level curriculum runs, the env's context reads the per-env origins
+in its state instead). Everything dynamic lives in the batched `Data`.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ class SceneCfg:
   terrain: 'TerrainImporterCfg | None' = None
   entities: 'dict[str, EntityCfg]' = dataclasses.field(default_factory=dict)
   # the compiled scene, when the caller hands the Scene none: terrain plus
-  # each entity under the prefix `<name>/`
+  # each entity under the prefix `<name>/`. For a generator terrain it is
+  # called with the terrain's TerrainGenerator, whose heightfield it holds
   model_fn: 'Callable | None' = None
 
 
@@ -45,15 +47,18 @@ class Scene:
     self.num_envs = cfg.num_envs
     self.device = phys_io.resolve_device(device)
     self._dtype = dtype
+    self.terrain = None
+    if cfg.terrain is not None:
+      self.terrain = TerrainImporter(cfg.terrain, cfg.num_envs)
+    gen = None if self.terrain is None else self.terrain.generator
     if mj_model is None:
       if cfg.model_fn is None:
         raise ValueError('Scene needs a compiled model: pass mj_model or '
                          'set SceneCfg.model_fn')
-      mj_model = cfg.model_fn()
+      mj_model = cfg.model_fn() if gen is None else cfg.model_fn(gen)
+    if self.terrain is not None:
+      self.terrain.check_scene(mj_model)
     self.mj_model = mj_model
-    self.terrain = None
-    if cfg.terrain is not None:
-      self.terrain = TerrainImporter(cfg.terrain, cfg.num_envs, mj_model)
     self.entities = dict(cfg.entities)
     self._views: 'dict[str, EntityView]' = {}
     self._model: 'Model | None' = None

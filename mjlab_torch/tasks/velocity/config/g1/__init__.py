@@ -1,4 +1,4 @@
-"""G1 velocity task registrations (flat terrain)."""
+"""G1 velocity task registrations (flat and rough terrain)."""
 
 from mjlab_torch.asset_zoo.pretrained import G1_FLAT_POLICY
 from mjlab_torch.tasks import registry
@@ -38,6 +38,24 @@ def _rl_cfg():
   return _g1_ppo_cfg('g1_flat')
 
 
+def _rl_cfg_rough():
+  return _g1_ppo_cfg('g1_rough')
+
+
+def _rough_cfg():
+  from mjlab_torch.tasks.velocity.config.g1.rough_env_cfg import (
+      UnitreeG1RoughEnvCfg,
+  )
+  return UnitreeG1RoughEnvCfg()
+
+
+def _rough_cfg_play():
+  from mjlab_torch.tasks.velocity.config.g1.rough_env_cfg import (
+      UnitreeG1RoughEnvCfg_PLAY,
+  )
+  return UnitreeG1RoughEnvCfg_PLAY()
+
+
 registry.register('Mjlab-Velocity-Flat-Unitree-G1',
                   env_cfg_entry_point=UnitreeG1FlatEnvCfg,
                   rl_cfg_entry_point=_rl_cfg,
@@ -46,3 +64,10 @@ registry.register('Mjlab-Velocity-Flat-Unitree-G1-Play',
                   env_cfg_entry_point=UnitreeG1FlatEnvCfg_PLAY,
                   rl_cfg_entry_point=_rl_cfg,
                   pretrained_policy=G1_FLAT_POLICY)
+# no policy trained on rough terrain ships with the port
+registry.register('Mjlab-Velocity-Rough-Unitree-G1',
+                  env_cfg_entry_point=_rough_cfg,
+                  rl_cfg_entry_point=_rl_cfg_rough)
+registry.register('Mjlab-Velocity-Rough-Unitree-G1-Play',
+                  env_cfg_entry_point=_rough_cfg_play,
+                  rl_cfg_entry_point=_rl_cfg_rough)

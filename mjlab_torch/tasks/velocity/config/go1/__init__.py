@@ -1,5 +1,5 @@
-"""Go1 velocity task registrations (flat terrain; the rough variant waits
-for ROADMAP 12.3). No trained Go1 policy ships with the port."""
+"""Go1 velocity task registrations (flat and rough terrain). No trained
+Go1 policy ships with the port."""
 
 from mjlab_torch.tasks import registry
 from mjlab_torch.tasks.velocity.config.go1.flat_env_cfg import (
@@ -8,7 +8,7 @@ from mjlab_torch.tasks.velocity.config.go1.flat_env_cfg import (
 )
 
 
-def _rl_cfg():
+def _go1_ppo_cfg(experiment_name):
   """The Go1 runner cfg of mjlab_tpu/tasks/velocity/config/go1/__init__.py
   (reference tasks/velocity/config/go1/rl_cfg.py): obs normalization off,
   (512, 256, 128) networks, entropy 0.01, 10k-iteration budget."""
@@ -18,7 +18,7 @@ def _rl_cfg():
       RslRlPpoAlgorithmCfg,
   )
   return RslRlOnPolicyRunnerCfg(
-      experiment_name='go1_flat',
+      experiment_name=experiment_name,
       policy=RslRlPpoActorCriticCfg(
           init_noise_std=1.0,
           actor_obs_normalization=False,
@@ -34,9 +34,37 @@ def _rl_cfg():
       save_interval=50, num_steps_per_env=24, max_iterations=10_000)
 
 
+def _rl_cfg():
+  return _go1_ppo_cfg('go1_flat')
+
+
+def _rl_cfg_rough():
+  return _go1_ppo_cfg('go1_rough')
+
+
+def _rough_cfg():
+  from mjlab_torch.tasks.velocity.config.go1.rough_env_cfg import (
+      UnitreeGo1RoughEnvCfg,
+  )
+  return UnitreeGo1RoughEnvCfg()
+
+
+def _rough_cfg_play():
+  from mjlab_torch.tasks.velocity.config.go1.rough_env_cfg import (
+      UnitreeGo1RoughEnvCfg_PLAY,
+  )
+  return UnitreeGo1RoughEnvCfg_PLAY()
+
+
 registry.register('Mjlab-Velocity-Flat-Unitree-Go1',
                   env_cfg_entry_point=UnitreeGo1FlatEnvCfg,
                   rl_cfg_entry_point=_rl_cfg)
 registry.register('Mjlab-Velocity-Flat-Unitree-Go1-Play',
                   env_cfg_entry_point=UnitreeGo1FlatEnvCfg_PLAY,
                   rl_cfg_entry_point=_rl_cfg)
+registry.register('Mjlab-Velocity-Rough-Unitree-Go1',
+                  env_cfg_entry_point=_rough_cfg,
+                  rl_cfg_entry_point=_rl_cfg_rough)
+registry.register('Mjlab-Velocity-Rough-Unitree-Go1-Play',
+                  env_cfg_entry_point=_rough_cfg_play,
+                  rl_cfg_entry_point=_rl_cfg_rough)

@@ -3,6 +3,7 @@
 from mjlab_torch.envs.mdp import *  # noqa: F401,F403
 from mjlab_torch.tasks.velocity.mdp.curriculums import (  # noqa: F401
     commands_vel,
+    terrain_levels_vel,
 )
 from mjlab_torch.tasks.velocity.mdp.rewards import (  # noqa: F401
     feet_air_time,

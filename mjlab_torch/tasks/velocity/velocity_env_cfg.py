@@ -1,4 +1,4 @@
-"""Locomotion velocity-tracking task MDP (flat terrain).
+"""Locomotion velocity-tracking task MDP, on flat and on rough terrain.
 
 Counterpart of mjlab_tpu/tasks/velocity/velocity_env_cfg.py. Robot-specific
 configs (tasks/velocity/config/{g1,go1}) specialize the scene, the action
@@ -149,6 +149,8 @@ class CurriculumCfg:
       CurrTerm, func=mdp.commands_vel,
       params={'command_name': 'twist', 'base_range': (-1.0, 1.0),
               'velocity_stages': [{'step': 500 * 24, 'range': (-3.0, 3.0)}]})
+  # set by the rough-terrain variant
+  terrain_levels: 'CurrTerm | None' = None
 
 
 def _sim_cfg() -> SimulationCfg:
@@ -170,3 +172,26 @@ class LocomotionVelocityEnvCfg(ManagerBasedRlEnvCfg):
   sim: SimulationCfg = field(default_factory=_sim_cfg)
   decimation: int = 4  # 50 Hz control
   episode_length_s: float = 20.0
+
+
+def make_rough_terrain_cfg() -> TerrainImporterCfg:
+  """Generator terrain on a copy of the default rough grid."""
+  import copy
+
+  from mjlab_torch.terrains.config import ROUGH_TERRAINS_CFG
+  return TerrainImporterCfg(
+      terrain_type='generator',
+      terrain_generator=copy.deepcopy(ROUGH_TERRAINS_CFG))
+
+
+@dataclasses.dataclass
+class LocomotionVelocityRoughEnvCfg(LocomotionVelocityEnvCfg):
+  """Rough-terrain variant: the procedural stairs grid and the
+  walked-distance terrain-level curriculum."""
+
+  def __post_init__(self):
+    self.scene.terrain = make_rough_terrain_cfg()
+    self.curriculum.terrain_levels = CurrTerm(
+        func=mdp.terrain_levels_vel,
+        params={'command_name': 'twist',
+                'asset_cfg': SceneEntityCfg('robot')})

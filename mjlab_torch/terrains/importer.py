@@ -1,10 +1,12 @@
-"""Terrain importer: the plane terrain and the grid of env origins.
+"""Terrain importer: the plane terrain or a generated sub-terrain grid, and
+the env origins laid over it.
 
-Counterpart of mjlab_tpu/terrains/importer.py for `terrain_type='plane'`.
-There the importer adds the plane to the scene's MjSpec; the port is handed
-the compiled scene, so it checks that the scene holds a plane geom named
-`terrain` (the name ground-contact sensors filter on) and lays out the
-origins.
+Counterpart of mjlab_tpu/terrains/importer.py. There the importer adds the
+terrain to the scene's MjSpec; the port is handed the compiled scene, so it
+checks that the scene holds the terrain's geom, named `terrain` (the name
+ground-contact sensors filter on): a plane, or the heightfield of the
+generator this importer builds from `terrain_generator` (the scene builders
+of asset_zoo take the compiled heightfield from the same generator).
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ import numpy as np
 
 from mjlab_torch.physics.io import names_of
 from mjlab_torch.physics.types import GeomType
+from mjlab_torch.terrains.generator import TerrainGenerator
 
 
 @dataclasses.dataclass
 class TerrainImporterCfg:
-  terrain_type: str = 'plane'
+  terrain_type: str = 'plane'  # 'plane' | 'generator'
+  terrain_generator: 'object | None' = None  # TerrainGeneratorCfg
   env_spacing: float = 2.0
 
 
@@ -34,18 +38,59 @@ def grid_origins(num_envs: int, spacing: float) -> np.ndarray:
 
 
 class TerrainImporter:
+  """The terrain's env origins; for a generator terrain also the generator,
+  each env's level (row) and type (column), and the (level, type) table of
+  spawn origins that the terrain-level curriculum moves envs over.
+  `check_scene` checks a compiled scene against it."""
 
-  def __init__(self, cfg: TerrainImporterCfg, num_envs: int, mj_model):
+  def __init__(self, cfg: TerrainImporterCfg, num_envs: int):
     self.cfg = cfg
     self.num_envs = num_envs
-    if cfg.terrain_type != 'plane':
-      raise NotImplementedError(
-          f'terrain_type {cfg.terrain_type!r} is not supported by '
-          "mjlab_torch yet; use 'plane'")
+    self.generator: 'TerrainGenerator | None' = None
+    if cfg.terrain_type == 'plane':
+      self.env_origins = grid_origins(num_envs, cfg.env_spacing)
+      self.terrain_levels = np.zeros(num_envs, np.int32)
+      self.terrain_types = np.zeros(num_envs, np.int32)
+    elif cfg.terrain_type == 'generator':
+      if cfg.terrain_generator is None:
+        raise ValueError('terrain_generator cfg required')
+      gen = TerrainGenerator(cfg.terrain_generator)
+      self.generator = gen
+      # env e starts at a random level below the ratio's row, its type
+      # striped over the columns
+      rng = np.random.default_rng(0)
+      num_rows, num_cols = gen.origins.shape[:2]
+      max_init = max(0, int(np.ceil(num_rows * getattr(
+          cfg.terrain_generator, 'max_init_terrain_level_ratio', 0.5))))
+      self.terrain_levels = rng.integers(0, max(max_init, 1), num_envs)
+      self.terrain_types = (np.arange(num_envs) % num_cols).astype(np.int32)
+      self.env_origins = gen.origins[self.terrain_levels, self.terrain_types]
+    else:
+      raise ValueError(f'unknown terrain_type {cfg.terrain_type!r}')
+
+  def check_scene(self, mj_model) -> None:
+    """The compiled scene holds this terrain's geom named `terrain`: a
+    plane, or a heightfield of the generator's raster size."""
     names = names_of(mj_model, 'geom', mj_model.ngeom)
+    want = GeomType.PLANE if self.generator is None else GeomType.HFIELD
     if 'terrain' not in names or int(
-        mj_model.geom_type[names.index('terrain')]) != int(GeomType.PLANE):
-      raise ValueError("the compiled scene has no plane geom named 'terrain'")
-    self.env_origins = grid_origins(num_envs, cfg.env_spacing)
-    self.terrain_levels = np.zeros(num_envs, np.int32)
-    self.terrain_types = np.zeros(num_envs, np.int32)
+        mj_model.geom_type[names.index('terrain')]) != int(want):
+      raise ValueError(f'the compiled scene has no {want.name.lower()} geom '
+                       "named 'terrain'")
+    if self.generator is not None:
+      nx, ny = self.generator.raster.shape
+      if mj_model.nhfield != 1 or (int(mj_model.hfield_nrow[0]),
+                                   int(mj_model.hfield_ncol[0])) != (ny, nx):
+        raise ValueError(
+            f'the compiled scene\'s heightfield is not the generator\'s '
+            f'{ny} x {nx} raster')
+
+  @property
+  def origins_table(self) -> 'np.ndarray | None':
+    """(num_levels, num_types, 3) spawn-origin table of a generator
+    terrain (None for the plane), read by the terrain-level curriculum."""
+    return None if self.generator is None else self.generator.origins
+
+  @property
+  def max_level(self) -> int:
+    return 1 if self.generator is None else self.generator.num_levels
