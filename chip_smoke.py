@@ -90,7 +90,19 @@ Phases, each of which exits non-zero on failure:
      `scripts.play` of its Play cfg at 4096 envs; 10e: 8 envs of each
      rough task on the card in float32 against the CPU in float64. The
      launches of phase 10 are those of the path's own runs: env builds
-     and resets, env-steps, training and play.
+     and resets, env-steps, training and play;
+ 11. run the physics-blowup tools on G1 flat training at 4096 envs (11a:
+     `scripts.train --enable-nan-guard` with MJLAB_BLOWUP_DUMP for 3
+     iterations, env NAN_ENV's base spun to NAN_SPIN rad/s before
+     env-step NAN_STEP: one guard dump with that env, the ring holding its
+     pre-substep state bit for bit, physics_nan counting it, finite
+     losses, launches 4/4/8 or 5/5/9, the checkpoint equal to one without
+     the ring, then 24 waits in a guarded rollout with the ring on; 11b:
+     `scripts.blowup_replay` of the ring on the card at 4096 envs, whose
+     float32 replays must repeat the captured qvel peaks within 1e-5 of
+     (1 + max |qvel|), eng-f64 on the CPU; 11c: `scripts.nan_viz` of the
+     dump; 11d: the env-step at 4096 envs with the guard and the ring off
+     and on, in turns).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -100,8 +112,9 @@ rows are active). The line before the last is a JSON object with one row
 per kernel (K3's per-env form a row of its own, its launches those of
 phase 7 and its `tracking` its phase-9a numbers; each row's `go1` holds
 its phase-2e numbers, `go1_path_launches` its launches in phase 8,
-`tracking_path_launches` those in phase 9 and `rough_path_launches` those
-in phase 10; K2's row holds its phase-10d numbers as `rough_go1`); the last
+`tracking_path_launches` those in phase 9, `rough_path_launches` those
+in phase 10 and `nan_path_launches` those in phase 11; K2's row holds its
+phase-10d numbers as `rough_go1`); the last
 line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
 """
@@ -203,22 +216,6 @@ def k3_work(k_smooth, s, d, kern) -> 'tuple[int, int]':
   return nbytes, flops
 
 
-def newton_steps(torch, solver, args, iters, polish, ldof, grad_th):
-  """Per env, the Newton iterations that step before the freeze rule
-  (||grad||^2 <= grad_th^2) stops it, counted on the plain solver: the
-  gradient at the end of k plain iterations decides iteration k + 1."""
-  M, a0, cJ, l_sign = args[0], args[1], args[3], args[7]
-  ix = torch.as_tensor(ldof, device=M.device)
-  need = torch.zeros(M.shape[0], dtype=torch.long, device=M.device)
-  for k in range(iters):
-    x, ff, fl, fc = solver.newton_plain(*args, k, polish, ldof, grad_th)
-    jt = (ff + torch.einsum('bcv,bc->bv', cJ, fc)).index_add(1, ix,
-                                                             l_sign * fl)
-    grad = torch.einsum('bij,bj->bi', M, x - a0) - jt
-    need += ((grad * grad).sum(-1) > grad_th * grad_th).long()
-  return need
-
-
 def newton_work(torch, solver, args, iters, polish, ldof, grad_th):
   """What one K2 call needs for these inputs: (Newton steps per env,
   active contact rows per env, active rows per env, bytes, FLOPs). Bytes:
@@ -233,7 +230,7 @@ def newton_work(torch, solver, args, iters, polish, ldof, grad_th):
   ncr, nl = args[3].shape[1], len(ldof)
   nbytes = 4 * B * (n * n + ncr * n + 3 * ncr + 4 * nl + 6 * n
                     + 2 * n + nl + ncr)
-  need = newton_steps(torch, solver, args, iters, polish, ldof, grad_th)
+  need = solver.newton_steps(args, iters, polish, ldof, grad_th)
   nc = args[6].sum(-1).long()
   rows = nc + args[10].sum(-1).long() + args[14].sum(-1).long()
   per_step = (6 * nc * n + 4 * n * n + n * (n + 1) * nc + nc * n
@@ -2721,6 +2718,276 @@ def _rough_path(torch, card: str, busy, root: str):
   return launches, k2
 
 
+NAN_ENV = 1234  # the env phase 11a spins up
+NAN_STEP = 12  # ... before this env-step of the first iteration (1-based)
+NAN_SPIN = 1e5  # rad/s about every axis of its base: blows up in one step
+NAN_COST_STEPS = 20  # env-steps of each timing run of phase 11d
+
+
+@contextlib.contextmanager
+def spun_up(torch, store: dict):
+  """Within the block, before the NAN_STEP-th env-step of any env, env
+  NAN_ENV's base angular velocity is set to NAN_SPIN about every axis;
+  `store` gets that step's starting state and processed action."""
+  from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
+  plain_step = ManagerBasedRlEnv._step_fn
+  calls = [0]
+
+  def step(self, state, action, *a, **kw):
+    calls[0] += 1
+    if calls[0] == NAN_STEP:
+      qvel = state.data.qvel.clone()
+      qvel[NAN_ENV, 3:6] = NAN_SPIN
+      state = state.replace(data=state.data.replace(qvel=qvel))
+      act = torch.as_tensor(action, dtype=state.actions.dtype,
+                            device=self.device)
+      store.update(state=state, processed=self.action_manager.process(act))
+    return plain_step(self, state, action, *a, **kw)
+
+  ManagerBasedRlEnv._step_fn = step
+  try:
+    yield
+  finally:
+    ManagerBasedRlEnv._step_fn = plain_step
+
+
+def same_bits(a, b) -> bool:
+  """Equal bit for bit (NaN included): two tensors or arrays."""
+  import numpy as np
+  a = a.detach().cpu().numpy() if hasattr(a, 'detach') else np.asarray(a)
+  b = b.detach().cpu().numpy() if hasattr(b, 'detach') else np.asarray(b)
+  return a.dtype == b.dtype and a.shape == b.shape and \
+      a.tobytes() == b.tobytes()
+
+
+def same_payload(torch, a, b) -> bool:
+  """Two checkpoint payloads equal key for key and bit for bit."""
+  if isinstance(a, dict):
+    return (isinstance(b, dict) and list(a) == list(b)
+            and all(same_payload(torch, a[k], b[k]) for k in a))
+  if torch.is_tensor(a):
+    return torch.is_tensor(b) and same_bits(a, b)
+  return type(a) is type(b) and a == b
+
+
+def nan_path(torch, card: str) -> dict:
+  """Phase 11: the NaN guard, the blowup ring and the tools that read them,
+  on G1 flat training at 4096 envs. Returns the kernels' launches over the
+  path's own runs (training, a guarded rollout, the replay)."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_nan_')
+  try:
+    return _nan_path(torch, card, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _nan_path(torch, card: str, root: str) -> dict:
+  import collections
+  import glob
+  import math
+  import os
+
+  import numpy as np
+
+  from mjlab_torch.scripts import blowup_replay, nan_viz, train
+  from mjlab_torch.tasks import registry
+  from mjlab_torch.utils.nan_guard import NanGuard
+
+  path = collections.Counter()
+  ring_dir = os.path.join(root, 'ring')
+
+  # ---- 11a: train.main with the guard and the ring; one env spun up --------
+  argv = [ENV_TASK, '--log-root', root, '--env.scene.num_envs', str(B),
+          '--agent.max_iterations', str(TRAIN_ITERS), '--run-name', 'g',
+          '--enable-nan-guard']
+  seen = {}
+  os.environ['MJLAB_BLOWUP_DUMP'] = ring_dir
+  try:
+    with spun_up(torch, seen), \
+        launches_per_step(('smooth', 'newton', 'pd_solve')) as per_step, \
+        counted(path):
+      t0 = time.perf_counter()
+      runner = train.main(argv)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+  finally:
+    del os.environ['MJLAB_BLOWUP_DUMP']
+  cfg, env = runner.cfg, runner.env
+  T = cfg.num_steps_per_env
+  run = os.path.join(root, cfg.experiment_name, 'g')
+  print(f'nan path: {TRAIN_ITERS} iterations of {T} env-steps x {B} envs '
+        f'through train.main --enable-nan-guard with MJLAB_BLOWUP_DUMP in '
+        f'{wall:.2f} s; env {NAN_ENV} spun to {NAN_SPIN:g} rad/s before '
+        f'env-step {NAN_STEP}; card {card}', flush=True)
+  check(env.device.type == 'cuda' and env.num_envs == B and 'state' in seen,
+        'the nan path did not run 4096 envs on the card or spin an env up')
+  shapes = sorted(set(per_step))
+  print(f'nan path launches per rollout env-step (K3, K2, K1), guard and '
+        f'ring on: { {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
+  check(len(per_step) == TRAIN_ITERS * T
+        and set(shapes) <= {(4, 4, 8), (5, 5, 9)},
+        f'{len(per_step)} env-steps launched {shapes}, not 4/4/8 or 5/5/9')
+
+  dumps = sorted(glob.glob(os.path.join(run, 'nan_dumps', 'nan_dump_*.npz')))
+  check(len(dumps) == 1, f'the guard wrote {len(dumps)} dumps, not 1')
+  with np.load(dumps[0]) as z:
+    dump = {k: z[k] for k in z.files}
+  print(f'nan path: the guard dumped envs {dump["bad_env_ids"].tolist()} at '
+        f'step {dump["steps"].tolist()}; qvel non-finite in '
+        f'{int((~np.isfinite(dump["qvel"])).any(-1).sum())} of '
+        f'{dump["qvel"].shape[1]} dumped envs; model.npz written: '
+        f'{os.path.exists(os.path.join(run, "nan_dumps", "model.npz"))}',
+        flush=True)
+  check(NAN_ENV in dump['bad_env_ids'].tolist()
+        and dump['steps'].tolist() == [NAN_STEP],
+        'the guard did not dump the spun-up env at its step')
+
+  with np.load(os.path.join(ring_dir, 'blowup_ring.npz')) as z:
+    ring = {k: z[k] for k in z.files}
+  ids = ring['env_ids'].tolist()
+  check(NAN_ENV in ids, f'the ring holds envs {ids}, not {NAN_ENV}')
+  row = ids.index(NAN_ENV)
+  st = seen['state']
+  bits = {k: same_bits(ring[k][row], getattr(st.data, k)[NAN_ENV])
+          for k in ('qpos', 'qvel', 'ctrl', 'qacc_warmstart', 'xfrc_applied',
+                    'qfrc_applied', 'time')}
+  bits['processed_action'] = same_bits(ring['processed_action'][row],
+                                       seen['processed'][NAN_ENV])
+  bits['episode_length'] = same_bits(ring['episode_length'][row],
+                                     st.episode_length[NAN_ENV])
+  for f in env.per_env_fields:
+    bits[f'model_{f}'] = same_bits(ring[f'model_{f}'][row],
+                                   getattr(st.model, f)[NAN_ENV])
+  peaks = ring['qvel_peaks'][:, row]
+  print(f'nan path: the ring holds {len(ids)} capture(s) (envs {ids}, '
+        f'{int(ring["n_bad_total"])} bad envs in all); env {NAN_ENV}\'s '
+        f'pre-substep state bit for bit: {bits}; its qvel peaks by substep '
+        f'{peaks.tolist()}', flush=True)
+  check(all(bits.values()), 'the ring does not hold the pre-substep state '
+        'bit for bit')
+
+  with open(os.path.join(run, 'metrics.jsonl')) as f:
+    lines = [json.loads(line) for line in f]
+  for l_ in lines:
+    print(f'nan path iteration {l_["iteration"]}: physics_nan '
+          f'{l_["Episode_Termination/physics_nan"]:.0f}, fell_over '
+          f'{l_["Episode_Termination/fell_over"]:.0f}, loss {l_["loss"]:.4f} '
+          f'kl {l_["kl"]:.5f}, collection {l_["collection_ms"]:.1f} ms, '
+          f'learning {l_["learning_ms"]:.1f} ms; card {card}', flush=True)
+    check(all(math.isfinite(l_[k]) for k in ('loss', 'pg', 'v', 'ent', 'kl',
+                                              'std')),
+          f'non-finite loss logs at iteration {l_["iteration"]}')
+  check(lines[0]['Episode_Termination/physics_nan'] >= 1,
+        'physics_nan did not count the spun-up env')
+
+  # the checkpoint: the ring-on run's, and the same state saved with the
+  # ring taken off, key for key and bit for bit
+  ckpt = os.path.join(run, f'model_{TRAIN_ITERS}.pt')
+  on_state = runner.ts.env_state
+  check(bool(on_state.forensic), 'the ring is not in the state')
+  runner.ts.env_state = on_state.replace(forensic={})
+  off = os.path.join(root, 'ring_off.pt')
+  runner.save(off)
+  runner.ts.env_state = on_state
+  a = torch.load(ckpt, weights_only=True)
+  b = torch.load(off, weights_only=True)
+  same = same_payload(torch, a, b)
+  print(f'nan path: {os.path.basename(ckpt)} (ring on) equals the same '
+        f'state saved with the ring off, key for key and bit for bit: '
+        f'{same}; env_state keys {sorted(a["env_state"])}', flush=True)
+  check(same and 'forensic' not in a['env_state'],
+        'the checkpoint carries the ring or differs from a ring-off one')
+  del a, b
+
+  # one guarded rollout on a fresh guard: the waits and the launches
+  alg, ts = runner.alg, runner.ts
+  with launches_per_step(('smooth', 'newton', 'pd_solve')) as per_step2, \
+      counted(path):
+    alg._step_fn = NanGuard(env, out_dir=os.path.join(root, 'g2')).wrap(
+        env.step_fn)
+    _, syncs = count_syncs(torch, lambda: alg._rollout(ts))
+  shapes2 = sorted(set(per_step2))
+  print(f'nan path: {len(syncs)} synchronizing calls in a guarded rollout '
+        f'of {T} env-steps with the ring on; launches per env-step '
+        f'{ {s_: per_step2.count(s_) for s_ in shapes2} }', flush=True)
+  check(len(syncs) == T, 'the guarded rollout synchronizes other than once '
+        'an env-step: ' + '; '.join(sorted(set(syncs))))
+  check(len(per_step2) == T and set(shapes2) <= {(4, 4, 8), (5, 5, 9)},
+        f'the guarded env-steps launched {shapes2}')
+  del runner, alg, ts, env
+
+  # ---- 11b: the replay of the ring on the card -----------------------------
+  with counted(path):
+    t0 = time.perf_counter()
+    batch, results = blowup_replay.main([ring_dir, '--task', ENV_TASK,
+                                         '--num-envs', str(B)])
+    torch.cuda.synchronize()
+  by = {r['variant']: r for r in results}
+  print(f'nan path replay: {time.perf_counter() - t0:.1f} s; captured peaks '
+        f'{batch["qvel_peaks"].T.tolist()}; peaks_err env-f32 '
+        f'{by["env-f32"]["peaks_err"]:.3e}, eng-f32 '
+        f'{by["eng-f32"]["peaks_err"]:.3e} (tolerance 1e-05), eng-f64 (the '
+        f'CPU, {by["eng-f64"]["envs"]} envs) {by["eng-f64"]["peaks_err"]:.3e},'
+        f' eng-it3x {by["eng-it3x"]["peaks_err"]:.3e}, eng-nocap '
+        f'{by["eng-nocap"]["peaks_err"]:.3e}; launches by variant '
+        f'{ {k: r["launches"] for k, r in by.items()} }; card {card}',
+        flush=True)
+  check(by['eng-f32']['peaks_err'] <= 1e-5 and
+        by['env-f32']['peaks_err'] <= 1e-5,
+        'the replay on the card does not repeat the captured qvel peaks')
+  check(by['eng-f64']['envs'] == len(batch['env_ids'])
+        and not by['eng-f64']['launches'], 'eng-f64 did not run on the CPU')
+  check(all(by[v]['launches'].get(k, 0) > 0 for v in ('env-f32', 'eng-f32')
+            for k in ('smooth', 'newton', 'pd_solve')),
+        'the float32 replay did not run K1-K3 on the card')
+
+  # ---- 11c: nan_viz on the dump -------------------------------------------
+  try:
+    nan_viz.main([dumps[0]])
+  except SystemExit as e:
+    fail(f'nan_viz exited {e.code}')
+
+  # ---- 11d: what the guard and the ring cost an env-step -------------------
+  def env_of(ring_on: bool):
+    if ring_on:
+      os.environ['MJLAB_BLOWUP_DUMP'] = os.path.join(root, 'ring_cost')
+    try:
+      env = registry.make(ENV_TASK, **{'scene.num_envs': B})
+    finally:
+      os.environ.pop('MJLAB_BLOWUP_DUMP', None)
+    step = env.step_fn
+    if ring_on:
+      step = NanGuard(env, out_dir=os.path.join(root, 'g3')).wrap(step)
+    state, _ = env.init_state()
+    return env, step, [state]
+
+  runs = {'off': env_of(False), 'on': env_of(True)}
+  env0 = runs['off'][0]
+  zero = torch.zeros(B, env0.action_dim, device=env0.device)
+
+  def timed(what):
+    _, step, box = runs[what]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NAN_COST_STEPS):
+      box[0], _ = step(box[0], zero)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / NAN_COST_STEPS
+
+  for what in runs:
+    timed(what)  # warm up
+  order = ('off', 'on', 'on', 'off')
+  ms = [timed(w) for w in order]
+  print(f'nan path cost, G1 flat env-step at {B} envs under zero actions, '
+        f'{NAN_COST_STEPS} env-steps each, in turns (ms an env-step): '
+        + ', '.join(f'{w} {m:.3f}' for w, m in zip(order, ms))
+        + f'; card {card}', flush=True)
+  del runs
+  return path
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -3197,6 +3464,15 @@ def main() -> None:
     if kern == 'newton':
       r['rough_go1'] = rough_k2
 
+  # ---- phase 11: the NaN guard and the blowup ring on G1 flat training -------
+  nan_launches = nan_path(torch, card)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['nan_path_launches'] = int(nan_launches.get(kern, 0))
+    check((r['nan_path_launches'] > 0) == (kern != 'smooth_env'),
+          f'{r["name"]} was launched {r["nan_path_launches"]} times on the '
+          'nan path')
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -3207,7 +3483,8 @@ def main() -> None:
           f'{r["config5_path_launches"]}, the Go1 path '
           f'{r["go1_path_launches"]}, the tracking path '
           f'{r["tracking_path_launches"]}, the rough path '
-          f'{r["rough_path_launches"]}; card {card}', flush=True)
+          f'{r["rough_path_launches"]}, the nan path '
+          f'{r["nan_path_launches"]}; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

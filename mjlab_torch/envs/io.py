@@ -9,7 +9,9 @@ Layout: 'data' (physics.io.data_from_numpy's dict), 'model' (the per-env
 model fields only), 'episode_length', 'common_step', 'actions',
 'prev_actions', 'reward_sums', and the manager state dicts 'command',
 'obs', 'event', 'curriculum', 'reward' (nested dicts of arrays; a circular
-buffer is a dict of its fields).
+buffer is a dict of its fields). The forensic ring of MJLAB_BLOWUP_DUMP is
+a debugging aid and is not carried: a state built here gets the env's
+empty ring.
 """
 
 from __future__ import annotations
@@ -75,4 +77,5 @@ def env_state_from_numpy(arrays: dict, env) -> EnvState:
       for k, v in arrays.get('model', {}).items()})
   return EnvState(
       model=model, data=data_from_numpy(arrays['data'], model),
+      forensic={k: v.clone() for k, v in template.forensic.items()},
       **{k: _like(getattr(template, k), arrays[k]) for k in _LEAVES})

@@ -18,6 +18,18 @@ one read of a device value on the host, `bool(done.any())`.
 
 Random draws come from one `torch.Generator` on the env's device, seeded
 from `cfg.seed` and handed to every manager.
+
+Physics blowups: an env whose state goes non-finite (or past
+`sanity_qvel_limit`) is terminated, reset and its Data sanitized within the
+step. Two debugging aids see the state before `sanitize` does:
+- a NanGuard (utils/nan_guard.py) attached as `nan_guard` for the length of
+  a guarded call is handed the post-substep state and its non-finite mask;
+  its flag joins the step's one host read;
+- with `MJLAB_BLOWUP_DUMP=<dir>` the step writes the pre-substep state of
+  up to `min(8, num_envs)` blown-up envs into a device ring in
+  `EnvState.forensic` (`MJLAB_BLOWUP_DUMP_MAX` slots, default 40), with no
+  host read; `maybe_dump_forensics` fetches it into `<dir>/blowup_ring.npz`
+  for scripts/blowup_replay.py.
 """
 
 from __future__ import annotations
@@ -25,8 +37,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 from typing import Any
 
+import numpy as np
 import torch
 
 from mjlab_torch.envs.types import EnvCtx, EnvState
@@ -154,6 +168,132 @@ class ManagerBasedRlEnv:
         obs=self.observation_manager.init_state(dtype, dev))
     self._state: 'EnvState | None' = None
     self.last_extras: dict = {}
+    # a NanGuard, only while a guarded call of the step runs
+    self.nan_guard = None
+
+    # --- physics-blowup forensic ring (off unless MJLAB_BLOWUP_DUMP) ---
+    self._blowup_dump_dir = os.environ.get('MJLAB_BLOWUP_DUMP') or None
+    self._blowup_count = 0  # host side: ring captures persisted so far
+    self._forensic_cap = int(os.environ.get('MJLAB_BLOWUP_DUMP_MAX', 40))
+    self._forensic_k = min(8, n)  # captures per control step
+    # the per-env model fields, in the Model's field order
+    self._batched_model_fields = [f.name for f in dataclasses.fields(model)
+                                  if f.name in self.per_env_fields]
+    if self._blowup_dump_dir:
+      self._template_state = self._template_state.replace(
+          forensic=self._forensic_ring(data, model))
+
+  # ------------------------------------------------------------------
+  # physics-blowup forensics
+  # ------------------------------------------------------------------
+  def _forensic_ring(self, data: Data, model) -> dict:
+    """An empty ring: `cap` slots of the pre-substep state an env had
+    before its step blew up. dtypes as the JAX package's ring: the data's,
+    but `processed_action` takes the default float dtype."""
+    cap, dev = self._forensic_cap, self.device
+
+    def slots(x, dtype=None):
+      return torch.zeros((cap,) + tuple(x.shape[1:]),
+                         dtype=dtype or x.dtype, device=dev)
+
+    i32 = torch.int32
+    ring = {
+        'count': torch.zeros((), dtype=i32, device=dev),
+        'total_bad': torch.zeros((), dtype=i32, device=dev),
+        'env_id': torch.full((cap,), -1, dtype=i32, device=dev),
+        'episode_length': torch.zeros(cap, dtype=i32, device=dev),
+        'time': slots(data.time),
+        'qpos': slots(data.qpos),
+        'qvel': slots(data.qvel),
+        'ctrl': slots(data.ctrl),
+        'qacc_warmstart': slots(data.qacc_warmstart),
+        'xfrc_applied': slots(data.xfrc_applied),
+        'qfrc_applied': slots(data.qfrc_applied),
+        'processed_action': torch.zeros(
+            (cap, self.action_manager.total_dim),
+            dtype=torch.get_default_dtype(), device=dev),
+        'qvel_peaks': torch.zeros((cap, self.cfg.decimation),
+                                  dtype=data.qvel.dtype, device=dev),
+    }
+    for f in self._batched_model_fields:
+      ring[f'model_{f}'] = slots(getattr(model, f))
+    return ring
+
+  def _forensic_write(self, ring: dict, bad: torch.Tensor, pre: Data,
+                      processed: torch.Tensor, state: EnvState,
+                      qvel_peaks: torch.Tensor) -> dict:
+    """The ring with the pre-step snapshots of the first `k` envs of
+    `bad` written into its next slots (newest wins, modulo the ring), as
+    new tensors. No host read: the ids are ranked by a cumsum, and writes
+    of unused ids go to a spare row that is cut off. qvel_peaks:
+    (decimation, N)."""
+    cap, k = self._forensic_cap, self._forensic_k
+    n, dev = bad.shape[0], bad.device
+    # the first k ids of `bad`, -1 after the last (jnp.nonzero with size=k)
+    rank = bad.cumsum(0) - 1
+    ids = torch.full((k + 1,), -1, dtype=torch.long, device=dev)
+    ids.scatter_(0, torch.where(bad & (rank < k), rank, k),
+                 torch.arange(n, device=dev))
+    ids = ids[:k]
+    valid = ids >= 0
+    slots = torch.where(valid, (ring['count'] + valid.cumsum(0) - 1) % cap,
+                        cap)
+    safe = ids.clamp_min(0)
+    vals = {
+        'env_id': ids,
+        'episode_length': state.episode_length[safe],
+        'time': pre.time[safe],
+        'qpos': pre.qpos[safe],
+        'qvel': pre.qvel[safe],
+        'ctrl': pre.ctrl[safe],
+        'qacc_warmstart': pre.qacc_warmstart[safe],
+        'xfrc_applied': pre.xfrc_applied[safe],
+        'qfrc_applied': pre.qfrc_applied[safe],
+        'processed_action': processed[safe],
+        'qvel_peaks': qvel_peaks[:, safe].T,
+    }
+    for f in self._batched_model_fields:
+      vals[f'model_{f}'] = getattr(state.model, f)[safe]
+
+    def put(buf, v):
+      spare = torch.cat((buf, buf[:1]))
+      return spare.index_copy_(0, slots, v.to(buf.dtype))[:cap]
+
+    new = {key: put(ring[key], v) for key, v in vals.items()}
+    new['count'] = ring['count'] + valid.sum(dtype=torch.int32)
+    new['total_bad'] = ring['total_bad'] + bad.sum(dtype=torch.int32)
+    return new
+
+  def maybe_dump_forensics(self, state: 'EnvState | None' = None) -> int:
+    """Host side: fetch the ring and write what it holds to
+    `<MJLAB_BLOWUP_DUMP>/blowup_ring.npz` (the JAX package's layout, read
+    by scripts/blowup_replay.py). Does nothing when the ring is off or
+    holds nothing new. Returns the total captured count."""
+    state = state if state is not None else self._state
+    if not self._blowup_dump_dir or state is None or not state.forensic:
+      return 0
+    count = int(state.forensic['count'])
+    if count <= self._blowup_count:
+      return count
+    self._blowup_count = count
+    # in sorted key order, as jax.device_get returns the JAX package's ring
+    ring = {k: state.forensic[k].cpu().numpy()
+            for k in sorted(state.forensic)}
+    os.makedirs(self._blowup_dump_dir, exist_ok=True)
+    keep = ring['env_id'] >= 0
+    payload = {k: v[keep] for k, v in ring.items()
+               if k not in ('count', 'total_bad')}
+    payload['env_ids'] = payload.pop('env_id')
+    # the replay reads (decimation, n), as the step computes them
+    payload['qvel_peaks'] = payload['qvel_peaks'].T
+    payload['n_bad_total'] = int(ring['total_bad'])
+    payload['model_field_names'] = np.array(self._batched_model_fields)
+    path = os.path.join(self._blowup_dump_dir, 'blowup_ring.npz')
+    np.savez(path, **payload)
+    print(f'[blowup] ring has {count} captures '
+          f'({int(ring["total_bad"])} bad envs total); latest '
+          f'{int(keep.sum())} snapshot(s) -> {path}', flush=True)
+    return count
 
   # ------------------------------------------------------------------
   # context
@@ -280,7 +420,7 @@ class ManagerBasedRlEnv:
 
     # decimation loop
     ctx = self._make_ctx(state)
-    data = state.data
+    pre = data = state.data  # pre: the forensic ring's capture
     qvel_peaks = []
     for _ in range(self.cfg.decimation):
       with stage('action'):
@@ -296,15 +436,24 @@ class ManagerBasedRlEnv:
     # ordinary terminations would miss these envs). Finite-but-exploding
     # states are flagged the same way, on the peak over the substeps, so an
     # explosion in the middle of a control step is caught at once.
+    # Neither the forensic ring nor a NanGuard sees the sanitized state.
     with stage('guard'):
       fin = lambda a: torch.isfinite(a).all(dim=-1)
-      phys_bad = ~(fin(data.qpos) & fin(data.qvel) & fin(data.qacc))
-      phys_bad = phys_bad | (torch.stack(qvel_peaks).amax(dim=0)
-                             > self.cfg.sanity_qvel_limit)
+      nonfinite = ~(fin(data.qpos) & fin(data.qvel) & fin(data.qacc))
+      qvel_peaks = torch.stack(qvel_peaks)
+      phys_bad = nonfinite | (qvel_peaks.amax(dim=0)
+                              > self.cfg.sanity_qvel_limit)
+      if self._blowup_dump_dir:
+        state = state.replace(forensic=self._forensic_write(
+            state.forensic, phys_bad, pre, processed, state, qvel_peaks))
       state = state.replace(
           data=sanitize(data),
           episode_length=state.episode_length + 1,
           common_step=state.common_step + 1)
+      guard = self.nan_guard
+      if guard is not None:
+        guard.observe(nonfinite, data.qpos, data.qvel, data.qacc, data.time,
+                      state.common_step)
 
     # terminations + rewards
     ctx = self._make_ctx(state)
@@ -320,12 +469,18 @@ class ManagerBasedRlEnv:
       state = state.replace(reward_sums=sums, reward=rew_state)
 
     # masked partial reset, then the forward refresh of every env if any
-    # env reset: the step's one host read of a device value
+    # env reset: the step's one host read of a device value, which also
+    # reads an attached NanGuard's flag
     done = terminated | truncated
     with stage('reset'):
       state, extras = self._reset_masked(state, done, term_info)
     with stage('refresh'):
-      if bool(done.any()):
+      if guard is None:
+        refresh = bool(done.any())
+      else:
+        refresh, blew_up = torch.stack((done.any(), nonfinite.any())).tolist()
+        guard.settle(blew_up)
+      if refresh:
         state = state.replace(
             data=phys_pipeline.forward(state.model, state.data))
 
@@ -386,6 +541,10 @@ class ManagerBasedRlEnv:
   # ------------------------------------------------------------------
   def reset(self, seed: 'int | None' = None):
     self._state, obs = self.init_state(seed)
+    # the fresh state's forensic ring is empty: re-sync the host's count, or
+    # captures after the reset would be skipped until the device's count
+    # passed the old one
+    self._blowup_count = 0
     return obs, {}
 
   def step(self, action):

@@ -34,6 +34,10 @@ class EnvState:
   curriculum: dict
   # stateful reward-term state (per-foot clocks etc.); {} when none
   reward: dict = dataclasses.field(default_factory=dict)
+  # the physics-blowup forensic ring (MJLAB_BLOWUP_DUMP only; {} otherwise):
+  # the pre-substep state of envs whose step blew up, fetched by the host
+  # once an iteration (ManagerBasedRlEnv.maybe_dump_forensics)
+  forensic: dict = dataclasses.field(default_factory=dict)
 
   def replace(self, **kwargs) -> 'EnvState':
     return dataclasses.replace(self, **kwargs)

@@ -203,6 +203,24 @@ def solver_params(stat):
   return int(stat.iterations), ls_polish, ldof, grad_th
 
 
+def newton_steps(args: tuple, iterations: int, ls_polish: int,
+                 ldof: tuple, grad_th: float) -> torch.Tensor:
+  """(B,) the Newton iterations each env steps before the freeze rule
+  (||grad||^2 <= grad_th^2) stops it, counted on the plain solver: the
+  gradient after k plain iterations decides iteration k + 1. `args` are
+  newton_args'."""
+  M, a0, cJ, l_sign = args[0], args[1], args[3], args[7]
+  ix = _ix(ldof, M.device)
+  need = torch.zeros(M.shape[0], dtype=torch.long, device=M.device)
+  for k in range(iterations):
+    x, ff, fl, fc = newton_plain(*args, k, ls_polish, ldof, grad_th)
+    jt = (ff + torch.einsum('bcv,bc->bv', cJ, fc)).index_add(1, ix,
+                                                             l_sign * fl)
+    grad = torch.einsum('bij,bj->bi', M, x - a0) - jt
+    need += ((grad * grad).sum(-1) > grad_th * grad_th).long()
+  return need
+
+
 def newton_args(d: Data, efc: dict) -> tuple:
   """The tensor arguments of `newton_plain` (M through f_act), which are
   also those of the kernel wrapper, from a Data and `make_efc`'s rows."""

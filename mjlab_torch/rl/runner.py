@@ -97,6 +97,11 @@ class OnPolicyRunner:
         logs['wall_s'] = time.time() - t_start
         last_logs = logs
         self._write_log(logs)
+        # the env's blowup ring (MJLAB_BLOWUP_DUMP), fetched here, once a
+        # logged iteration, so that the steps read nothing more
+        dump = getattr(self.env, 'maybe_dump_forensics', None)
+        if dump is not None:
+          dump(self.ts.env_state)
       if self.log_dir and self.cfg.save_interval and \
           (it + 1) % self.cfg.save_interval == 0:
         # named by the training iteration, which a resumed run continues
@@ -143,6 +148,8 @@ class OnPolicyRunner:
         'iteration': ts.iteration,
     }
     if full_state:
+      # env_state_to_numpy leaves out the forensic ring: a checkpoint is
+      # the same with the ring on or off
       from mjlab_torch.envs.io import env_state_to_numpy
       payload['env_state'] = _cpu(env_state_to_numpy(ts.env_state, self.env))
       payload['obs'] = _cpu(ts.obs)

@@ -10,6 +10,14 @@ Runs on the GPU unless `--device cpu` is given. Each run writes
 `<log-root>/<experiment_name>/<run-name>`; `--resume` first loads the newest
 checkpoint of the experiment's earlier runs and numbers on from it.
 `--env.*` and `--agent.*` set fields of the env and the agent cfg.
+
+`--enable-nan-guard` wraps the env's step in a NanGuard
+(utils/nan_guard.py) that dumps the first non-finite state to
+`<run>/nan_dumps` (read it with `python -m mjlab_torch.scripts.nan_viz`).
+With `MJLAB_BLOWUP_DUMP=<dir>` in the environment the env keeps the
+pre-substep state of envs that blew up in a device ring, written to
+`<dir>/blowup_ring.npz` at every logged iteration (replay it with
+`python -m mjlab_torch.scripts.blowup_replay <dir>`).
 """
 
 from __future__ import annotations
@@ -28,13 +36,11 @@ def main(argv=None):
   parser.add_argument('--run-name', default=None)
   parser.add_argument('--device', default='cuda')
   parser.add_argument('--enable-nan-guard', action='store_true',
-                      help='not ported yet (ROADMAP 12.8)')
+                      help='dump the first non-finite physics state to '
+                      '<run>/nan_dumps')
   parser.add_argument('--shard', action='store_true',
                       help='not ported yet (ROADMAP 12.9)')
   args, overrides = parser.parse_known_args(argv)
-  if args.enable_nan_guard:
-    raise SystemExit('--enable-nan-guard: the NaN guard is not ported yet '
-                     '(ROADMAP 12.8)')
   if args.shard:
     raise SystemExit('--shard: multi-GPU sharding is not ported yet '
                      '(ROADMAP 12.9)')
@@ -69,7 +75,12 @@ def main(argv=None):
       json.dump(cfg_to_dict(cfg), f, indent=2, default=repr)
 
   env = registry.make(args.task, cfg=env_cfg, device=args.device)
-  runner = make_runner(env, agent_cfg, log_dir=log_dir)
+  step_fn = None
+  if args.enable_nan_guard:
+    from mjlab_torch.utils.nan_guard import NanGuard
+    step_fn = NanGuard(
+        env, out_dir=os.path.join(log_dir, 'nan_dumps')).wrap(env.step_fn)
+  runner = make_runner(env, agent_cfg, log_dir=log_dir, step_fn=step_fn)
   if ckpt is not None:
     print(f'[resume] loading {ckpt}')
     runner.load(ckpt)

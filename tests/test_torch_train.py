@@ -196,8 +196,7 @@ def test_train_writes_a_run_that_resumes_and_plays(tmp_path):
 
 
 @pytest.mark.parametrize('flags,item', [
-    (['--enable-nan-guard'], '12.8'), (['--shard'], '12.9'),
-    (['--agent.video', 'True'], '12.7')])
+    (['--shard'], '12.9'), (['--agent.video', 'True'], '12.7')])
 def test_unported_flags_exit_nonzero(tmp_path, flags, item):
   with pytest.raises(SystemExit) as e:
     train.main(['Mjlab-Velocity-Flat-Unitree-G1', '--device', 'cpu',
