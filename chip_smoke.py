@@ -102,7 +102,22 @@ Phases, each of which exits non-zero on failure:
      float32 replays must repeat the captured qvel peaks within 1e-5 of
      (1 + max |qvel|), eng-f64 on the CPU; 11c: `scripts.nan_viz` of the
      dump; 11d: the env-step at 4096 envs with the guard and the ring off
-     and on, in turns).
+     and on, in turns);
+ 12. run the Tiny tasks and the elliptic friction cone (12a: K1-K3 at the
+     TinyBot's shapes on 4096 TinyBot floor states, and K1 on the Hessians
+     of every plain Newton iteration of the elliptic G1 at 4096 envs, each
+     against its plain version; 12b: the three Tiny tasks, registered
+     through MJLAB_TASKS_MODULES, at 4096 envs for TINY_STEPS env-steps
+     under random actions (launches and waits an env-step; Rough-Tiny's
+     heightfield pairs active and its levels moving), then TINY_ITERS PPO
+     iterations each through `train.main` with the ONNX read back
+     (Tracking-Tiny on a clip of `write_tiny_motion`), then Flat-Tiny's 8
+     envs on the card in float32 against the CPU in float64; 12c:
+     `Mjlab-Velocity-Flat-Unitree-G1` with cone='elliptic' at 4096 envs
+     for ELL_STEPS env-steps under the shipped flat actor, K2 never
+     launched and K1 ELL_K1 times an env-step, one substep stage by
+     stage, 3 PPO iterations through `train.main` with `--env.sim.mujoco.
+     cone elliptic`, 8 envs on the card against the CPU).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -113,8 +128,11 @@ per kernel (K3's per-env form a row of its own, its launches those of
 phase 7 and its `tracking` its phase-9a numbers; each row's `go1` holds
 its phase-2e numbers, `go1_path_launches` its launches in phase 8,
 `tracking_path_launches` those in phase 9, `rough_path_launches` those
-in phase 10 and `nan_path_launches` those in phase 11; K2's row holds its
-phase-10d numbers as `rough_go1`); the last
+in phase 10, `nan_path_launches` those in phase 11, `tiny_path_launches`
+those in phase 12b and `elliptic_path_launches` those in phase 12c; K2's
+row holds its phase-10d numbers as `rough_go1`, each row its phase-12a
+numbers at the TinyBot's shapes as `tiny`, K1's its numbers on the
+elliptic Hessians as `elliptic_hessians`); the last
 line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
 """
@@ -1405,6 +1423,23 @@ def go1_kernels(torch, card: str, busy) -> dict:
 
   import mjlab_torch.physics as phys
   from mjlab_torch.asset_zoo import go1_flat_arrays
+
+  arrays = go1_flat_arrays()
+  m = phys.put_model(arrays)
+  qpos, qvel = go1_floor_states(arrays.key_qpos[0], m.stat.nv, B, seed=5)
+  f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device='cuda')
+  d = phys.make_batched_data(m, B).replace(
+      qpos=f32(qpos), qvel=f32(qvel),
+      ctrl=f32(np.tile(arrays.key_ctrl[0], (B, 1))))
+  return shape_kernels(torch, card, busy, 'Go1', m, d, (18, 228, 12))
+
+
+def shape_kernels(torch, card: str, busy, what: str, m, d,
+                  widths: tuple) -> dict:
+  """K1-K3 at the shapes of the model `m` on the float32 batch `d` (its
+  plane-box pair active in some envs), each against its plain version with
+  the tolerances of phase 2 and timed as there; `widths` the (n, ncr, nl)
+  K2 must take. Returns {kernel: its numbers}."""
   from mjlab_torch.ops import newton as k_newton
   from mjlab_torch.ops import pd_solve as k_pd
   from mjlab_torch.ops import smooth_kernel as k_smooth
@@ -1412,23 +1447,17 @@ def go1_kernels(torch, card: str, busy) -> dict:
   from mjlab_torch.physics import smooth_fused, solver
   from mjlab_torch.physics.types import GeomType
 
-  arrays = go1_flat_arrays()
-  m = phys.put_model(arrays)
   s = m.stat
-  qpos, qvel = go1_floor_states(arrays.key_qpos[0], s.nv, B, seed=5)
-  f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device='cuda')
-  d = phys.make_batched_data(m, B).replace(
-      qpos=f32(qpos), qvel=f32(qvel),
-      ctrl=f32(np.tile(arrays.key_ctrl[0], (B, 1))))
+  nb = d.qpos.shape[0]
   out = {}
 
   # K3
-  check(smooth_fused.enabled(s), 'K3 refuses the Go1')
+  check(smooth_fused.enabled(s), f'K3 refuses the {what}')
   kern = k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
   plain = smooth_fused.plain_all(m, d)
   err = max(max_err(kern[k], getattr(plain, k)) for k in k_smooth.OUT_KEYS)
   rel = k3_rel_err(torch, kern, plain, s.nsite)
-  check(rel <= 1e-4, f'K3 disagrees with its plain version on the Go1: '
+  check(rel <= 1e-4, f'K3 disagrees with its plain version on the {what}: '
         f'{rel:.3e}')
   call = lambda: k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
   nbytes, flops = k3_work(k_smooth, s, d, kern)
@@ -1448,14 +1477,14 @@ def go1_kernels(torch, card: str, busy) -> dict:
   n, ncr, nl = s.nv, efc['c_J'].shape[1], efc['l_sign'].shape[1]
   box = s.pairs.groups[(int(GeomType.PLANE), int(GeomType.BOX))][3]
   box_envs = int(efc['c_active'][:, 4 * box:4 * box + 16].any(-1).sum())
-  print(f'Go1 K2 input: n {n}, ncr {ncr}, nl {nl}; {box_envs} of {B} envs '
-        f'with active plane-box rows, {int(efc["c_active"].sum())} active '
-        f'contact rows in all; K2 needs '
+  print(f'{what} K2 input: n {n}, ncr {ncr}, nl {nl}; {box_envs} of {nb} '
+        f'envs with active plane-box rows, {int(efc["c_active"].sum())} '
+        f'active contact rows in all; K2 needs '
         f'{k_newton.newton_smem_bytes(n, ncr, nl)} B of shared memory a '
         f'block', flush=True)
-  check((n, ncr, nl) == (18, 228, 12), 'the Go1 rows are not 18/228/12')
-  check(k_newton.fits(n, ncr, nl), 'K2 does not fit the Go1')
-  check(box_envs > 0, 'no active plane-box rows in the Go1 K2 input')
+  check((n, ncr, nl) == widths, f'the {what} rows are not {widths}')
+  check(k_newton.fits(n, ncr, nl), f'K2 does not fit the {what}')
+  check(box_envs > 0, f'no active plane-box rows in the {what} K2 input')
   args = solver.newton_args(df, efc)
   iters, polish, ldof, grad_th = solver.solver_params(s)
   kargs = dict(iterations=iters, ls_polish=polish, ldof=ldof,
@@ -1463,7 +1492,7 @@ def go1_kernels(torch, card: str, busy) -> dict:
   got = k_newton.newton_solve_cuda(*args, **kargs)
   want = solver.newton_plain(*args, iters, polish, ldof, grad_th)
   rel = max(rel_err(a, b) for a, b in zip(got, want))
-  check(rel <= 1e-3, f'K2 disagrees with its plain version on the Go1: '
+  check(rel <= 1e-3, f'K2 disagrees with its plain version on the {what}: '
         f'{rel:.3e}')
   call = lambda: k_newton.newton_solve_cuda(*args, **kargs)
   need, nc, rows_b, nbytes, flops = newton_work(torch, solver, args, iters,
@@ -1485,12 +1514,32 @@ def go1_kernels(torch, card: str, busy) -> dict:
   deriv = m.dof_damping - pipeline._actuator_vel_deriv(m, dfw)
   H = (dfw.qM + m.opt.timestep * torch.diag_embed(deriv)).contiguous()
   g = (dfw.qfrc_smooth + dfw.qfrc_constraint).contiguous()
+  out['pd_solve'] = k1_numbers(torch, busy, H, g, f'the {what}')
+  for k, v in out.items():
+    print(f'{what} {k}: max abs err {v["max_abs_err"]:.3e}, '
+          f'err/(1+max|plain|) {v["rel_err"]:.3e}; {v["ms"]:.4f} ms, '
+          f'{v["device_ms"]:.4f} ms behind a busy card, plain '
+          f'{v["plain_ms"]:.4f} ms, bound {v["bound_ms"]:.5f} ms by '
+          f'{v["bound_by"]}'
+          + (f', library {v["library_ms"]:.4f} ms'
+             if v['library_ms'] is not None else '')
+          + f'; card {card}', flush=True)
+  return out
+
+
+def k1_numbers(torch, busy, H, g, what: str) -> dict:
+  """K1 on the systems H x = g against its plain version (within 1e-4 of
+  (1 + max |plain|)), timed bare, behind a busy card, plain and as
+  torch.linalg.solve; the bound of phase 2b."""
+  from mjlab_torch.ops import pd_solve as k_pd
+  from mjlab_torch.physics import linalg
+  nb, n = g.shape
   x_k, x_p = k_pd.solve_pd_cuda(H, g), linalg.solve_pd(H, g)
   rel = rel_err(x_k, x_p)
-  check(rel <= 1e-4, f'K1 disagrees with its plain version on the Go1: '
+  check(rel <= 1e-4, f'K1 disagrees with its plain version on {what}: '
         f'{rel:.3e}')
-  bound, by = bound_ms(4 * B * (n * n + 2 * n), B * chol_solve_flops(n))
-  out['pd_solve'] = dict(
+  bound, by = bound_ms(4 * nb * (n * n + 2 * n), nb * chol_solve_flops(n))
+  return dict(
       max_abs_err=max_err(x_k, x_p), rel_err=rel,
       ms=time_ms(torch, lambda: k_pd.solve_pd_cuda(H, g), 20),
       device_ms=time_ms(torch, lambda: k_pd.solve_pd_cuda(H, g), 20,
@@ -1499,15 +1548,6 @@ def go1_kernels(torch, card: str, busy) -> dict:
       bound_ms=bound, bound_by=by,
       library_ms=time_ms(torch, lambda: torch.linalg.solve(H, g[..., None]),
                          20))
-  for k, v in out.items():
-    print(f'Go1 {k}: max abs err {v["max_abs_err"]:.3e}, err/(1+max|plain|) '
-          f'{v["rel_err"]:.3e}; {v["ms"]:.4f} ms, {v["device_ms"]:.4f} ms '
-          f'behind a busy card, plain {v["plain_ms"]:.4f} ms, bound '
-          f'{v["bound_ms"]:.5f} ms by {v["bound_by"]}'
-          + (f', library {v["library_ms"]:.4f} ms'
-             if v['library_ms'] is not None else '')
-          + f'; card {card}', flush=True)
-  return out
 
 
 def go1_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
@@ -1742,14 +1782,16 @@ def tracking_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
       steps)
 
 
-def motion_onnx_check(torch, runner, path: str, what: str) -> float:
+def motion_onnx_check(torch, runner, path: str, what: str,
+                      normalized: bool = True) -> float:
   """The motion-baked ONNX the tracking runner wrote beside the checkpoint
   `path`, read back by parse_model and evaluated by run_motion_policy on
   256 of the run's own observations: the actions within 1e-6 of (1 + max
   |a|) of the runner's inference policy on the card, the normalizer folded
-  in as the runner's running statistics, and the motion outputs at
-  time_step 0, 17, T - 1 and T + 5 the clip's rows (clipped to T - 1).
-  Returns the actions' error over (1 + max |actions|)."""
+  in as the runner's running statistics (`normalized`; else the identity),
+  and the motion outputs at time_step 0, 17, T - 1 and T + 5 the clip's
+  rows (clipped to T - 1). Returns the actions' error over (1 + max
+  |actions|)."""
   import os
 
   import numpy as np
@@ -1776,21 +1818,26 @@ def motion_onnx_check(torch, runner, path: str, what: str) -> float:
   frames = all(np.array_equal(out[k], v) for k, v in clip.items())
   init = parsed['initializers']
   norm = ts.actor_norm
-  folded = bool(
-      np.array_equal(init['obs_mean'], norm.mean.cpu().numpy())
-      and np.array_equal(init['obs_std'],
-                         np.sqrt(norm.var.cpu().numpy()) + 1e-2))
+  if normalized:
+    folded = bool(
+        np.array_equal(init['obs_mean'], norm.mean.cpu().numpy())
+        and np.array_equal(init['obs_std'],
+                           np.sqrt(norm.var.cpu().numpy()) + 1e-2))
+  else:
+    folded = bool((init['obs_mean'] == 0).all()
+                  and (init['obs_std'] == 1).all())
   print(f'{what}: {os.path.basename(onnx)} outputs {parsed["outputs"]}, '
         f'graph in numpy vs the inference policy on the card, 256 '
         f'observations: err/(1+max|a|) {err:.3e} (tolerance 1e-6); the '
         f'clip\'s rows at time_step 0, 17, {T - 1}, {T + 5}: {frames}; the '
-        f'running normalizer folded in: {folded}', flush=True)
-  check(runner.cfg.policy.actor_obs_normalization,
-        f'{what}: the tracking task trains without normalization')
+        f'{"running" if normalized else "identity"} normalizer folded in: '
+        f'{folded}', flush=True)
+  check(runner.cfg.policy.actor_obs_normalization == normalized,
+        f'{what}: the task\'s normalization is not {normalized}')
   check(err <= 1e-6, f'{what}: the ONNX graph disagrees with the policy')
   check(frames, f'{what}: the ONNX graph\'s motion outputs are not the clip')
-  check(folded, f'{what}: the ONNX graph does not fold in the running '
-        'normalizer')
+  check(folded, f'{what}: the ONNX graph does not fold in the '
+        f'{"running" if normalized else "identity"} normalizer')
   return err
 
 
@@ -2240,6 +2287,8 @@ def substep_stages(torch, m, d, card: str, what: str) -> dict:
     efc['v'] = constraint.make_efc(m, d)
     return d
 
+  solve = ('solve (plain Newton, K1)' if constraint.elliptic_dmax(m.stat)
+           else 'solve (K2)')
   stages = (
       ('smooth_all (K3)', lambda d: smooth_fused.smooth_all(m, d)),
       ('collision', lambda d: smooth.transmission(
@@ -2248,7 +2297,7 @@ def substep_stages(torch, m, d, card: str, what: str) -> dict:
           m, pipeline.fwd_velocity(m, d))),
       ('fwd_smooth (K1)', lambda d: smooth.fwd_smooth(m, d)),
       ('make_efc', run_efc),
-      ('solve (K2)', lambda d: solver.solve(m, d, efc['v'])),
+      (solve, lambda d: solver.solve(m, d, efc['v'])),
       ('sensors', lambda d: sensor.sensors(
           m, d.replace(qacc_warmstart=d.qacc))),
       ('implicitfast (K1)', lambda d: pipeline._implicitfast(m, d)),
@@ -2291,11 +2340,14 @@ def rough_path(torch, card: str, busy) -> 'tuple[dict, dict]':
     shutil.rmtree(root, ignore_errors=True)
 
 
-def rough_training(torch, runner, run: str, what: str, card: str) -> None:
-  """Phase 10's checks of a rough task's training run `run` (its runner
-  and log directory): finite losses, no physics_nan, the terrain-level
-  metric logged, the parameters moved, the ONNX beside the last
-  checkpoint read back against the inference policy."""
+def training_checks(torch, runner, run: str, what: str, card: str,
+                    iters: int = TRAIN_ITERS, terrain: bool = True,
+                    onnx=onnx_check) -> float:
+  """The checks of a training run `run` (its runner and log directory):
+  finite losses, no physics_nan, with `terrain` the terrain-level metric
+  logged, the parameters moved, the ONNX beside the last checkpoint read
+  back against the inference policy by `onnx`. Returns the run's training
+  env-steps/s."""
   import math
   import os
   cfg, env = runner.cfg, runner.env
@@ -2306,23 +2358,29 @@ def rough_training(torch, runner, run: str, what: str, card: str) -> None:
     print(f'{what} iteration {l_["iteration"]}: collection '
           f'{l_["collection_ms"]:.1f} ms, learning {l_["learning_ms"]:.1f} ms,'
           f' resets {l_["resets"]:.0f}, physics_nan '
-          f'{l_["Episode_Termination/physics_nan"]:.0f}, fell_over '
-          f'{l_["Episode_Termination/fell_over"]:.0f}, terrain level '
-          f'{l_.get("Curriculum/terrain_levels", float("nan")):.4f}, loss '
-          f'{l_["loss"]:.4f} kl {l_["kl"]:.5f}, mean reward '
+          f'{l_["Episode_Termination/physics_nan"]:.0f}, '
+          + ''.join(f'{k.split("/")[-1]} {l_[k]:.0f}, ' for k in l_
+                    if k.startswith('Episode_Termination/')
+                    and not k.endswith('physics_nan'))
+          + (f'terrain level '
+             f'{l_.get("Curriculum/terrain_levels", float("nan")):.4f}, '
+             if terrain else '')
+          + f'loss {l_["loss"]:.4f} kl {l_["kl"]:.5f}, mean reward '
           f'{l_["mean_reward"]:.4f}; card {card}', flush=True)
     check(all(math.isfinite(l_[k]) for k in ('loss', 'pg', 'v', 'ent', 'kl',
                                               'std')),
           f'{what}: non-finite loss logs at iteration {l_["iteration"]}')
     check(l_['Episode_Termination/physics_nan'] == 0,
           f'{what}: physics_nan fired')
-    check(math.isfinite(l_.get('Curriculum/terrain_levels', math.nan)),
+    check(not terrain or math.isfinite(
+        l_.get('Curriculum/terrain_levels', math.nan)),
           f'{what}: Curriculum/terrain_levels was not logged')
   last = lines[-1]
-  print(f'{what}: {TRAIN_ITERS * T * env.num_envs / last["wall_s"]:.1f} '
-        f'training env-steps/s ({TRAIN_ITERS} x {T} x {env.num_envs} over '
-        f'{last["wall_s"]:.3f} s of learn); card {card}', flush=True)
-  ckpt = os.path.join(run, f'model_{TRAIN_ITERS}.pt')
+  rate = iters * T * env.num_envs / last['wall_s']
+  print(f'{what}: {rate:.1f} training env-steps/s ({iters} x {T} x '
+        f'{env.num_envs} over {last["wall_s"]:.3f} s of learn); card {card}',
+        flush=True)
+  ckpt = os.path.join(run, f'model_{iters}.pt')
   check(os.path.exists(ckpt), f'{ckpt} was not written')
   net0 = runner.alg.init_net(torch.Generator(device=env.device).manual_seed(
       cfg.seed + 1))
@@ -2330,7 +2388,8 @@ def rough_training(torch, runner, run: str, what: str, card: str) -> None:
     check(bool(torch.isfinite(p).all()), f'parameter {k} is not finite')
     check(not torch.equal(p, net0.get_parameter(k)),
           f'parameter {k} did not move')
-  onnx_check(torch, runner, ckpt, what)
+  onnx(torch, runner, ckpt, what)
+  return rate
 
 
 def rough_play(torch, task: str, ckpt: str, root: str, card: str,
@@ -2561,7 +2620,7 @@ def _rough_path(torch, card: str, busy, root: str):
   check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
         f'a rough rollout env-step launched {shapes}')
   run = os.path.join(root, cfg.experiment_name, 'a')
-  rough_training(torch, runner, run, 'G1 rough train', card)
+  training_checks(torch, runner, run, 'G1 rough train', card)
   del runner, env
   rough_play(torch, ROUGH_TASK + '-Play',
              os.path.join(run, f'model_{TRAIN_ITERS}.pt'), root, card,
@@ -2689,7 +2748,7 @@ def _rough_path(torch, card: str, busy, root: str):
   check(set(shapes) <= {(4, 4, 8, 0), (5, 5, 9, 0)},
         f'a Go1 rough demo env-step launched {shapes}')
   run = os.path.join(root, runner.cfg.experiment_name, 'demo')
-  rough_training(torch, runner, run, 'Go1 rough demo', card)
+  training_checks(torch, runner, run, 'Go1 rough demo', card)
   ckpt = out['checkpoint']
   del runner, out
   rough_play(torch, ROUGH_GO1_TASK + '-Play', ckpt, root, card, kernels,
@@ -2986,6 +3045,470 @@ def _nan_path(torch, card: str, root: str) -> dict:
         + f'; card {card}', flush=True)
   del runs
   return path
+
+
+TINY_TASKS = ('Mjlab-Velocity-Flat-Tiny', 'Mjlab-Velocity-Rough-Tiny',
+              'Mjlab-Tracking-Flat-Tiny')
+TINY_MODULES = ('mjlab_torch.tasks.velocity.config.tiny,'
+                'mjlab_torch.tasks.tracking.config.tiny')
+TINY_STEPS = 100  # env-steps of each Tiny task in phase 12b
+TINY_ITERS = 2  # PPO iterations of each Tiny task in phase 12b
+# env-steps of phase 12c: 60, not the 150 of phase 5, so that phase 12 stays
+# near 150 s (an elliptic env-step takes about 590 ms on an H100)
+ELL_STEPS = 60
+# phase 12c's K1 launches an env-step, without and with a reset: each of
+# the 4 substeps runs K1 in fwd_smooth, in each of the plain Newton's 10
+# iterations and in implicitfast; a reset's forward adds fwd_smooth and a
+# Newton solve
+ELL_K1 = (4 * (1 + 10 + 1), 4 * (1 + 10 + 1) + 1 + 10)
+
+
+def tiny_floor_states(key_qpos, nv: int, batch: int, seed: int):
+  """`batch` TinyBot states on the plane as numpy (qpos, qvel) from numpy's
+  default_rng(seed), with joint noise and a random yaw, in turns: upside
+  down with the base box's top face flat 2 mm deep in the plane (its
+  colliding feet in the air, its arm's visual capsules through the floor),
+  and standing with the feet 2 mm deep. Velocities std 0.3."""
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  qpos = np.tile(np.asarray(key_qpos, np.float64), (batch, 1))
+  qpos[:, 7:] += 0.3 * rng.normal(size=(batch, qpos.shape[1] - 7))
+  half_yaw = rng.uniform(-np.pi, np.pi, batch) / 2
+  c, s, z = np.cos(half_yaw), np.sin(half_yaw), np.zeros(batch)
+  up = np.arange(batch) % 3 == 0
+  # the yaw, then half a turn about x for the envs upside down
+  qpos[:, 3:7] = np.where(up[:, None], np.stack([z, c, s, z], -1),
+                          np.stack([c, z, z, s], -1))
+  qpos[:, 2] = np.where(up, 0.028, 0.068)
+  return qpos, 0.3 * rng.normal(size=(batch, nv))
+
+
+def tiny_kernels(torch, card: str, busy) -> dict:
+  """Phase 12a: K1-K3 at the TinyBot's shapes (n = 8, its free base and
+  2-link arm, 8 uncompacted contact slots, 32 pyramid rows, 2 limits) on
+  4096 TinyBot floor states, each against its plain version and timed as
+  in phase 2. Returns {kernel: its numbers}."""
+  import numpy as np
+
+  import mjlab_torch.physics as phys
+  from mjlab_torch.asset_zoo import tiny_flat_arrays
+
+  arrays = tiny_flat_arrays()
+  m = phys.put_model(arrays)
+  qpos, qvel = tiny_floor_states(arrays.key_qpos[0], m.stat.nv, B, seed=12)
+  f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device='cuda')
+  d = phys.make_batched_data(m, B).replace(
+      qpos=f32(qpos), qvel=f32(qvel),
+      ctrl=f32(np.tile(arrays.key_ctrl[0], (B, 1))))
+  return shape_kernels(torch, card, busy, 'TinyBot', m, d, (8, 32, 2))
+
+
+def elliptic_cfg(cfg):
+  """A G1 flat velocity cfg with the elliptic friction cone."""
+  cfg.sim.mujoco.cone = 'elliptic'
+  return cfg
+
+
+def elliptic_hessians(torch, card: str, busy) -> dict:
+  """Phase 12a: K1 on the Hessians of every Newton iteration of the
+  elliptic G1 (M, the friction and limit diagonal, the frictionless rows
+  and the elliptic cone's DM x DM blocks J^T B J of 32 compacted frictional
+  slots) at 4096 G1 flat envs dropped 3 cm onto the floor, each against
+  its plain version; timed on the last. Returns K1's numbers there."""
+  import mjlab_torch.physics as phys
+  from mjlab_torch.asset_zoo import g1_flat_arrays
+  from mjlab_torch.ops import pd_solve as k_pd
+  from mjlab_torch.physics import constraint, linalg, pipeline, smooth
+  from mjlab_torch.physics import solver
+  from mjlab_torch.tasks import registry
+
+  mjcfg = elliptic_cfg(registry.load_cfg(ENV_TASK)).sim.mujoco
+  arrays = mjcfg.apply(g1_flat_arrays())
+  m = phys.put_model(arrays)
+  s = m.stat
+  check(s.cone == 1 and constraint.elliptic_dmax(s) == 3,
+        'the elliptic G1 model has no elliptic rows of condim 3')
+  d = g1_states(torch, phys, arrays, m, B, 0.03,
+                torch.Generator().manual_seed(12))
+  df = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
+  df = smooth.fwd_smooth(m, smooth.actuation(m, df))
+  efc = constraint.make_efc(m, df)
+  args, xargs = solver.newton_args(df, efc), solver.elliptic_args(efc)
+  iters, polish, ldof, grad_th = solver.solver_params(s)
+  seen = []
+  kernel = k_pd.solve_pd
+
+  def recording(H, g):
+    seen.append((H.contiguous().clone(), g.contiguous().clone()))
+    return kernel(H, g)
+
+  k_pd.solve_pd = recording
+  try:
+    x, *_ = solver.newton_plain(*args, iters, polish, ldof, grad_th, xargs)
+  finally:
+    k_pd.solve_pd = kernel
+  xJ, x_aref, xD, x_mu, x_fr, x_act = xargs
+  jx = torch.einsum('bcdv,bv->bcd', xJ, x) - x_aref
+  mid, bot, *_ = solver._elliptic_zones(jx, xD, x_mu, x_fr, x_act)
+  zones = dict(active=int(x_act.sum()), middle=int(mid.sum()),
+               bottom=int(bot.sum()))
+  # per iteration: K1 against its plain version, and each of them against
+  # the plain version in float64 on the same float32 inputs, whose distance
+  # is the float32 floor of these ill-conditioned systems
+  errs = []
+  for H, g in seen:
+    x_k, x_p = k_pd.solve_pd_cuda(H, g), linalg.solve_pd(H, g)
+    x_64 = linalg.solve_pd(H.double(), g.double())
+    errs.append((rel_err(x_k, x_p), rel_err(x_k, x_64), rel_err(x_p, x_64)))
+  ev = torch.linalg.eigvalsh(seen[0][0].double())
+  cond = (ev[:, -1] / ev[:, 0]).median()
+  print(f'elliptic G1 K1 input: {len(seen)} Newton iterations of {B} envs, '
+        f'n {s.nv}, the x block {tuple(xJ.shape[1:3])} (slots, rows) and '
+        f'{efc["c_J"].shape[1]} frictionless rows; elliptic slots at the '
+        f'solution {zones}; median condition number of the first Hessian '
+        f'{float(cond):.3e}. By iteration, err/(1+max|ref|) of K1 against '
+        f'its plain version, of K1 against the float64 solve, of the plain '
+        f'version against the float64 solve: '
+        + ', '.join(f'({a:.2e}, {b:.2e}, {c:.2e})' for a, b, c in errs)
+        + ' (tolerance: 1e-4 beyond twice the plain version\'s float32 '
+        'floor, and never above 1e-3)', flush=True)
+  check(len(seen) == iters, f'the plain Newton called K1 {len(seen)} times, '
+        f'not {iters}')
+  check(zones['middle'] > 0, 'no elliptic contact in the cone\'s middle '
+        'zone: the Hessians hold no non-diagonal block')
+  # the floor follows the plain version; the fixed ceiling keeps a worse
+  # plain solve from widening K1's gate without bound
+  check(all(a <= min(1e-4 + 2 * c, 1e-3) and b <= min(1e-4 + 2 * c, 1e-3)
+            for a, b, c in errs),
+        'K1 disagrees with its plain version on the elliptic Hessians '
+        'beyond their float32 floor or the 1e-3 ceiling')
+  out = k1_numbers(torch, busy, *seen[-1], 'the elliptic G1 Hessians')
+  out['rel_err_by_iteration'] = errs
+  out['median_condition_number'] = float(cond)
+  out['zones'] = zones
+  print(f'elliptic G1 pd_solve: max abs err {out["max_abs_err"]:.3e}; '
+        f'{out["ms"]:.4f} ms, {out["device_ms"]:.4f} ms behind a busy card, '
+        f'plain {out["plain_ms"]:.4f} ms, bound {out["bound_ms"]:.5f} ms by '
+        f'{out["bound_by"]}, library {out["library_ms"]:.4f} ms; card {card}',
+        flush=True)
+  return out
+
+
+def tiny_path(torch, card: str) -> dict:
+  """Phase 12b: the three Tiny tasks at 4096 envs. Returns the kernels'
+  launches over their builds, resets, env-steps and training."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_tiny_')
+  try:
+    return _tiny_path(torch, card, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _tiny_path(torch, card: str, root: str) -> dict:
+  import collections
+  import os
+
+  from mjlab_torch.ops import LAUNCHES
+  from mjlab_torch.physics import smooth_fused
+  from mjlab_torch.scripts import train
+  from mjlab_torch.tasks import registry
+
+  kernels = ('smooth', 'newton', 'pd_solve', 'smooth_env')
+  path = collections.Counter()
+  # the Tiny tasks register through the registry's module hook
+  os.environ['MJLAB_TASKS_MODULES'] = TINY_MODULES
+  check(set(TINY_TASKS) <= set(registry.registered_tasks()),
+        'MJLAB_TASKS_MODULES did not register the Tiny tasks')
+  from mjlab_torch.tasks.tracking.config.tiny import write_tiny_motion
+  clip = write_tiny_motion(os.path.join(root, 'tiny_wave.npz'))
+  rates = {}
+  for task in TINY_TASKS:
+    tracking = task.startswith('Mjlab-Tracking')
+    rough = 'Rough' in task
+    allowed = ({(0, 4, 8, 4), (0, 5, 9, 5)} if tracking
+               else {(4, 4, 8, 0), (5, 5, 9, 0)})
+    cfg = registry.load_cfg(task)
+    if tracking:
+      cfg.commands.motion.motion_file = clip
+    t0 = time.perf_counter()
+    with counted(path):
+      env = registry.make(task, cfg=cfg, **{'scene.num_envs': B})
+      obs, _ = env.reset()
+    torch.cuda.synchronize()
+    s = env.model.stat
+    hf = hfield_groups(s)
+    print(f'{task}: built and reset {B} envs in '
+          f'{time.perf_counter() - t0:.2f} s on {env.device}; nq {s.nq} nv '
+          f'{s.nv} nu {s.nu}, {s.pairs.ncon_max} contact slots, caps '
+          f'{s.ncon_cap}/{s.ncon_cap1}, hfield groups {hf}, per-env fields '
+          f'{env.per_env_fields}; obs {env.observation_dims}, actions '
+          f'{env.action_dim}', flush=True)
+    check(env.device.type == 'cuda', f'{task}: the env is not on the card')
+    check(smooth_fused.enabled(s), f'{task}: K3 refuses the TinyBot tree')
+    check(rough == bool(hf), f'{task}: heightfield pairs {hf}')
+    hf_mask = torch.zeros(s.pairs.ncon_max, dtype=torch.bool,
+                          device='cuda')
+    for first, n in hf.values():
+      hf_mask[first:first + n] = True
+    dev = env.device
+    agen = torch.Generator(device='cuda').manual_seed(12)
+    acts = torch.randn(TINY_STEPS, B, env.action_dim, generator=agen,
+                       device='cuda')
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    nan_count = torch.zeros((), dtype=torch.long, device=dev)
+    resets = torch.zeros((), device=dev)
+    hf_hits = torch.zeros((), dtype=torch.long, device=dev)
+    moved = torch.zeros((), dtype=torch.long, device=dev)
+    lvl_lo = torch.full((), 10 ** 6, dtype=torch.long, device=dev)
+    lvl_hi = torch.zeros((), dtype=torch.long, device=dev)
+    levels_of = lambda: env.state.curriculum['terrain_levels'][
+        'levels'].long()
+    tipped = int(levels_of().argmax()) if rough else B - 1
+    per_step = []
+    with counted(path):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      for i in range(TINY_STEPS):
+        if i == 10:  # a reset on the path (on rough, a demotion)
+          tip_over(torch, env, tipped)
+        before = [LAUNCHES[k] for k in kernels]
+        levels0 = levels_of() if rough else None
+        obs, rew, term, trunc, extras = env.step(acts[i])
+        per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels,
+                                                               before)))
+        ok &= torch.isfinite(rew).all() & torch.isfinite(obs['policy']).all()
+        nan_count += extras['Episode_Termination/physics_nan']
+        resets += extras['reset_count']
+        if rough:
+          c = env.state.data.contact
+          hf_hits += ((c.dist < c.includemargin) & hf_mask).any(-1).sum()
+          levels = levels_of()
+          moved += ((levels != levels0) & (term | trunc)).sum()
+          lvl_lo = torch.minimum(lvl_lo, levels.min())
+          lvl_hi = torch.maximum(lvl_hi, levels.max())
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+    shapes = sorted(set(per_step))
+    rates[task] = TINY_STEPS * B / wall
+    max_level = env.scene.terrain.max_level if rough else 0
+    print(f'{task}: {TINY_STEPS} env-steps x {B} envs under random actions '
+          f'in {wall:.3f} s = {rates[task]:.1f} env-steps/s '
+          f'({wall / TINY_STEPS * 1e3:.2f} ms an env-step); resets '
+          f'{int(resets)}, physics_nan {int(nan_count)}; launches per '
+          f'env-step (K3, K2, K1, K3 per env) '
+          f'{ {s_: per_step.count(s_) for s_ in shapes} }'
+          + (f'; env-substep ends with an active hfield contact '
+             f'{int(hf_hits)}, resets that moved a level {int(moved)}, '
+             f'levels seen {int(lvl_lo)}..{int(lvl_hi)} of '
+             f'0..{max_level - 1}' if rough else '')
+          + f'; card {card}', flush=True)
+    check(bool(ok), f'{task}: non-finite observation or reward')
+    check(int(nan_count) == 0, f'{task}: physics_nan fired '
+          f'{int(nan_count)} times')
+    check(set(shapes) <= allowed and len(shapes) == 2,
+          f'{task}: an env-step launched {shapes}, not {sorted(allowed)}')
+    check(not rough or (int(hf_hits) > 0 and int(moved) > 0
+                        and int(lvl_lo) >= 0 and int(lvl_hi) < max_level),
+          f'{task}: no active heightfield contact, or the curriculum moved '
+          'no level on a reset, or a level left its range')
+    act = acts[0]
+
+    def three_steps():
+      for _ in range(3):
+        env.step(act)
+
+    with counted(path):
+      _, syncs = count_syncs(torch, three_steps)
+    check(len(syncs) == 3, f'{task}: env.step synchronizes other than once '
+          'a step: ' + '; '.join(sorted(set(syncs))))
+    del env, obs, acts
+
+    argv = [task, '--log-root', root, '--env.scene.num_envs', str(B),
+            '--agent.max_iterations', str(TINY_ITERS), '--run-name', task]
+    if tracking:
+      argv += ['--env.commands.motion.motion_file', clip]
+    with counted(path), launches_per_step(kernels) as per_step:
+      t0 = time.perf_counter()
+      runner = train.main(argv)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+    shapes = sorted(set(per_step))
+    print(f'{task} train: {TINY_ITERS} iterations of '
+          f'{runner.cfg.num_steps_per_env} env-steps x {runner.env.num_envs} '
+          f'envs through train.main in {wall:.2f} s (env build included), '
+          f'{type(runner).__name__}; launches per rollout env-step '
+          f'{ {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
+    check(per_step.envs == {(B, 'cuda')} and set(shapes) <= allowed,
+          f'{task}: the training env-steps launched {shapes} on '
+          f'{per_step.envs}')
+    onnx = ((lambda *a: motion_onnx_check(*a, normalized=False))
+            if tracking else onnx_check)
+    rates[task + ' train'] = training_checks(
+        torch, runner, os.path.join(root, runner.cfg.experiment_name, task),
+        f'{task} train', card, iters=TINY_ITERS, terrain=False, onnx=onnx)
+    del runner
+
+  e_obs, e_rew, same, flips, kept = task_card_vs_cpu(torch, TINY_TASKS[0])
+  print(f'{TINY_TASKS[0]}, 8 envs, 5 env-steps, CUDA f32 vs CPU f64: obs '
+        f'err/(1+max|cpu|) {e_obs:.3e}, reward {e_rew:.3e} (tolerance 1e-3),'
+        f' done flags equal {same}; contact flips {flips}, {kept} envs '
+        f'compared to the end', flush=True)
+  check(e_obs <= 1e-3 and e_rew <= 1e-3 and same,
+        f'{TINY_TASKS[0]} on the card disagrees with the CPU')
+  check(all(g <= FLIP_GAP for _, g in flips.values()) and kept >= 6,
+        'a contact flipped between the card and the CPU away from its '
+        'threshold, or in more than two envs')
+  print(f'Tiny path rates (env-steps/s; card {card}): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in rates.items()), flush=True)
+  return dict(path)
+
+
+def elliptic_path(torch, card: str) -> dict:
+  """Phase 12c: G1 flat velocity with cone='elliptic' at 4096 envs.
+  Returns the kernels' launches over its build, reset, env-steps and
+  training."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_elliptic_')
+  try:
+    return _elliptic_path(torch, card, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _elliptic_path(torch, card: str, root: str) -> dict:
+  import collections
+  import os
+
+  from mjlab_torch.asset_zoo.pretrained import G1_FLAT_POLICY
+  from mjlab_torch.ops import LAUNCHES
+  from mjlab_torch.physics import constraint
+  from mjlab_torch.rl.networks import load_actor
+  from mjlab_torch.scripts import train
+  from mjlab_torch.tasks import registry
+  from mjlab_torch.tasks.velocity import mdp
+
+  kernels = ('smooth', 'newton', 'pd_solve', 'smooth_env')
+  allowed = {(4, 0, ELL_K1[0], 0), (5, 0, ELL_K1[1], 0)}
+  path = collections.Counter()
+  t0 = time.perf_counter()
+  with counted(path):
+    env = registry.make(ENV_TASK, cfg=elliptic_cfg(registry.load_cfg(
+        ENV_TASK)), **{'scene.num_envs': B})
+    obs, _ = env.reset()
+  torch.cuda.synchronize()
+  s = env.model.stat
+  lay = constraint.efc_layout(s)
+  print(f'G1 elliptic: built and reset {B} envs in '
+        f'{time.perf_counter() - t0:.2f} s on {env.device}; cone {s.cone}, '
+        f'{s.pairs.ncon_max} slots, caps {s.ncon_cap}/{s.ncon_cap1}, elliptic'
+        f' rows a slot {constraint.elliptic_dmax(s)}, nefc {lay.nefc}, '
+        f'per-env fields {env.per_env_fields}', flush=True)
+  check(env.device.type == 'cuda' and s.cone == 1
+        and constraint.elliptic_dmax(s) == 3,
+        'the elliptic G1 env is not on the card with elliptic rows')
+  actor = load_actor(G1_FLAT_POLICY)
+  dev = env.device
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  nan_count = torch.zeros((), dtype=torch.long, device=dev)
+  fell = torch.zeros((), device=dev)
+  resets = torch.zeros((), device=dev)
+  track, per_step = [], []
+  track_params = env.reward_manager.params['track_lin_vel_exp']
+  with counted(path):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ELL_STEPS):
+      if i == 10:  # a reset on the path
+        tip_over(torch, env, B - 1)
+      before = [LAUNCHES[k] for k in kernels]
+      obs, rew, term, trunc, extras = env.step(actor(obs))
+      per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels,
+                                                             before)))
+      ok &= torch.isfinite(rew).all() & torch.isfinite(obs['policy']).all() \
+          & torch.isfinite(obs['critic']).all()
+      nan_count += extras['Episode_Termination/physics_nan']
+      fell += extras['Episode_Termination/fell_over']
+      resets += extras['reset_count']
+      if i >= ELL_STEPS - 50:
+        raw = mdp.track_lin_vel_exp(env._make_ctx(env.state), **track_params)
+        done = term | trunc
+        track.append(torch.where(done, torch.zeros_like(raw), raw).sum()
+                     / (~done).sum())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  shapes = sorted(set(per_step))
+  track_mean = float(torch.stack(track).mean())
+  print(f'G1 elliptic: {ELL_STEPS} env-steps x {B} envs under the shipped '
+        f'flat actor in {wall:.3f} s = {ELL_STEPS * B / wall:.1f} '
+        f'env-steps/s ({wall / ELL_STEPS * 1e3:.2f} ms an env-step); resets '
+        f'{int(resets)}, fell_over {int(fell)} ({float(fell) / B:.4f} of '
+        f'envs), physics_nan {int(nan_count)}, mean raw track_lin_vel_exp '
+        f'over the last 50 steps {track_mean:.4f}; launches per env-step '
+        f'(K3, K2, K1, K3 per env) { {s_: per_step.count(s_) for s_ in shapes} }'
+        f' (predicted {sorted(allowed)}); card {card}', flush=True)
+  check(bool(ok), 'non-finite observation or reward on the elliptic path')
+  check(int(nan_count) == 0, f'physics_nan fired {int(nan_count)} times on '
+        'the elliptic path')
+  check(set(shapes) == allowed, f'an elliptic env-step launched {shapes}, '
+        f'not {sorted(allowed)}')
+  act = actor(obs)
+
+  def three_steps():
+    for _ in range(3):
+      env.step(act)
+
+  with counted(path):
+    _, syncs = count_syncs(torch, three_steps)
+  print(f'G1 elliptic: {len(syncs)} synchronizing calls in 3 env-steps',
+        flush=True)
+  check(len(syncs) == 3, 'the elliptic env.step synchronizes other than '
+        'once a step: ' + '; '.join(sorted(set(syncs))))
+  substep_stages(torch, env.state.model, env.state.data, card, 'G1 elliptic')
+  del env, obs, act
+
+  argv = [ENV_TASK, '--env.sim.mujoco.cone', 'elliptic', '--log-root', root,
+          '--env.scene.num_envs', str(B), '--agent.max_iterations',
+          str(TRAIN_ITERS), '--run-name', 'elliptic']
+  with counted(path), launches_per_step(kernels) as per_step:
+    t0 = time.perf_counter()
+    runner = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  shapes = sorted(set(per_step))
+  print(f'G1 elliptic train: {TRAIN_ITERS} iterations of '
+        f'{runner.cfg.num_steps_per_env} env-steps x {runner.env.num_envs} '
+        f'envs through train.main in {wall:.2f} s (env build included), '
+        f'cone {runner.env.model.stat.cone}; widths actor '
+        f'{runner.cfg.policy.actor_hidden_dims} critic '
+        f'{runner.cfg.policy.critic_hidden_dims}; launches per rollout '
+        f'env-step { {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
+  check(runner.env.model.stat.cone == 1 and per_step.envs == {(B, 'cuda')}
+        and set(shapes) <= allowed,
+        f'the elliptic training launched {shapes} on {per_step.envs}')
+  training_checks(torch, runner, os.path.join(
+      root, runner.cfg.experiment_name, 'elliptic'), 'G1 elliptic train',
+      card, iters=TRAIN_ITERS, terrain=False)
+  del runner
+
+  e_obs, e_rew, same, flips, kept = card_vs_cpu_flips(
+      torch, ENV_TASK, lambda: elliptic_cfg(degenerate_ranges(
+          registry.load_cfg(ENV_TASK), 8)), 5)
+  print(f'G1 elliptic, 8 envs, 5 env-steps, CUDA f32 vs CPU f64: obs '
+        f'err/(1+max|cpu|) {e_obs:.3e}, reward {e_rew:.3e} (tolerance 1e-3),'
+        f' done flags equal {same}; contact flips (env: env-step, |dist - '
+        f'margin| on the CPU in m) '
+        f'{ {e: (i, f"{g:.3e}") for e, (i, g) in flips.items()} } (allowed '
+        f'within {FLIP_GAP:g} m of the threshold), {kept} envs compared to '
+        f'the end', flush=True)
+  check(e_obs <= 1e-3 and e_rew <= 1e-3 and same,
+        'the elliptic env on the card disagrees with the CPU')
+  check(all(g <= FLIP_GAP for _, g in flips.values()) and kept >= 6,
+        'a contact flipped between the card and the CPU away from its '
+        'threshold, or in more than two envs')
+  return dict(path)
 
 
 def main() -> None:
@@ -3473,6 +3996,29 @@ def main() -> None:
           f'{r["name"]} was launched {r["nan_path_launches"]} times on the '
           'nan path')
 
+  # ---- phase 12: the Tiny tasks and the elliptic cone -------------------------
+  # 12a: K1-K3 at the TinyBot's shapes; K1 on the elliptic G1's Hessians
+  tiny = tiny_kernels(torch, card, busy)
+  ell_k1 = elliptic_hessians(torch, card, busy)
+  # 12b: the three Tiny tasks at 4096 envs, env-steps and training
+  tiny_launches = tiny_path(torch, card)
+  # 12c: G1 flat with cone='elliptic' at 4096 envs, env-steps and training
+  ell_launches = elliptic_path(torch, card)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['tiny_path_launches'] = int(tiny_launches.get(kern, 0))
+    r['elliptic_path_launches'] = int(ell_launches.get(kern, 0))
+    if kern in tiny:
+      r['tiny'] = tiny[kern]
+    if kern == 'pd_solve':
+      r['elliptic_hessians'] = ell_k1
+    check(r['tiny_path_launches'] > 0,
+          f'{r["name"]} was not launched on the Tiny path')
+    check((r['elliptic_path_launches'] > 0) == (kern in ('smooth',
+                                                         'pd_solve')),
+          f'{r["name"]} was launched {r["elliptic_path_launches"]} times on '
+          'the elliptic path')
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -3484,7 +4030,9 @@ def main() -> None:
           f'{r["go1_path_launches"]}, the tracking path '
           f'{r["tracking_path_launches"]}, the rough path '
           f'{r["rough_path_launches"]}, the nan path '
-          f'{r["nan_path_launches"]}; card {card}', flush=True)
+          f'{r["nan_path_launches"]}, the Tiny path '
+          f'{r["tiny_path_launches"]}, the elliptic path '
+          f'{r["elliptic_path_launches"]}; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""The Unitree G1 and Go1 rough-terrain velocity scenes.
+"""The Unitree G1, Go1 and TinyBot rough-terrain velocity scenes.
 
-Builds the physics models the tasks `Mjlab-Velocity-Rough-Unitree-G1` and
-`-Go1` build (mjlab_tpu/tasks/velocity/config/{g1,go1}/rough_env_cfg.py):
-each robot's flat scene (g1_flat_scene.py, go1_flat_scene.py) with the
+Builds the physics models the tasks `Mjlab-Velocity-Rough-Unitree-G1`,
+`-Go1` and `Mjlab-Velocity-Rough-Tiny` build (mjlab_tpu/tasks/velocity/
+config/{g1,go1}/rough_env_cfg.py, .../config/tiny.py): each robot's flat
+scene (g1_flat_scene.py, go1_flat_scene.py, tiny_scene.py) with the
 terrain generator's heightfield geom, named `terrain`, in place of the
 plane. The foot ground-contact sensors filter on that name, so they see the
 heightfield.
@@ -73,3 +74,10 @@ def go1_rough_model(generator: TerrainGenerator):
   from mjlab_torch.asset_zoo.g1_flat_scene import flat_scene_spec
   from mjlab_torch.asset_zoo.go1_flat_scene import robot_spec
   return flat_scene_spec(robot_spec(), generator).compile()
+
+
+def tiny_rough_arrays(generator: TerrainGenerator) -> ModelArrays:
+  """The compiled TinyBot rough scene on the generator's terrain, from the
+  committed TinyBot flat snapshot."""
+  from mjlab_torch.asset_zoo import tiny_flat_arrays
+  return rough_scene_arrays(tiny_flat_arrays(), generator)

@@ -115,7 +115,9 @@ class ManagerBasedRlEnv:
     self.scene = Scene(cfg.scene, mj_model=mj_model, device=device,
                        dtype=dtype)
     self.device = self.scene.device
-    cfg.sim.mujoco.check_model(self.scene.mj_model)
+    # the solver and integrator options of the cfg, written into the
+    # compiled model as the reference writes them into the spec
+    self.scene.mj_model = cfg.sim.mujoco.apply(self.scene.mj_model)
     base_model = self.scene.initialize(ncon_cap=cfg.sim.nconmax)
     self.physics_dt = cfg.sim.mujoco.timestep
     self.step_dt = cfg.decimation * self.physics_dt

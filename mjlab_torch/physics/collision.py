@@ -113,12 +113,46 @@ def _capsule_capsule(p1, m1, s1, p2, m2, s2):
   return dist[..., None], pos[..., None, :], n[..., None, :]
 
 
+def _sphere_box_raw(center, r, pb, mb, sb):
+  """Sphere (center, r) against a box (pb, rotation mb, half-sizes sb):
+  outside, the closest surface point; inside, out through the nearest
+  face. The normal points from the sphere into the box."""
+  local = torch.einsum('...ji,...j->...i', mb, center - pb)
+  half = sb[..., :3].expand(local.shape)
+  clamped = torch.minimum(torch.maximum(local, -half), half)
+  inside = (local.abs() < half).all(-1)
+  delta_out = local - clamped
+  d_out = torch.linalg.vector_norm(delta_out, dim=-1)
+  n_out = delta_out / d_out.clamp_min(_MJMINVAL)[..., None]
+  face_d = half - local.abs()
+  ax = torch.argmin(face_d, dim=-1, keepdim=True)
+  sgn = torch.sign(torch.gather(local, -1, ax)[..., 0])
+  sgn = torch.where(sgn == 0, torch.ones_like(sgn), sgn)
+  hot = torch.nn.functional.one_hot(ax[..., 0], 3).to(local.dtype)
+  n_in = hot * sgn[..., None]
+  d_in = -torch.gather(face_d, -1, ax)[..., 0]
+  surf_in = torch.where(hot > 0.5, half * sgn[..., None], local)
+  dist_l = torch.where(inside, d_in - r, d_out - r)
+  n_l = torch.where(inside[..., None], n_in, n_out)
+  surf_l = torch.where(inside[..., None], surf_in, clamped)
+  n_w = -torch.einsum('...ij,...j->...i', mb, n_l)
+  surf_w = pb + torch.einsum('...ij,...j->...i', mb, surf_l)
+  pos = surf_w + n_w * (0.5 * dist_l)[..., None]
+  return dist_l, pos, n_w
+
+
+def _sphere_box(p1, m1, s1, p2, m2, s2):
+  dist, pos, n = _sphere_box_raw(p1, s1[..., 0], p2, m2, s2)
+  return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): _plane_sphere,
     (GeomType.PLANE, GeomType.CAPSULE): _plane_capsule,
     (GeomType.PLANE, GeomType.BOX): _plane_box,
     (GeomType.SPHERE, GeomType.SPHERE): _sphere_sphere,
     (GeomType.SPHERE, GeomType.CAPSULE): _sphere_capsule,
+    (GeomType.SPHERE, GeomType.BOX): _sphere_box,
     (GeomType.CAPSULE, GeomType.CAPSULE): _capsule_capsule,
 }
 

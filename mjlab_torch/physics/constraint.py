@@ -1,15 +1,21 @@
 """Constraint row assembly (dof friction, joint limits, contacts), batched.
 
-Counterpart of mjlab_tpu/physics/constraint.py for the pyramidal cone
-without equality rows. The row layout is static: every dof has a
-friction-loss row (J = I, masked by frictionloss > 0), every limited
-hinge/slide joint a limit row (one-hot J), and the contact block holds
-either the pyramidal rows of every candidate contact slot or, with
-compaction (large pair tables), the rows of the deepest candidates chosen
-per env from two static slot pools (frictional and frictionless). Inactive
-rows carry zero D, so the solver's shapes never change.
+Counterpart of mjlab_tpu/physics/constraint.py without equality rows. The
+row layout is static: every dof has a friction-loss row (J = I, masked by
+frictionloss > 0), every limited hinge/slide joint a limit row (one-hot
+J), and the contact block holds either the rows of every candidate contact
+slot or, with compaction (large pair tables), the rows of the deepest
+candidates chosen per env from two static slot pools (frictional and
+frictionless). Inactive rows carry zero D, so the solver's shapes never
+change.
 
-The elliptic cone and equality rows raise NotImplementedError.
+Pyramidal cone: a slot of condim d has 2 (d - 1) rows (Jn +- mu_i T_i),
+one when d == 1, all in the dense `c_*` block. Elliptic cone: a
+frictional slot has d rows (normal, then its friction axes) in the
+structured `x_*` block, one entry per slot, which the solver's cone cost
+couples; frictionless slots keep one normal row in the `c_*` block.
+
+Equality rows raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,12 +62,19 @@ class EfcLayout:
 
 
 def _check_supported(stat: ModelStatic) -> None:
-  if stat.cone == int(ConeType.ELLIPTIC):
-    raise NotImplementedError('elliptic friction cone rows are not '
-                              'implemented in mjlab_torch yet')
   if stat.neq:
     raise NotImplementedError('equality constraint rows are not '
                               'implemented in mjlab_torch yet')
+
+
+def elliptic_dmax(stat: ModelStatic) -> int:
+  """The largest condim of the frictional contact slots of an elliptic
+  model; 0 for a pyramidal model or one without frictional slots.
+  Nonzero: make_efc emits the structured elliptic `x_*` block."""
+  if stat.cone != int(ConeType.ELLIPTIC) or not stat.pairs.ncon_max:
+    return 0
+  dm = int(np.max(stat.con_dim[:stat.pairs.ncon_max]))
+  return dm if dm > 1 else 0
 
 
 @functools.lru_cache(maxsize=32)
@@ -71,16 +84,20 @@ def efc_layout(stat: ModelStatic) -> EfcLayout:
   limit_jnt = np.nonzero(
       stat.jnt_limited &
       np.isin(stat.jnt_type, (int(JointType.HINGE), int(JointType.SLIDE))))[0]
+  ell = stat.cone == int(ConeType.ELLIPTIC)
   if stat.ncon_cap or stat.ncon_cap1:
-    # compacted: ncon_cap frictional slots of 2*(maxdim-1) rows, then
-    # ncon_cap1 frictionless slots of one row
-    k_rows = 2 * max(int(stat.con_dim.max()) - 1, 1)
+    # compacted: ncon_cap frictional slots of 2*(maxdim-1) rows (elliptic:
+    # maxdim rows), then ncon_cap1 frictionless slots of one row
+    dm = elliptic_dmax(stat)
+    k_rows = dm if dm else 2 * max(int(stat.con_dim.max()) - 1, 1)
     con_rows = np.concatenate([np.full(stat.ncon_cap, k_rows, np.int32),
                                np.ones(stat.ncon_cap1, np.int32)])
   else:
-    # every candidate slot: 1 row (condim 1) or 2*(condim-1) rows
+    # every candidate slot: 1 row (condim 1), else 2*(condim-1) rows
+    # (elliptic: condim rows)
     dims = np.asarray(stat.con_dim[:stat.pairs.ncon_max], np.int32)
-    con_rows = np.where(dims == 1, 1, 2 * (dims - 1)).astype(np.int32)
+    con_rows = np.where(dims == 1, 1,
+                        dims if ell else 2 * (dims - 1)).astype(np.int32)
   base0 = nf + len(limit_jnt)
   con_base = (base0 + np.cumsum(con_rows) - con_rows).astype(np.int32)
   return EfcLayout(nefc=base0 + int(con_rows.sum()), nf=nf,
@@ -101,6 +118,25 @@ def compaction_slot_pools(stat: ModelStatic):
   dims = np.asarray(stat.con_dim[:stat.pairs.ncon_max])
   return (np.nonzero(dims > 1)[0].astype(np.int32),
           np.nonzero(dims == 1)[0].astype(np.int32))
+
+
+@functools.lru_cache(maxsize=32)
+def elliptic_row_maps(stat: ModelStatic):
+  """Static dense efc rows of an elliptic model's blocks: x_rows (NX, DM),
+  where the axes beyond a slot's condim map to row nefc (dropped), and
+  c1_rows, the rows of the frictionless slots (or pool slots)."""
+  lay = efc_layout(stat)
+  DM = elliptic_dmax(stat)
+  if stat.ncon_cap or stat.ncon_cap1:
+    K3, K1 = stat.ncon_cap, stat.ncon_cap1
+    x_rows = lay.con_base[:K3, None] + np.arange(DM)[None, :]
+    return x_rows.astype(np.int64), lay.con_base[K3:K3 + K1].astype(np.int64)
+  sl3, sl1 = compaction_slot_pools(stat)
+  dims = np.asarray(stat.con_dim[:stat.pairs.ncon_max])
+  x_rows = lay.con_base[sl3][:, None] + np.arange(DM)[None, :]
+  invalid = np.arange(DM)[None, :] >= dims[sl3][:, None]
+  x_rows = np.where(invalid, lay.nefc, x_rows)
+  return x_rows.astype(np.int64), lay.con_base[sl1].astype(np.int64)
 
 
 def _impedance(solimp: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -201,19 +237,84 @@ def _pool_jacobians(d: Data, pos_w, frame, croot1, croot2, ancd,
           torch.einsum('bcfv,bv->bcf', jr_f, d.qvel))
 
 
+def _elliptic_block(p, jt_f, jr_f, vel_t, vel_r, friction, solref, solimp,
+                    invw, dim, impratio, ts, refsafe: bool, DM: int) -> dict:
+  """The structured elliptic contact block, one entry per frictional slot
+  (leading axes (B, NX)), as the JAX engine builds it from MuJoCo's
+  elliptic-cone model: cone coefficient mu = friction_0 / sqrt(impratio),
+  friction-row D_j = D_normal * impratio * (friction_j / friction_0)^2,
+  friction-row aref = -b vel_j; the normal row as in the pyramidal case.
+
+    x_J (B, NX, DM, nv) rows [normal, t1, t2, torsional, r1, r2]
+    x_D, x_aref (B, NX, DM): zero beyond each slot's condim
+    x_mu (B, NX); x_fr (B, NX, DM-1) the friction (zero beyond condim)
+    x_active, x_pos (B, NX)"""
+  act = p < 0
+  b_c, k_c, imp = _kbi(solref, solimp, p, ts, refsafe)
+  D_n = 1.0 / ((1.0 - imp) / imp * invw).clamp_min(_MINVAL)
+  A = DM - 1
+  zero = p.new_zeros(())
+  real_axis = (torch.arange(A, device=p.device)
+               < (dim[..., None] - 1))  # (B or 1, NX, A)
+  fr = torch.where(real_axis, friction[..., :A], zero)
+  fr0 = friction[..., 0].clamp_min(_MINVAL)
+  mu = fr0 / torch.sqrt(impratio)
+  D_f = torch.where(real_axis,
+                    D_n[..., None] * impratio * (fr / fr0[..., None]) ** 2,
+                    zero)
+  axes = torch.cat([jt_f[:, :, 1:3], jr_f], dim=2)[:, :, :A]
+  vels = torch.cat([vel_t[..., 1:3], vel_r], dim=-1)[..., :A]
+  aref_n = -b_c * vel_t[..., 0] - k_c * imp * p
+  aref_f = torch.where(real_axis, -b_c[..., None] * vels, zero)
+  x_D = torch.cat([D_n[..., None], D_f], dim=-1)
+  return dict(
+      x_J=torch.cat([jt_f[:, :, :1], axes], dim=2),
+      x_D=torch.where(act[..., None], x_D, zero),
+      x_aref=torch.cat([aref_n[..., None], aref_f], dim=-1),
+      x_mu=mu, x_fr=fr, x_active=act, x_pos=p)
+
+
+def elliptic_block_empty(stat: ModelStatic) -> bool:
+  """Whether `make_efc` gives an elliptic model `_empty_elliptic`'s block:
+  no contact rows, contacts disabled, or a compacted pool of no frictional
+  slot."""
+  return bool(not efc_layout(stat).ncr
+              or stat.disableflags & DisableBit.CONTACT
+              or (stat.ncon_cap1 and not stat.ncon_cap))
+
+
+def _empty_elliptic(B: int, nv: int, DM: int, dtype, dev) -> dict:
+  """A one-slot elliptic block with nothing active (contacts disabled)."""
+  z = lambda *shape: torch.zeros((B,) + shape, dtype=dtype, device=dev)
+  return dict(x_J=z(1, DM, nv), x_D=z(1, DM), x_aref=z(1, DM), x_mu=z(1),
+              x_fr=z(1, DM - 1),
+              x_active=torch.zeros((B, 1), dtype=torch.bool, device=dev),
+              x_pos=z(1))
+
+
 def _contacts_compacted(m: Model, d: Data, ts, refsafe: bool):
   """Contact rows of the deepest candidate slots of each pool: uniform
-  pyramidal blocks of 2*(maxdim-1) rows for frictional slots, one normal
-  row for frictionless ones."""
+  pyramidal blocks of 2*(maxdim-1) rows for frictional slots (elliptic:
+  the x block of those slots), one normal row for frictionless ones.
+  Returns the c block's five tensors and the x block or None."""
   s = m.stat
   B = d.qpos.shape[0]
   K3, K1 = s.ncon_cap, s.ncon_cap1
   A = max(int(s.con_dim.max()) - 1, 1)
   slots3, slots1 = compaction_slot_pools(s)
   impratio = m.opt.impratio
-  blocks = []
+  ell_dm = elliptic_dmax(s)
+  blocks, x_block = [], None
 
-  if K3:
+  if K3 and ell_dm:
+    (p, pos_w, frame, friction, solref, solimp, croot1, croot2, invw,
+     ancd, dim) = _selected_contact_data(m, d, slots3, K3)
+    jt_f, jr_f, vel_t, vel_r = _pool_jacobians(
+        d, pos_w, frame, croot1, croot2, ancd, True)
+    x_block = _elliptic_block(p, jt_f, jr_f, vel_t, vel_r, friction, solref,
+                              solimp, invw, dim, impratio, ts, refsafe,
+                              ell_dm)
+  elif K3:
     (p, pos_w, frame, friction, solref, solimp, croot1, croot2, invw,
      ancd, dim) = _selected_contact_data(m, d, slots3, K3)
     act = p < 0
@@ -257,13 +358,24 @@ def _contacts_compacted(m: Model, d: Data, ts, refsafe: bool):
     r = ((1.0 - imp) / imp * invw).clamp_min(_MINVAL)
     blocks.append((jn, 1.0 / r, -b_c * vn - k_c * imp * p, p < 0, p))
 
+  if not blocks:  # elliptic without a frictionless pool: a dummy row
+    blocks.append(_no_rows(B, 1, s.nv, d.qpos.dtype, d.qpos.device))
   return tuple(torch.cat([blk[i] for blk in blocks], dim=1)
-               for i in range(5))
+               for i in range(5)), x_block
+
+
+def _no_rows(B: int, n: int, nv: int, dtype, dev):
+  """(J, D, aref, active, pos) of n contact rows with nothing active."""
+  z = lambda *shape: torch.zeros((B,) + shape, dtype=dtype, device=dev)
+  return (z(n, nv), z(n), z(n),
+          torch.zeros((B, n), dtype=torch.bool, device=dev), z(n))
 
 
 def _contacts_all(m: Model, d: Data, ts, refsafe: bool):
   """Contact rows of every candidate slot, grouped by condim: one normal
-  row (condim 1) or the pyramid (Jn +- mu_i T_i) rows."""
+  row (condim 1) or the pyramid (Jn +- mu_i T_i) rows; on an elliptic
+  model, the frictional slots' x block instead of their pyramids.
+  Returns the c block's five tensors and the x block or None."""
   s = m.stat
   lay = efc_layout(s)
   dev, dtype = d.qpos.device, d.qpos.dtype
@@ -296,6 +408,23 @@ def _contacts_all(m: Model, d: Data, ts, refsafe: bool):
   invw = (m.body_invweight0[_ix(b1, dev), 0]
           + m.body_invweight0[_ix(b2, dev), 0])
   friction = con.friction[:, :ncon]
+
+  ell_dm = elliptic_dmax(s)
+  if ell_dm:
+    sl3_np, sl1_np = compaction_slot_pools(s)
+    sl3, sl1 = _ix(sl3_np, dev), _ix(sl1_np, dev)
+    x_block = _elliptic_block(
+        p[:, sl3], jt_f[:, sl3], jr_f[:, sl3], vel_t[:, sl3], vel_r[:, sl3],
+        friction[:, sl3], con.solref[:, sl3], con.solimp[:, sl3],
+        invw[sl3], table(s.con_dim[sl3_np], torch.int32, dev),
+        m.opt.impratio, ts, refsafe, ell_dm)
+    if not len(sl1_np):
+      return _no_rows(B, 1, nv, dtype, dev), x_block
+    imps, ps = imp[:, sl1], p[:, sl1]
+    r = ((1.0 - imps) / imps * invw[sl1]).clamp_min(_MINVAL)
+    return (jt_f[:, sl1, 0], 1.0 / r,
+            -b[:, sl1] * vel_t[:, sl1, 0] - k[:, sl1] * imps * ps,
+            act[:, sl1], ps), x_block
 
   c_J = torch.zeros((B, ncr, nv), dtype=dtype, device=dev)
   c_D = torch.zeros((B, ncr), dtype=dtype, device=dev)
@@ -341,15 +470,18 @@ def _contacts_all(m: Model, d: Data, ts, refsafe: bool):
                          ).reshape(B, nsl * kr)
     c_pos[:, rows] = ps.repeat_interleave(kr, dim=1)
     c_active[:, rows] = act[:, sl].repeat_interleave(kr, dim=1)
-  return c_J, c_D, c_aref, c_active, c_pos
+  return (c_J, c_D, c_aref, c_active, c_pos), None
 
 
 def make_efc(m: Model, d: Data) -> dict:
   """Constraint blocks, batched (B, ...):
     f_D, f_aref, f_floss, f_active           (B, nv)  friction (Huber)
     l_sign, l_D, l_aref, l_active, l_pos     (B, nl)  limits (one-sided)
-    c_J (B, ncr, nv), c_D, c_aref, c_active, c_pos    contacts
-  Row order for dense views (efc_force): friction, limits, contacts."""
+    c_J (B, nc, nv), c_D, c_aref, c_active, c_pos     contacts
+  and on an elliptic model the x block (`_elliptic_block`), whose c block
+  holds the frictionless slots alone (one inactive row when there are
+  none). Row order for dense views (efc_force): friction, limits,
+  contacts."""
   s = m.stat
   lay = efc_layout(s)
   dev, dtype = d.qpos.device, d.qpos.dtype
@@ -400,26 +532,37 @@ def make_efc(m: Model, d: Data) -> dict:
     l_sign, l_D, l_aref, l_active, l_pos = (zeros(n1), zeros(n1),
                                             zeros(n1), false(n1), zeros(n1))
 
-  # ---- contact rows ----
+  # ---- contact rows: the dense c block and, elliptic, the x block ----
+  ell_dm = elliptic_dmax(s)
+  x_block = None
   if ncr and not (s.disableflags & DisableBit.CONTACT):
     contacts = (_contacts_compacted if (s.ncon_cap or s.ncon_cap1)
                 else _contacts_all)
-    c_J, c_D, c_aref, c_active, c_pos = contacts(m, d, ts, refsafe)
+    (c_J, c_D, c_aref, c_active, c_pos), x_block = contacts(m, d, ts,
+                                                            refsafe)
   else:
-    n1 = max(ncr, 1)
-    c_J, c_D, c_aref, c_active, c_pos = (zeros(n1, nv), zeros(n1),
-                                         zeros(n1), false(n1), zeros(n1))
+    c_J, c_D, c_aref, c_active, c_pos = _no_rows(B, max(ncr, 1), nv,
+                                                 dtype, dev)
+  if x_block is None and ell_dm:
+    x_block = _empty_elliptic(B, nv, ell_dm, dtype, dev)
 
   if s.disableflags & DisableBit.CONSTRAINT:
     f_active = torch.zeros_like(f_active)
     l_active = torch.zeros_like(l_active)
     c_active = torch.zeros_like(c_active)
+    if x_block is not None:
+      x_block['x_active'] = torch.zeros_like(x_block['x_active'])
 
   zero = torch.zeros((), dtype=dtype, device=dev)
-  return dict(
+  out = dict(
       f_D=torch.where(f_active, f_D, zero), f_aref=f_aref, f_floss=f_floss,
       f_active=f_active,
       l_sign=l_sign, l_D=torch.where(l_active, l_D, zero), l_aref=l_aref,
       l_active=l_active, l_pos=l_pos,
       c_J=c_J, c_D=torch.where(c_active, c_D, zero), c_aref=c_aref,
       c_active=c_active, c_pos=c_pos)
+  if x_block is not None:
+    x_block['x_D'] = torch.where(x_block['x_active'][..., None],
+                                 x_block['x_D'], zero)
+    out.update(x_block)
+  return out

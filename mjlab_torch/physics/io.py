@@ -281,6 +281,21 @@ def _check_supported(m) -> None:
             unsupported))))
 
 
+def _note_elliptic_path(cone: int) -> int:
+  """One-time note: an elliptic-cone model solves on the plain Newton
+  (K1 for its Cholesky on the card); the Newton kernel K2 implements the
+  pyramidal cost only, so this model class does not run it."""
+  if cone == 1 and not getattr(_note_elliptic_path, 'done', False):
+    _note_elliptic_path.done = True
+    import warnings
+    warnings.warn(
+        "cone='elliptic' solves on the plain Newton with the SPD-solve "
+        'kernel (K1); the Newton kernel (K2) is pyramidal-only and does '
+        "not run, so expect lower throughput than cone='pyramidal'.",
+        stacklevel=3)
+  return cone
+
+
 def _compaction_caps(pairs: CollisionPairs, slot_dims: np.ndarray,
                      ncon_cap):
   """Split the per-env contact capacity into the frictional and the
@@ -381,7 +396,7 @@ def model_static(m, ncon_cap: 'int | None' = None
       sensor_dim=m.sensor_dim.copy(),
       sensor_intprm=m.sensor_intprm.copy(),
       integrator=int(m.opt.integrator),
-      cone=int(m.opt.cone),
+      cone=_note_elliptic_path(int(m.opt.cone)),
       iterations=int(m.opt.iterations),
       ls_iterations=int(m.opt.ls_iterations),
       disableflags=int(m.opt.disableflags),

@@ -1,16 +1,21 @@
 """Newton constraint solver (primal, acceleration space), batched.
 
-Counterpart of mjlab_tpu/physics/solver.py for the pyramidal cone. Per env
-it minimizes over qacc
+Counterpart of mjlab_tpu/physics/solver.py. Per env it minimizes over qacc
     C(x) = 0.5 (x - a_smooth)^T M (x - a_smooth) + sum_i s_i(J_i x - aref_i)
-with one-sided quadratic costs for limits/contacts and Huber costs for dof
-friction loss: exact Hessian, dense Cholesky, and a parallel exact
-linesearch on the convex piecewise-quadratic phi(alpha).
+with one-sided quadratic costs for limits/contacts, Huber costs for dof
+friction loss and, on an elliptic model, MuJoCo's elliptic-cone cost of
+each frictional contact (three zones: inside the cone no force, below it
+a quadratic of every row, between them a cost of the distance to the cone
+with a non-diagonal Hessian block): exact Hessian, dense Cholesky (K1,
+ops/pd_solve.py, on the card), and a parallel exact linesearch on the
+convex phi(alpha).
 
 `newton_plain` is the plain version of kernel K2 (ops/newton.py). `solve`
 dispatches: a batch on a CUDA device runs the kernel when the model fits
-its shared-memory rule (ops.newton.fits), else the plain version; a batch
-on the CPU runs the plain version.
+its shared-memory rule (ops.newton.fits) and its cone is pyramidal (K2
+implements the pyramidal cost alone, as the JAX package's whole-solver
+kernel), else the plain version; a batch on the CPU runs the plain
+version.
 """
 
 from __future__ import annotations
@@ -61,37 +66,128 @@ def _cost_friction(jar, D, floss, active):
   return torch.where(act, s, torch.zeros_like(s)).sum(-1)
 
 
+# ---------------------------------------------------------------------------
+# elliptic-cone contact pieces: MuJoCo's zone formulas, the JAX engine's
+# expressions (its _EPS clamps included); leading axes (..., NX)
+# ---------------------------------------------------------------------------
+
+
+def _elliptic_zones(jx, xD, mu, fr, act):
+  """Common elliptic quantities of residuals jx (..., NX, DM): (mid, bot,
+  K, z, w, Tu), the zone masks with the active gate folded in."""
+  N = jx[..., 0]
+  u = jx[..., 1:] * fr / mu.clamp_min(_EPS)[..., None]
+  Tu = torch.sqrt((u * u).sum(-1).clamp_min(_EPS))
+  top = N >= mu * Tu
+  bottom = mu * N + Tu <= 0.0
+  mid = act & ~top & ~bottom
+  bot = act & bottom & ~top
+  K = xD[..., 0] / (2.0 * (1.0 + mu * mu))
+  z = mu * Tu - N
+  w = (u / Tu[..., None]) * fr  # dC/djar_t direction scale
+  return mid, bot, K, z, w, Tu
+
+
+def _elliptic_forces(jx, xD, mu, fr, act, zones=None):
+  """(forces (..., NX, DM), cost (...)) of the elliptic block; `zones`:
+  _elliptic_zones' result when the caller has it."""
+  mid, bot, K, z, w, _ = zones or _elliptic_zones(jx, xD, mu, fr, act)
+  zero = jx.new_zeros(())
+  f_mid = torch.cat([(2.0 * K * z)[..., None], -(2.0 * K * z)[..., None] * w],
+                    -1)
+  f_bot = -xD * jx
+  f = torch.where(mid[..., None], f_mid,
+                  torch.where(bot[..., None], f_bot, zero))
+  cost = torch.where(mid, K * z * z,
+                     torch.where(bot, 0.5 * (xD * jx * jx).sum(-1),
+                                 zero)).sum(-1)
+  return f, cost
+
+
+def _elliptic_hess(jx, xD, mu, fr, act):
+  """Exact per-contact cost Hessian blocks (..., NX, DM, DM)."""
+  mid, bot, K, z, w, Tu = _elliptic_zones(jx, xD, mu, fr, act)
+  dm = jx.shape[-1]
+  zero = jx.new_zeros(())
+  g = torch.cat([-torch.ones_like(w[..., :1]), w], -1)  # (..., DM)
+  ggT = g[..., :, None] * g[..., None, :]
+  # tangential curvature (diag(fr^2) - w w^T) / (mu Tu), zero row/col 0
+  eye_t = torch.diag(torch.cat([jx.new_zeros(1), jx.new_ones(dm - 1)]))
+  fr_full = torch.cat([torch.zeros_like(w[..., :1]), fr], -1)
+  w_full = torch.cat([torch.zeros_like(w[..., :1]), w], -1)
+  diag_fr2 = eye_t * (fr_full[..., :, None] * fr_full[..., None, :])
+  wwT = w_full[..., :, None] * w_full[..., None, :]
+  denom = (mu * Tu).clamp_min(_EPS)
+  B_mid = 2.0 * K[..., None, None] * (
+      ggT + (z / denom)[..., None, None] * (diag_fr2 - wwT))
+  B_bot = torch.eye(dm, dtype=jx.dtype, device=jx.device) * xD[..., None, :]
+  return torch.where(mid[..., None, None], B_mid,
+                     torch.where(bot[..., None, None], B_bot, zero))
+
+
+def _elliptic_gh(jx, jdx, xD, mu, fr, act):
+  """The elliptic block's share of the linesearch's phi'(alpha) and
+  phi''(alpha) at residuals jx along the direction jdx: (-sum f . jdx,
+  sum jdx^T B jdx), summed over the last two axes."""
+  zones = _elliptic_zones(jx, xD, mu, fr, act)
+  mid, bot, K, z, w, Tu = zones
+  zero = jx.new_zeros(())
+  wj = (w * jdx[..., 1:]).sum(-1)
+  gdot = -jdx[..., 0] + wj
+  denom = (mu * Tu).clamp_min(_EPS)
+  h_mid = 2.0 * K * (gdot * gdot
+                     + (z / denom) * (((fr * jdx[..., 1:]) ** 2).sum(-1)
+                                      - wj ** 2))
+  h_bot = (xD * jdx * jdx).sum(-1)
+  f, _ = _elliptic_forces(jx, xD, mu, fr, act, zones)
+  g = -(f * jdx).sum((-2, -1))
+  h = torch.where(mid, h_mid, torch.where(bot, h_bot, zero)).sum(-1)
+  return g, h
+
+
 def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
                  l_act, f_aref, fD, floss, f_act, iterations: int,
-                 ls_polish: int, ldof, grad_th: float):
+                 ls_polish: int, ldof, grad_th: float, xargs=None):
   """Batched structured Newton solve -> (qacc (B,n), f_friction (B,n),
-  f_limit (B,nl), f_contact (B,ncr)). Activity masks are bool."""
-  ldof = _ix(ldof, M.device)
+  f_limit (B,nl), f_contact (B,nc)[, f_elliptic (B,NX,DM)]). Activity
+  masks are bool. xargs = (xJ (B,NX,DM,n), x_aref, xD, x_mu, x_fr, x_act)
+  adds the elliptic-cone block (`elliptic_args`)."""
+  ldof_ix = _ix(ldof, M.device)
   c_act, l_act, f_act = c_act.bool(), l_act.bool(), f_act.bool()
   mv = lambda A, v: torch.einsum('...ij,...j->...i', A, v)
+  elliptic = xargs is not None
+  if elliptic:
+    xJ, x_aref, xD, x_mu, x_fr, x_act = xargs
+    x_act = x_act.bool()
+    x_s = (xD[:, None], x_mu[:, None], x_fr[:, None], x_act[:, None])
 
   def jars_of(x):
-    return (x - f_aref, l_sign * x[:, ldof] - l_aref,
-            mv(cJ, x) - c_aref)
+    jars = (x - f_aref, l_sign * x[:, ldof_ix] - l_aref, mv(cJ, x) - c_aref)
+    if elliptic:
+      jars += (torch.einsum('bcdv,bv->bcd', xJ, x) - x_aref,)
+    return jars
 
   def forces_of(jars):
-    jf, jl, jc = jars
+    jf, jl, jc = jars[:3]
     ff, qf = _forces_friction(jf, fD, floss, f_act)
     fl, ql = _forces_oneside(jl, lD, l_act)
     fc, qc = _forces_oneside(jc, cD, c_act)
-    return (ff, fl, fc), (qf, ql, qc)
+    forces = (ff, fl, fc)
+    if elliptic:
+      forces += (_elliptic_forces(jars[3], xD, x_mu, x_fr, x_act)[0],)
+    return forces, (qf, ql, qc)
 
   def cost_of(x):
-    jf, jl, jc = jars_of(x)
+    jars = jars_of(x)
+    jf, jl, jc = jars[:3]
     dx = x - a0
-    return (0.5 * (dx * mv(M, dx)).sum(-1)
+    cost = (0.5 * (dx * mv(M, dx)).sum(-1)
             + _cost_friction(jf, fD, floss, f_act)
             + _cost_oneside(jl, lD, l_act)
             + _cost_oneside(jc, cD, c_act))
-
-  def jt_apply(ff, fl, fc):
-    out = ff + torch.einsum('bcv,bc->bv', cJ, fc)
-    return out.index_add(1, ldof, l_sign * fl)
+    if elliptic:
+      cost = cost + _elliptic_forces(jars[3], xD, x_mu, x_fr, x_act)[1]
+    return cost
 
   x = torch.where((cost_of(ws) < cost_of(a0))[:, None], ws, a0)
   scales = table(np.asarray(_SCALES), M.dtype, M.device)
@@ -99,22 +195,35 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
   zero = M.new_zeros(())
 
   for _ in range(iterations):
-    jf0, jl0, jc0 = jars = jars_of(x)
-    (ff, fl, fc), (qf, ql, qc) = forces_of(jars)
-    grad = mv(M, x - a0) - jt_apply(ff, fl, fc)
+    jars = jars_of(x)
+    jf0, jl0, jc0 = jars[:3]
+    forces, (qf, ql, qc) = forces_of(jars)
+    grad = mv(M, x - a0) - constraint_force(cJ, l_sign, ldof, forces,
+                                            xJ if elliptic else None)
+    # converged envs freeze (MuJoCo mj_solNewton termination)
+    live = (grad * grad).sum(-1) > grad_th * grad_th
 
     # Hessian: M + diagonal (friction + limit) + dense contact part
-    diag = torch.zeros_like(x).index_add(1, ldof, torch.where(ql, lD, zero))
+    # (+ the elliptic blocks J_c^T B_c J_c)
+    diag = torch.zeros_like(x).index_add(1, ldof_ix,
+                                         torch.where(ql, lD, zero))
     diag = diag + torch.where(qf, fD, zero)
     Dq_c = torch.where(qc, cD, zero)
     H = M + (cJ.transpose(-1, -2) * Dq_c[:, None, :]) @ cJ
     H = H + torch.diag_embed(diag) + 1e-12 * eye
+    if elliptic:
+      Bx = _elliptic_hess(jars[3], xD, x_mu, x_fr, x_act)
+      H = H + (xJ.flatten(1, 2).transpose(-1, -2)
+               @ (Bx @ xJ).flatten(1, 2))
     dx = _pd_solve.solve_pd(H, -grad)
 
     # parallel linesearch on the convex piecewise-quadratic phi
     jd_f = dx
-    jd_l = l_sign * dx[:, ldof]
+    jd_l = l_sign * dx[:, ldof_ix]
     jd_c = mv(cJ, dx)
+    if elliptic:
+      jx0 = jars[3][:, None]  # per-env data broadcast over alpha
+      jd_xs = torch.einsum('bcdv,bv->bcd', xJ, dx)[:, None]
     Md = mv(M, dx)
     dMd = (dx * Md).sum(-1)
     xMd = ((x - a0) * Md).sum(-1)
@@ -138,6 +247,11 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
               ).sum(-1)
            + (torch.where(qc_a, cD[:, None], zero) * (jd_c * jd_c)[:, None]
               ).sum(-1))
+      if elliptic:
+        gx, hx = _elliptic_gh(jx0 + alpha[..., None, None] * jd_xs,
+                              jd_xs, *x_s)
+        g = g + gx
+        h = h + hx
       return g, h
 
     g0, h0 = phi_grad_hess(torch.zeros_like(dMd)[:, None])
@@ -182,14 +296,11 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
       inside = (a_n >= lo) & (a_n <= hi)
       alpha = torch.where(found & ~inside, 0.5 * (lo + hi),
                           torch.maximum(a_n, lo))
-    alpha = alpha.clamp_min(0.0)
-    # converged envs freeze (MuJoCo mj_solNewton termination)
-    alpha = torch.where((grad * grad).sum(-1) > grad_th * grad_th, alpha,
-                        zero)
+    alpha = torch.where(live, alpha.clamp_min(0.0), zero)
     x = x + alpha[:, None] * dx
 
-  (ff, fl, fc), _ = forces_of(jars_of(x))
-  return x, ff, fl, fc
+  forces, _ = forces_of(jars_of(x))
+  return (x,) + forces
 
 
 def solver_params(stat):
@@ -204,21 +315,32 @@ def solver_params(stat):
 
 
 def newton_steps(args: tuple, iterations: int, ls_polish: int,
-                 ldof: tuple, grad_th: float) -> torch.Tensor:
+                 ldof: tuple, grad_th: float, xargs=None) -> torch.Tensor:
   """(B,) the Newton iterations each env steps before the freeze rule
   (||grad||^2 <= grad_th^2) stops it, counted on the plain solver: the
   gradient after k plain iterations decides iteration k + 1. `args` are
-  newton_args'."""
-  M, a0, cJ, l_sign = args[0], args[1], args[3], args[7]
-  ix = _ix(ldof, M.device)
+  newton_args', `xargs` elliptic_args'."""
+  M, a0 = args[0], args[1]
   need = torch.zeros(M.shape[0], dtype=torch.long, device=M.device)
   for k in range(iterations):
-    x, ff, fl, fc = newton_plain(*args, k, ls_polish, ldof, grad_th)
-    jt = (ff + torch.einsum('bcv,bc->bv', cJ, fc)).index_add(1, ix,
-                                                             l_sign * fl)
-    grad = torch.einsum('bij,bj->bi', M, x - a0) - jt
+    x, *forces = newton_plain(*args, k, ls_polish, ldof, grad_th, xargs)
+    grad = (torch.einsum('bij,bj->bi', M, x - a0)
+            - constraint_force(args[3], args[7], ldof, forces,
+                               None if xargs is None else xargs[0]))
     need += ((grad * grad).sum(-1) > grad_th * grad_th).long()
   return need
+
+
+def constraint_force(cJ, l_sign, ldof: tuple, forces, xJ=None):
+  """J^T f (B, n): the row forces (ff, fl, fc[, fx]) mapped to joint space
+  by the structured blocks (the dense contact rows cJ, the limit signs at
+  the dofs `ldof`, the elliptic rows xJ)."""
+  ff, fl, fc = forces[:3]
+  out = (ff + torch.einsum('bcv,bc->bv', cJ, fc)).index_add(
+      1, _ix(ldof, cJ.device), l_sign * fl)
+  if xJ is not None:
+    out = out + torch.einsum('bcdv,bcd->bv', xJ, forces[3])
+  return out
 
 
 def newton_args(d: Data, efc: dict) -> tuple:
@@ -230,24 +352,56 @@ def newton_args(d: Data, efc: dict) -> tuple:
           efc['f_floss'], efc['f_active'])
 
 
+def elliptic_args(efc: dict):
+  """`newton_plain`'s xargs from `make_efc`'s rows: the x block of an
+  elliptic model, else None."""
+  if 'x_J' not in efc:
+    return None
+  return tuple(efc[k] for k in ('x_J', 'x_aref', 'x_D', 'x_mu', 'x_fr',
+                                'x_active'))
+
+
 def solve(m: Model, d: Data, efc: dict) -> Data:
   """Run the Newton solver; returns Data with qacc, qfrc_constraint and
-  efc_force."""
+  efc_force (MuJoCo's row order; on an elliptic model the frictionless
+  and the elliptic rows go to their slots' rows)."""
   s = m.stat
   lay = _constraint.efc_layout(s)
   iterations, ls_polish, ldof, grad_th = solver_params(s)
   args = newton_args(d, efc)
+  xargs = elliptic_args(efc)
   ncr = efc['c_J'].shape[1]
-  if d.qpos.device.type != 'cpu' and _newton.fits(s.nv, ncr, len(ldof)):
-    x, ff, fl, fc = _newton.newton_solve_cuda(
+  # model-class gates: K2 solves the pyramidal cost within its smem rule
+  if (d.qpos.device.type != 'cpu' and xargs is None
+      and _newton.fits(s.nv, ncr, len(ldof))):
+    x, *forces = _newton.newton_solve_cuda(
         *args, iterations=iterations, ls_polish=ls_polish, ldof=ldof,
         grad_th=grad_th)
   else:
-    x, ff, fl, fc = newton_plain(*args, iterations, ls_polish, ldof,
-                                 grad_th)
-  qfrc = ff + torch.einsum('bcv,bc->bv', efc['c_J'], fc)
-  qfrc = qfrc.index_add(1, _ix(ldof, x.device), efc['l_sign'] * fl)
-  efc_force = torch.cat([ff, fl[:, :lay.nl], fc[:, :lay.ncr]], dim=1)
+    x, *forces = newton_plain(*args, iterations, ls_polish, ldof, grad_th,
+                              xargs)
+  ff, fl, fc = forces[:3]
+  qfrc = constraint_force(efc['c_J'], efc['l_sign'], ldof, forces,
+                          efc.get('x_J'))
+  if xargs is None:
+    efc_force = torch.cat([ff, fl[:, :lay.nl], fc[:, :lay.ncr]], dim=1)
+  else:
+    # the dense rows [friction | limits | contacts by slot], one spare
+    # column past nefc for the axes beyond a slot's condim, cut off after
+    x_rows, c1_rows = _constraint.elliptic_row_maps(s)
+    nf_nl = s.nv + lay.nl
+    efc_force = torch.cat([ff, fl[:, :lay.nl],
+                           x.new_zeros((x.shape[0], lay.nefc + 1 - nf_nl))],
+                          dim=1)
+    if len(c1_rows):
+      efc_force = efc_force.index_copy(1, _ix(c1_rows, x.device),
+                                       fc[:, :len(c1_rows)])
+    fx = forces[3]
+    if not _constraint.elliptic_block_empty(s):
+      assert fx.shape[1] == x_rows.shape[0], (fx.shape, x_rows.shape)
+      efc_force = efc_force.index_copy(1, _ix(x_rows.ravel(), x.device),
+                                       fx.flatten(1))
+    efc_force = efc_force[:, :lay.nefc]
   return d.replace(
       qacc=x, qfrc_constraint=qfrc, efc_force=efc_force,
       solver_niter=torch.full_like(d.solver_niter, iterations))

@@ -316,7 +316,8 @@ def main(argv=None):
                                    RawDescriptionHelpFormatter)
   parser.add_argument('--csv', default=None, help='input CSV trajectory')
   parser.add_argument('--output', required=True, help='output npz path')
-  parser.add_argument('--robot', default='g1', choices=('g1', 'go1'))
+  parser.add_argument('--robot', default='g1', choices=('g1', 'go1', 'tiny'),
+                      help="the scene's robot the CSV drives (default g1)")
   parser.add_argument('--input-fps', type=float, default=30.0)
   parser.add_argument('--output-fps', type=float, default=50.0)
   parser.add_argument('--synthetic-squat', action='store_true',
@@ -335,9 +336,12 @@ def main(argv=None):
 
   if args.robot == 'g1':
     mj = _tracking_scene()
-  else:
+  elif args.robot == 'go1':
     from mjlab_torch.asset_zoo import go1_flat_arrays
     mj = go1_flat_arrays()
+  else:
+    from mjlab_torch.asset_zoo import tiny_flat_arrays
+    mj = tiny_flat_arrays()
   if (args.synthetic_squat or args.synthetic_walk) and args.robot != 'g1':
     parser.error('the synthetic motions are G1 motions; use --robot g1')
   if args.synthetic_squat:

@@ -3,19 +3,26 @@
 Counterpart of mjlab_tpu/sim/sim.py. There the solver and integrator options
 are written into the MjSpec before it is compiled; the port is handed a
 compiled model (an MjModel or its ModelArrays snapshot, on a host that may
-lack the mujoco package), so `MujocoCfg.check_model` holds the compiled
-options to the configuration instead and raises on a mismatch.
+lack the mujoco package), so `MujocoCfg.apply` writes them into the
+compiled model's `opt` instead, which the env does before `put_model`. No
+option of MujocoCfg changes another compiled field (the compile of a scene
+with each option changed differs from the snapshot with it written in by
+that `opt` field alone; tests/test_torch_elliptic.py holds the cone), so
+every option can be taken this way. `MujocoCfg.check_model` holds a model
+compiled elsewhere to the configuration and raises on a mismatch.
 `expand_model_fields` gives selected model fields a leading env axis for
 per-env domain randomization. `make_batched_data` is physics.io's.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Literal
 
 import numpy as np
 
+from mjlab_torch.physics.io import ModelArrays
 from mjlab_torch.physics.io import make_batched_data  # noqa: F401
 from mjlab_torch.physics.types import ConeType, IntegratorType, Model
 
@@ -40,7 +47,7 @@ PER_ENV_FIELDS = (
 
 @dataclasses.dataclass
 class MujocoCfg:
-  """Solver and integrator options the compiled model must carry."""
+  """Solver and integrator options of the compiled model."""
   timestep: float = 0.002
   integrator: Literal['euler', 'implicitfast'] = 'implicitfast'
   impratio: float = 1.0
@@ -51,15 +58,33 @@ class MujocoCfg:
   ls_tolerance: float = 0.01
   gravity: tuple = (0.0, 0.0, -9.81)
 
-  def check_model(self, mj_model) -> None:
-    """Raise unless the compiled model's options equal this cfg."""
-    opt = mj_model.opt
-    want = dict(
+  def options(self) -> dict:
+    """The compiled `opt` fields this cfg sets, by name."""
+    return dict(
         timestep=self.timestep, integrator=int(_INTEGRATOR[self.integrator]),
         impratio=self.impratio, cone=int(_CONE[self.cone]),
         iterations=self.iterations, tolerance=self.tolerance,
         ls_iterations=self.ls_iterations, ls_tolerance=self.ls_tolerance,
         gravity=self.gravity)
+
+  def apply(self, mj_model):
+    """A copy of the compiled model (a ModelArrays snapshot or an MjModel)
+    with this cfg's options in its `opt`."""
+    if isinstance(mj_model, ModelArrays):
+      a = mj_model.arrays()
+      for k, v in self.options().items():
+        old = np.asarray(a[f'opt.{k}'])
+        a[f'opt.{k}'] = np.asarray(v, old.dtype).reshape(old.shape)
+      return ModelArrays(a)
+    out = copy.copy(mj_model)
+    for k, v in self.options().items():
+      setattr(out.opt, k, v)
+    return out
+
+  def check_model(self, mj_model) -> None:
+    """Raise unless the compiled model's options equal this cfg."""
+    opt = mj_model.opt
+    want = self.options()
     wrong = {k: (np.asarray(getattr(opt, k)).tolist(), v)
              for k, v in want.items()
              if not np.array_equal(np.asarray(getattr(opt, k), np.float64),

@@ -56,7 +56,17 @@ def make(task_id: str, cfg=None, device='cuda', dtype=torch.float32,
 
 
 def _import_all():
-  """Import all task packages so their registrations run."""
+  """Import all task packages so their registrations run, then the task
+  modules that `MJLAB_TASKS_MODULES` names (comma-separated importable
+  module paths whose import registers tasks: user tasks, and the Tiny
+  debug tasks, mjlab_torch.tasks.velocity.config.tiny and
+  mjlab_torch.tasks.tracking.config.tiny, which are not imported here)."""
+  import importlib
+  import os
+
   import mjlab_torch.tasks.velocity.config.g1  # noqa: F401
   import mjlab_torch.tasks.velocity.config.go1  # noqa: F401
   import mjlab_torch.tasks.tracking.config.g1  # noqa: F401
+  for mod in filter(None, os.environ.get('MJLAB_TASKS_MODULES',
+                                         '').split(',')):
+    importlib.import_module(mod.strip())

@@ -52,7 +52,9 @@ def test_the_walk_reaches_every_subpackage():
                'tasks.tracking.mdp.observations',
                'tasks.tracking.mdp.rewards',
                'tasks.tracking.mdp.terminations',
-               'tasks.tracking.config.g1.flat_env_cfg'):
+               'tasks.tracking.config.g1.flat_env_cfg',
+               'asset_zoo.tiny_bot', 'asset_zoo.tiny_scene',
+               'tasks.velocity.config.tiny', 'tasks.tracking.config.tiny'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
@@ -60,8 +62,9 @@ def test_env_is_made_and_stepped_without_jax_or_mujoco(tmp_path):
   """The registry, the G1 flat env from the committed snapshot, a reset and
   a step under the shipped actor, the Go1 and the G1 tracking env (its
   default squat clip written by the port's motion pipeline into an empty
-  cache), with jax, flax, orbax, the JAX package and mujoco all
-  unimportable."""
+  cache), and the Tiny tasks through MJLAB_TASKS_MODULES (Flat-Tiny with
+  the elliptic cone, Tracking-Tiny on a clip of write_tiny_motion), with
+  jax, flax, orbax, the JAX package and mujoco all unimportable."""
   block = '; '.join(f'sys.modules[{b!r}] = None'
                     for b in BANNED + ('mujoco',))
   code = f"""
@@ -90,6 +93,26 @@ obs, _ = track.reset()
 obs, rew, term, trunc, extras = track.step(
     load_actor(G1_TRACKING_POLICY, device='cpu')(obs))
 assert obs['policy'].shape == (2, 160) and bool(torch.isfinite(rew).all())
+import os
+os.environ['MJLAB_TASKS_MODULES'] = ('mjlab_torch.tasks.velocity.config.tiny,'
+                                     'mjlab_torch.tasks.tracking.config.tiny')
+cfg = registry.load_cfg('Mjlab-Velocity-Flat-Tiny')
+cfg.sim.mujoco.cone = 'elliptic'
+tiny = registry.make('Mjlab-Velocity-Flat-Tiny', cfg=cfg, device='cpu',
+                     **{{'scene.num_envs': 2}})
+assert tiny.model.stat.cone == 1
+obs, _ = tiny.reset()
+obs, rew, term, trunc, extras = tiny.step(torch.zeros(2, 2))
+assert obs['policy'].shape == (2, 18) and bool(torch.isfinite(rew).all())
+from mjlab_torch.tasks.tracking.config.tiny import write_tiny_motion
+cfg = registry.load_cfg('Mjlab-Tracking-Flat-Tiny')
+cfg.commands.motion.motion_file = write_tiny_motion(
+    {str(tmp_path / 'wave.npz')!r}, device='cpu')
+tiny = registry.make('Mjlab-Tracking-Flat-Tiny', cfg=cfg, device='cpu',
+                     **{{'scene.num_envs': 2}})
+obs, _ = tiny.reset()
+obs, rew, term, trunc, extras = tiny.step(torch.zeros(2, 2))
+assert bool(torch.isfinite(rew).all())
 loaded = [m for m in {BANNED + ('mujoco',)!r} if sys.modules.get(m)]
 assert not loaded, loaded
 print('ok')

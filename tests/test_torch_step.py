@@ -2,9 +2,11 @@
 model (the velocity env's own MjModel), float64, at states dropped onto the
 floor so contacts are active: collision, constraint assembly, the Newton
 solve and the contact sensors stage by stage, one full step, and a
-20-substep rollout. Both engines get the same model and state, carried
-across as numpy leaves."""
+20-substep rollout; and one step of the same model with the elliptic
+friction cone and per-env foot friction. Both engines get the same model
+and state, carried across as numpy leaves."""
 
+import copy
 import functools
 
 import jax
@@ -27,7 +29,7 @@ from mjlab_torch.physics import constraint as tcon
 from mjlab_torch.physics import sensor as tsen
 from mjlab_torch.physics import solver as tsolver
 from torch_parity import data_leaves, g1_flat_mjmodel, g1_states, jax_batch
-from torch_parity import to_port
+from torch_parity import model_leaves, quick_jit, to_port
 
 N = 3
 STAGE_TOL = 1e-9  # float64; the same formulas in another summation order
@@ -121,6 +123,41 @@ def test_rollout_matches_jax(setup):
     td = tphys.step(tm, td)
   for f in ('qpos', 'qvel', 'sensordata'):
     _close(getattr(td, f), getattr(jd, f), ROLLOUT_TOL, f)
+
+
+def test_elliptic_step_with_per_env_foot_friction_matches_jax(setup):
+  """The G1 flat model with cone='elliptic' (the x block of its 32
+  compacted frictional slots, the frictionless pool in the c block, the
+  plain Newton with the elliptic Hessian blocks) and the feet's sliding
+  friction set per env, one step from the dropped states."""
+  import mujoco
+
+  from mjlab_tpu.sim.sim import expand_model_fields, model_vmap_axes
+  mj, _, jd, _, _ = setup
+  mje = copy.copy(mj)
+  mje.opt.cone = mujoco.mjtCone.mjCONE_ELLIPTIC
+  base = jio.put_model(mje, dtype=jnp.float64)
+  jm = expand_model_fields(base, ['geom_friction'], N)
+  feet = np.nonzero(mje.geom_condim == 3)[0]
+  fr = np.asarray(jm.geom_friction).copy()
+  fr[:, feet, 0] = np.array([0.4, 0.6, 0.9])[:N, None]
+  jm = jm.replace(geom_friction=jnp.asarray(fr))
+  step = quick_jit(jax.vmap(jpipe.step,
+                            in_axes=(model_vmap_axes(jm, base), 0)))
+  want = step(jm, jd)
+  stat = tphys.put_model(mje, device='cpu', dtype=torch.float64).stat
+  assert stat.cone == 1 and stat.ncon_cap == 32
+  tm = tphys.model_from_numpy(model_leaves(jm), stat, device='cpu',
+                              dtype=torch.float64)
+  td = _port(tm, jd)
+  efc = tcon.make_efc(tm, tphys.pipeline.fwd_velocity(
+      tm, tphys.pipeline.fwd_position(tm, td)))
+  assert efc['x_active'].any(-1).all()  # every env's feet touch down
+  # the per-env friction reaches the cone's coefficient
+  assert len(set(efc['x_mu'][efc['x_active']].tolist())) >= N
+  got = tphys.step(tm, td)
+  for f in ('qpos', 'qvel', 'qacc', 'efc_force', 'sensordata'):
+    _close(getattr(got, f), getattr(want, f), STAGE_TOL, f)
 
 
 SMALL = """
