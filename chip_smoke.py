@@ -117,7 +117,28 @@ Phases, each of which exits non-zero on failure:
      for ELL_STEPS env-steps under the shipped flat actor, K2 never
      launched and K1 ELL_K1 times an env-step, one substep stage by
      stage, 3 PPO iterations through `train.main` with `--env.sim.mujoco.
-     cone elliptic`, 8 envs on the card against the CPU).
+     cone elliptic`, 8 envs on the card against the CPU);
+ 13. run multi-GPU training, `scripts.train --shard` of G1 flat at 4096
+     envs with one minibatch an epoch, the runs compared with another
+     with the actions clipped to 0 and a fixed learning rate (13a: started
+     plainly, a world of one over NCCL for SHARD_ITERS iterations,
+     launches 4/4/8 or 5/5/9 an env-step, one sync an env-step of a
+     rollout after the first and none in the update, the training checks,
+     iteration 1's logs and parameters within 1e-5 of an unsharded
+     `train.main` at the same seed, its checkpoint loaded into an
+     unsharded runner bit for bit and trained on, then training
+     env-steps/s sharded and unsharded in turns, the last two under the
+     policy's actions; which collectives gloo takes CUDA tensors for; 13b:
+     `torch.distributed.run --nproc_per_node 2 chip_smoke.py
+     --shard-rank`, two gloo ranks of 2048 envs on the one card for
+     SHARD2_ITERS iterations, each launching 4/4/8 or 5/5/9 an env-step,
+     their parameters identical to the bit after each iteration, each
+     rank's first env-step within 1e-4 of its rows of the unsharded one,
+     iteration 1's loss, kl and mean reward within rtol 1e-3 of the
+     unsharded run, its parameters by phase 6c's rule (every element
+     within 2 lr x steps, under 1 % beyond lr / 10) and Adam's moments
+     after the first Adam step within 1e-5 of (1 + max |plain|), the
+     checkpoint of 4096 envs loaded and trained on at a world of one).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -129,12 +150,17 @@ phase 7 and its `tracking` its phase-9a numbers; each row's `go1` holds
 its phase-2e numbers, `go1_path_launches` its launches in phase 8,
 `tracking_path_launches` those in phase 9, `rough_path_launches` those
 in phase 10, `nan_path_launches` those in phase 11, `tiny_path_launches`
-those in phase 12b and `elliptic_path_launches` those in phase 12c; K2's
+those in phase 12b, `elliptic_path_launches` those in phase 12c and
+`shard_path_launches` those of phase 13's sharded runs (13a's two and
+both ranks' in 13b; the unsharded runs they are compared with count for
+no path); K2's
 row holds its phase-10d numbers as `rough_go1`, each row its phase-12a
 numbers at the TinyBot's shapes as `tiny`, K1's its numbers on the
 elliptic Hessians as `elliptic_hessians`); the last
 line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
+`python3 chip_smoke.py --shard-rank ROOT TRAIN_ARGS...` is one rank of
+phase 13b, started by the script itself under torch.distributed.run.
 """
 
 from __future__ import annotations
@@ -2820,12 +2846,14 @@ def same_bits(a, b) -> bool:
 
 
 def same_payload(torch, a, b) -> bool:
-  """Two checkpoint payloads equal key for key and bit for bit."""
+  """Two checkpoint payloads (or numpy trees) equal key for key and bit for
+  bit."""
+  import numpy as np
   if isinstance(a, dict):
     return (isinstance(b, dict) and list(a) == list(b)
             and all(same_payload(torch, a[k], b[k]) for k in a))
-  if torch.is_tensor(a):
-    return torch.is_tensor(b) and same_bits(a, b)
+  if torch.is_tensor(a) or isinstance(a, np.ndarray):
+    return type(a) is type(b) and same_bits(a, b)
   return type(a) is type(b) and a == b
 
 
@@ -3511,6 +3539,459 @@ def _elliptic_path(torch, card: str, root: str) -> dict:
   return dict(path)
 
 
+SHARD_ITERS = 3  # PPO iterations of phase 13a's runs
+SHARD2_ITERS = 2  # of phase 13b's 2-rank run
+# phase 13 trains with one minibatch an epoch: a sharded rank's minibatches
+# are stratified by rank (rl/ppo.py), so only a whole-batch minibatch is the
+# same sample set as the unsharded run's, which 13a and 13b compare with
+SHARD_ARGS = ('--agent.algorithm.num_mini_batches', '1')
+# ... and the compared runs clip the actions to 0, so that the rollout does
+# not depend on the policy's float32 products, which cuBLAS rounds
+# differently at 2048 and at 4096 rows; 24 env-steps of falling G1s grow
+# that: with the policy's actions, 13b's iteration-1 kl was 0.7 % and a few
+# parameters ~3e-3 from the unsharded run's on an H100 (PERF.md §6). They
+# keep the learning rate fixed, as phase 6c does, so that Adam's sign step
+# bounds how far an element whose gradient is within rounding of 0 moves
+COMPARED_ARGS = ('--agent.clip_actions', '0.0', '--agent.algorithm.schedule',
+                 'fixed')
+
+
+@contextlib.contextmanager
+def recording(torch):
+  """Within the block, each PPO learn iteration appends the learner's
+  parameters after it (on the CPU) to rec['params'] and Adam's moments to
+  rec['adam'] ({'mu': {...}, 'nu': {...}}), the first Adam step puts the
+  moments after it in rec['first_adam'], and the first env-step of any
+  env puts its observations, reward and done flags in rec['first_step']."""
+  from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
+  from mjlab_torch.rl import ppo
+  from mjlab_torch.rl.ppo import PPO
+  rec = {'params': [], 'adam': [], 'first_adam': None, 'first_step': None}
+  learn, step = PPO.learn_iteration, ManagerBasedRlEnv._step_fn
+  adam_step = ppo.adam_step_
+
+  def moments(adam, to='cpu'):
+    return {m: {k: v.to(to, copy=True) for k, v in getattr(adam, m).items()}
+            for m in ('mu', 'nu')}
+
+  def adam_step_(params, grads, state, lr):
+    adam_step(params, grads, state, lr)
+    if rec['first_adam'] is None:  # a copy on the card: the update's no sync
+      rec['first_adam'] = moments(state, state.count.device)
+
+  def learn_iteration(self, ts):
+    ts, logs = learn(self, ts)
+    rec['params'].append({k: p.detach().cpu().clone()
+                          for k, p in ts.net.named_parameters()})
+    rec['adam'].append(moments(ts.adam))
+    rec['first_adam'] = {m: {k: v.cpu() for k, v in d.items()}
+                         for m, d in rec['first_adam'].items()}
+    return ts, logs
+
+  def step_fn(self, *a, **kw):
+    state, out = step(self, *a, **kw)
+    if rec['first_step'] is None:
+      obs, reward, terminated, truncated, _ = out
+      rec['first_step'] = {
+          **{f'obs/{k}': v.detach().cpu().clone() for k, v in obs.items()},
+          'reward': reward.detach().cpu().clone(),
+          'done': (terminated | truncated).cpu()}
+    return state, out
+
+  PPO.learn_iteration, ManagerBasedRlEnv._step_fn = learn_iteration, step_fn
+  ppo.adam_step_ = adam_step_
+  try:
+    yield rec
+  finally:
+    PPO.learn_iteration, ManagerBasedRlEnv._step_fn = learn, step
+    ppo.adam_step_ = adam_step
+
+
+@contextlib.contextmanager
+def learner_syncs(torch):
+  """Within the block, each PPO rollout appends the messages of its
+  synchronizing CUDA calls to out['rollout'], and GAE, the update and the
+  rollout's logs theirs to out['update'] (count_syncs)."""
+  from mjlab_torch.rl.ppo import PPO
+  kinds = {'_rollout': 'rollout', '_gae': 'update', '_update': 'update',
+           '_rollout_logs': 'update'}
+  plain = {name: getattr(PPO, name) for name in kinds}
+  out = {'rollout': [], 'update': []}
+
+  def counted_call(name):
+    def call(self, *a, **kw):
+      res, syncs = count_syncs(torch, lambda: plain[name](self, *a, **kw))
+      out[kinds[name]].append(syncs)
+      return res
+    return call
+
+  for name in kinds:
+    setattr(PPO, name, counted_call(name))
+  try:
+    yield out
+  finally:
+    for name, fn in plain.items():
+      setattr(PPO, name, fn)
+
+
+def gloo_cuda_probe(torch) -> dict:
+  """Which collectives this torch's gloo takes CUDA tensors for, in a
+  group of one process: {collective: 'ok' or the error's first line}.
+  The port does not depend on it: under gloo every collective of a CUDA
+  tensor goes through the host."""
+  import torch.distributed as dist
+  dist.init_process_group('gloo', store=dist.HashStore(), rank=0,
+                          world_size=1)
+  x = torch.ones(4, device='cuda')
+  calls = {
+      'all_reduce': lambda: dist.all_reduce(x.clone()),
+      'broadcast': lambda: dist.broadcast(x.clone(), 0),
+      'all_gather': lambda: dist.all_gather([torch.empty_like(x)], x),
+      'all_gather_into_tensor': lambda: dist.all_gather_into_tensor(
+          torch.empty_like(x), x),
+      'reduce_scatter_tensor': lambda: dist.reduce_scatter_tensor(
+          torch.empty_like(x), x.clone()),
+  }
+  out = {}
+  try:
+    for name, call in calls.items():
+      try:
+        call()
+        torch.cuda.synchronize()
+        out[name] = 'ok'
+      except (RuntimeError, ValueError, NotImplementedError) as e:
+        out[name] = f'{type(e).__name__}: {str(e).splitlines()[0][:100]}'
+  finally:
+    dist.destroy_process_group()
+  return out
+
+
+def shard_rank(argv) -> None:
+  """One rank of phase 13b, under torch.distributed.run: `train.main` of
+  argv[1:] with its launches counted an env-step and its parameters after
+  each iteration and its first env-step recorded, written to
+  argv[0]/rank<r>.pt."""
+  import collections
+  import os
+
+  import torch
+
+  from mjlab_torch.scripts import train
+  root, train_argv = argv[0], argv[1:]
+  path = collections.Counter()
+  with recording(torch) as rec, counted(path), \
+      launches_per_step(('smooth', 'newton', 'pd_solve')) as per_step:
+    t0 = time.perf_counter()
+    runner = train.main(train_argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  w = runner.world
+  torch.save({'world': (w.rank, w.size, w.backend),
+              'rows': (w.offset, w.n_local), 'device': str(w.device),
+              'per_step': list(per_step), 'envs': sorted(per_step.envs),
+              'launches': dict(path), 'params': rec['params'],
+              'adam': rec['adam'], 'first_adam': rec['first_adam'],
+              'first_step': rec['first_step'], 'wall': wall},
+             os.path.join(root, f'rank{w.rank}.pt'))
+
+
+def run_group(cmd, timeout: float) -> subprocess.CompletedProcess:
+  """`cmd` in a process group of its own, its output captured; at the
+  timeout the whole group (the launcher and its workers) is killed and the
+  phase fails."""
+  import os
+  import signal
+  proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True, start_new_session=True)
+  try:
+    out, err = proc.communicate(timeout=timeout)
+  except subprocess.TimeoutExpired:
+    os.killpg(proc.pid, signal.SIGKILL)
+    out, err = proc.communicate()
+    fail(f'{cmd[:6]} ran past {timeout} s:\n{out[-2000:]}{err[-4000:]}')
+  return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def shard_path(torch, card: str) -> dict:
+  """Phase 13: `scripts.train --shard` of G1 flat at 4096 envs. Returns
+  the kernels' launches over its runs (each rank's, in 13b)."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_shard_')
+  try:
+    return _shard_path(torch, card, root)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _shard_path(torch, card: str, root: str) -> dict:
+  import collections
+  import math
+  import os
+
+  from mjlab_torch.envs.io import env_state_to_numpy
+  from mjlab_torch.parallel.sharding import free_port
+  from mjlab_torch.rl.runner import OnPolicyRunner
+  from mjlab_torch.scripts import train
+  from mjlab_torch.tasks import registry
+
+  kernels = ('smooth', 'newton', 'pd_solve')
+  allowed = {(4, 4, 8), (5, 5, 9)}
+  path = collections.Counter()
+
+  def argv(name, iters, *extra):
+    return [ENV_TASK, '--log-root', root, '--env.scene.num_envs', str(B),
+            *SHARD_ARGS, '--agent.max_iterations', str(iters), '--run-name',
+            name, *extra]
+
+  experiment = registry.load_cfg(ENV_TASK, 'rl_cfg_entry_point').experiment_name
+
+  def metrics(name):
+    run = os.path.join(root, experiment, name)
+    with open(os.path.join(run, 'metrics.jsonl')) as f:
+      return run, [json.loads(line) for line in f]
+
+  def run(name, iters, shard, hooks):
+    """train.main at 4096 envs; `hooks`: a compared run (actions clipped,
+    parameters and first env-step recorded, syncs counted). The launches
+    of a sharded run count for the shard path, an unsharded run's for
+    none."""
+    extra = (['--shard'] if shard else []) + list(
+        COMPARED_ARGS if hooks else ())
+    with contextlib.ExitStack() as stack:
+      rec = stack.enter_context(recording(torch)) if hooks else None
+      syncs = stack.enter_context(learner_syncs(torch)) if hooks else None
+      if shard:
+        stack.enter_context(counted(path))
+      per_step = stack.enter_context(launches_per_step(kernels))
+      runner = train.main(argv(name, iters, *extra))
+      torch.cuda.synchronize()
+    run_dir, lines = metrics(name)
+    T = runner.cfg.num_steps_per_env
+    rate = iters * T * B / lines[-1]['wall_s']
+    return runner, rec, syncs, per_step, run_dir, lines, rate
+
+  # ---- 13a: --shard started plainly, a world of one over NCCL ---------------
+  a, a_rec, a_syncs, a_steps, a_run, a_lines, a_rate = run(
+      'shard1', SHARD_ITERS, True, True)
+  T = a.cfg.num_steps_per_env
+  w = a.world
+  print(f'G1 shard (13a): world of {w.size} over {w.backend}, rank {w.rank}, '
+        f'{w.n_local} envs on {w.device}; launches per rollout env-step '
+        f'(K3, K2, K1) { {s_: a_steps.count(s_) for s_ in set(a_steps)} }; '
+        f'synchronizing calls per rollout {[len(s) for s in a_syncs["rollout"]]}'
+        f', in GAE, the update and the logs '
+        f'{sum(len(s) for s in a_syncs["update"])} '
+        f'{sorted({m for s in a_syncs["update"] for m in s})}', flush=True)
+  check(w.size == 1 and w.backend == 'nccl' and w.group is not None,
+        f'--shard on one card is not a world of one over NCCL: {w}')
+  check(len(a_steps) == SHARD_ITERS * T and set(a_steps) <= allowed
+        and a_steps.envs == {(B, 'cuda')},
+        f'13a launched {sorted(set(a_steps))} on {a_steps.envs}')
+  first = sorted(set(a_syncs['rollout'][0]))
+  print(f'G1 shard (13a): the first rollout\'s synchronizing calls (once '
+        f'a process: first uses): {first}', flush=True)
+  check(all(len(s) == T for s in a_syncs['rollout'][1:])
+        and len(a_syncs['rollout']) == SHARD_ITERS,
+        'a sharded rollout synchronizes other than once an env-step')
+  check(not any(a_syncs['update']), 'the sharded update synchronizes')
+  training_checks(torch, a, a_run, 'G1 shard (13a)', card,
+                  iters=SHARD_ITERS, terrain=False)
+  ckpts = sorted(f for f in os.listdir(a_run) if f.endswith('.pt'))
+  check(ckpts == [f'model_{SHARD_ITERS}.pt'], f'13a wrote {ckpts}')
+
+  b, b_rec, b_syncs, b_steps, b_run, b_lines, b_rate = run(
+      'plain1', SHARD_ITERS, False, True)
+  print(f'G1 unsharded (13a): synchronizing calls per rollout '
+        f'{[len(s) for s in b_syncs["rollout"]]}, in GAE, the update and the '
+        f'logs {sum(len(s) for s in b_syncs["update"])}', flush=True)
+  # the first rollout of a process also waits where a buffer or a
+  # collective is first used (the unsharded one too); later ones do not
+  check(all(len(s) == T for s in b_syncs['rollout'][1:])
+        and not any(b_syncs['update']),
+        'the unsharded rollouts synchronize other than once an env-step')
+  skip = ('_ms', 'wall_s', 'env_steps_per_s')
+  log_err = {k: abs(a_lines[0][k] - v) / (1 + abs(v))
+             for k, v in b_lines[0].items() if not k.endswith(skip)}
+  par_err = {k: rel_err(a_rec['params'][0][k], v)
+             for k, v in b_rec['params'][0].items()}
+  worst_log = max(log_err, key=log_err.get)
+  worst_par = max(par_err, key=par_err.get)
+  same_params = all(torch.equal(a_rec['params'][0][k], v)
+                    for k, v in b_rec['params'][0].items())
+  print(f'G1 shard (13a) against the unsharded train.main, iteration 1: '
+        f'logs err/(1+|plain|) worst {log_err[worst_log]:.3e} ({worst_log}), '
+        f'parameters err/(1+max|plain|) worst {par_err[worst_par]:.3e} '
+        f'({worst_par}), identical to the bit: {same_params} (tolerance '
+        f'1e-5)', flush=True)
+  check(set(a_lines[0]) == set(b_lines[0]), 'the sharded logs differ in keys')
+  check(log_err[worst_log] <= 1e-5 and par_err[worst_par] <= 1e-5,
+        '--shard at a world of one disagrees with the unsharded run')
+
+  # the sharded checkpoint into an unsharded runner, bit for bit; it trains
+  env_u = registry.make(ENV_TASK, **{'scene.num_envs': B})
+  cfg_u = b.cfg  # a compared run's: fixed learning rate, actions clipped
+  fresh = OnPolicyRunner(env_u, cfg_u)
+  fresh.load(os.path.join(a_run, f'model_{SHARD_ITERS}.pt'),
+             load_env_state=True)
+  x, y = a.ts, fresh.ts
+  same = (x.iteration == y.iteration == SHARD_ITERS
+          and torch.equal(x.lr, y.lr)
+          and torch.equal(x.adam.count, y.adam.count)
+          and all(torch.equal(p, y.net.get_parameter(k))
+                  and torch.equal(x.adam.mu[k], y.adam.mu[k])
+                  and torch.equal(x.adam.nu[k], y.adam.nu[k])
+                  for k, p in x.net.named_parameters())
+          and same_payload(torch, env_state_to_numpy(x.env_state, a.env),
+                           env_state_to_numpy(y.env_state, env_u)))
+  logs = fresh.learn(1)
+  print(f'G1 shard (13a): model_{SHARD_ITERS}.pt loads into an unsharded '
+        f'runner bit for bit (learner and env state): {same}; it trains on: '
+        f'iteration {fresh.ts.iteration}, loss {logs["loss"]:.4f}', flush=True)
+  check(same and math.isfinite(logs['loss']),
+        'the sharded checkpoint does not resume unsharded')
+  del a, b, fresh, x, y
+
+  # env-steps/s in turns: sharded, unsharded (above, actions clipped,
+  # hooks on), then unsharded, sharded under the policy's actions
+  rates = {'shard1': a_rate, 'plain1': b_rate}
+  for name, shard in (('plain2', False), ('shard2', True)):
+    rates[name] = run(name, SHARD_ITERS, shard, False)[-1]
+  print(f'G1 shard (13a): training env-steps/s at {B} envs, in turns '
+        f'(sharded at a world of one, unsharded, unsharded, sharded; the '
+        f'first two with actions clipped to 0, parameters recorded an '
+        f'iteration and syncs counted): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in rates.items())
+        + f'; card {card}', flush=True)
+
+  # ---- 13b: torch.distributed.run, 2 gloo ranks on the one card -------------
+  print(f'gloo and CUDA tensors in this torch ({torch.__version__}): '
+        f'{gloo_cuda_probe(torch)}', flush=True)
+  cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node',
+         '2', '--master_addr', '127.0.0.1', '--master_port', str(free_port()),
+         os.path.abspath(__file__), '--shard-rank', root,
+         *argv('ranks2', SHARD2_ITERS, '--shard', *COMPARED_ARGS)]
+  t0 = time.perf_counter()
+  proc = run_group(cmd, 600)
+  wall = time.perf_counter() - t0
+  for line in proc.stdout.splitlines():
+    if line.startswith(('[train] rank', 'it ')):
+      print(f'13b: {line}', flush=True)
+  check(proc.returncode == 0, f'13b: a rank failed ({proc.returncode}):\n'
+        + proc.stdout[-2000:] + proc.stderr[-4000:])
+  ranks = [torch.load(os.path.join(root, f'rank{r}.pt'), weights_only=True)
+           for r in range(2)]
+  run2, lines2 = metrics('ranks2')
+  T2 = T * SHARD2_ITERS
+  for r_ in ranks:
+    path.update(r_['launches'])
+    steps = r_['per_step']
+    print(f'13b rank {r_["world"][0]}: world {r_["world"]}, envs '
+          f'{r_["rows"][0]}..{sum(r_["rows"]) - 1} on {r_["device"]}, '
+          f'launches per env-step (K3, K2, K1) '
+          f'{ {s_: steps.count(s_) for s_ in set(map(tuple, steps))} }, '
+          f'launches {r_["launches"]}, train.main {r_["wall"]:.2f} s',
+          flush=True)
+    check(len(steps) == T2 and set(map(tuple, steps)) <= allowed
+          and [tuple(e) for e in r_['envs']] == [(B // 2, 'cuda')],
+          f'13b rank {r_["world"][0]} launched {set(map(tuple, steps))}')
+  check([r_['world'] for r_ in ranks] == [(0, 2, 'gloo'), (1, 2, 'gloo')],
+        f'13b worlds {[r_["world"] for r_ in ranks]}')
+  same_ranks = [all(torch.equal(p, ranks[1]['params'][i][k])
+                    for k, p in ranks[0]['params'][i].items())
+                and all(torch.equal(v, ranks[1]['adam'][i][m][k])
+                        for m in ('mu', 'nu')
+                        for k, v in ranks[0]['adam'][i][m].items())
+                for i in range(SHARD2_ITERS)]
+  step_err = {}
+  for r_ in ranks:
+    rows = slice(r_['rows'][0], sum(r_['rows']))
+    for k, v in r_['first_step'].items():
+      want = b_rec['first_step'][k][rows]
+      if k == 'done':
+        step_err['done'] = step_err.get('done', True) and torch.equal(v, want)
+      else:
+        step_err[k] = max(step_err.get(k, 0.0), rel_err(v, want))
+  it1 = {k: abs(lines2[0][k] - b_lines[0][k]) / (1e-5 + 1e-3 * abs(
+      b_lines[0][k])) for k in ('loss', 'kl', 'mean_reward')}
+  # the parameters by phase 6c's rule: Adam moves an element whose
+  # gradient is within rounding of 0 by up to 2 lr a step either way, so
+  # every element within 2 lr x steps, and the share beyond lr / 10 under
+  # 0.01; and how many pass the JAX package's 1e-3 + 1e-3 |plain|
+  lr = cfg_u.algorithm.learning_rate
+  n_adam = cfg_u.algorithm.num_learning_epochs
+  diffs = {k: (p - b_rec['params'][0][k]).abs()
+           for k, p in ranks[0]['params'][0].items()}
+  max_diff = max(float(d.max()) for d in diffs.values())
+  n_el = sum(d.numel() for d in diffs.values())
+  share = sum(int((d > lr / 10).sum()) for d in diffs.values()) / n_el
+  beyond = sum(int((d > 1e-3 + 1e-3 * b_rec['params'][0][k].abs()).sum())
+               for k, d in diffs.items())
+  # Adam's moments by the CPU test's rule, max |diff| over (1 + max
+  # |plain|) a tensor (and, printed, over max |plain| alone): held after
+  # the first Adam step, whose gradient is the ranks' all-reduced one
+  # against one batch's from the same parameters; printed after iteration
+  # 1, where Adam's sign steps on elements whose gradient is within
+  # rounding of 0 have moved the parameters apart
+  def moment_err(got, want, rule):
+    err = {f'{m} {k}': rule(v, want[m][k])
+           for m in ('mu', 'nu') for k, v in got[m].items()}
+    worst = max(err, key=err.get)
+    return f'{err[worst]:.3e} ({worst})', err[worst]
+
+  of_max = lambda a, b: max_err(a, b) / (float(b.abs().max()) + 1e-30)
+  first_txt, first_m = moment_err(ranks[0]['first_adam'],
+                                  b_rec['first_adam'], rel_err)
+  first_rel, _ = moment_err(ranks[0]['first_adam'], b_rec['first_adam'],
+                            of_max)
+  it1_txt, _ = moment_err(ranks[0]['adam'][0], b_rec['adam'][0], rel_err)
+  it1_rel, _ = moment_err(ranks[0]['adam'][0], b_rec['adam'][0], of_max)
+  print(f'13b: parameters and Adam moments of both ranks identical to the '
+        f'bit after each iteration: {same_ranks}; first env-step against the unsharded '
+        f'rows, err/(1+max|plain|): '
+        + ', '.join(f'{k} {v:.3e}' for k, v in step_err.items()
+                    if k != 'done')
+        + f' (tolerance 1e-4), done flags equal {step_err["done"]}; '
+        f'iteration 1 against the unsharded run, |diff| over (1e-5 + 1e-3 '
+        f'|plain|) (passes at 1): '
+        + ', '.join(f'{k} {v:.3f}' for k, v in it1.items())
+        + f'; parameters after {n_adam} Adam steps: max |diff| {max_diff:.3e}'
+        f' (tolerance 2 lr x steps = {2 * lr * n_adam:g}), share over lr/10 '
+        f'{share:.2e} (tolerance 0.01), {beyond} of {n_el} elements beyond '
+        f'1e-3 + 1e-3 |plain|; Adam\'s moments of the worst tensor, max '
+        f'|diff| over (1 + max |plain|): after the first Adam step '
+        f'{first_txt} (tolerance 1e-5), after iteration 1 {it1_txt}; over '
+        f'max |plain|: {first_rel}, {it1_rel}', flush=True)
+  check(all(same_ranks), 'the ranks\' learners differ')
+  check(first_m <= 1e-5,
+        '13b\'s first Adam step disagrees with the unsharded run\'s')
+  check(all(v <= 1e-4 for k, v in step_err.items() if k != 'done')
+        and step_err['done'], 'a rank\'s first env-step is not its rows of '
+        'the unsharded step')
+  check(max(it1.values()) <= 1 and max_diff <= 2 * lr * n_adam + 1e-6
+        and share <= 0.01,
+        '13b\'s iteration 1 disagrees with the unsharded run')
+  ckpts = sorted(f for f in os.listdir(run2) if f.endswith('.pt'))
+  check(ckpts == [f'model_{SHARD2_ITERS}.pt'], f'13b wrote {ckpts}')
+  fresh = OnPolicyRunner(env_u, cfg_u)
+  payload = fresh.load(os.path.join(run2, f'model_{SHARD2_ITERS}.pt'),
+                       load_env_state=True)
+  n_ckpt = {v.shape[0] for v in payload['obs'].values()}
+  same = all(torch.equal(p.cpu(), ranks[0]['params'][-1][k])
+             for k, p in fresh.ts.net.named_parameters())
+  logs = fresh.learn(1)
+  rate2 = SHARD2_ITERS * T * B / lines2[-1]['wall_s']
+  print(f'13b: model_{SHARD2_ITERS}.pt holds {n_ckpt} envs, loads into an '
+        f'unsharded runner with the ranks\' parameters bit for bit: {same}; '
+        f'it trains on at a world of one: loss {logs["loss"]:.4f}; the 2-rank '
+        f'run took {wall:.1f} s, {rate2:.1f} training env-steps/s over its '
+        f'learn loop (two processes time-sharing one card through gloo: '
+        f'recorded, not compared); card {card}', flush=True)
+  check(n_ckpt == {B} and same and math.isfinite(logs['loss']),
+        '13b\'s checkpoint does not resume at a world of one')
+  return dict(path)
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -4019,6 +4500,15 @@ def main() -> None:
           f'{r["name"]} was launched {r["elliptic_path_launches"]} times on '
           'the elliptic path')
 
+  # ---- phase 13: multi-GPU training, scripts.train --shard -----------------
+  shard_launches = shard_path(torch, card)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['shard_path_launches'] = int(shard_launches.get(kern, 0))
+    check((r['shard_path_launches'] > 0) == (kern != 'smooth_env'),
+          f'{r["name"]} was launched {r["shard_path_launches"]} times on '
+          'the shard path')
+
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -4032,7 +4522,8 @@ def main() -> None:
           f'{r["rough_path_launches"]}, the nan path '
           f'{r["nan_path_launches"]}, the Tiny path '
           f'{r["tiny_path_launches"]}, the elliptic path '
-          f'{r["elliptic_path_launches"]}; card {card}', flush=True)
+          f'{r["elliptic_path_launches"]}, the shard path '
+          f'{r["shard_path_launches"]}; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -4040,4 +4531,7 @@ def main() -> None:
 
 
 if __name__ == '__main__':
-  main()
+  if sys.argv[1:2] == ['--shard-rank']:  # a rank of phase 13b
+    shard_rank(sys.argv[2:])
+  else:
+    main()

@@ -19,6 +19,14 @@ one read of a device value on the host, `bool(done.any())`.
 Random draws come from one `torch.Generator` on the env's device, seeded
 from `cfg.seed` and handed to every manager.
 
+Sharded (parallel/sharding.py, `world`): the env is one rank's rows of the
+global env of `cfg.scene.num_envs` envs; `num_envs` is the rank's count.
+Its origins and terrain levels are the global env's rows, its generator
+draws the whole env axis and keeps its rows (utils/math.py:
+ShardedGenerator), so env i steps as in one process, and the refresh after
+a reset follows any reset of any rank (one all-reduce of the flag before
+the step's read).
+
 Physics blowups: an env whose state goes non-finite (or past
 `sanity_qvel_limit`) is terminated, reset and its Data sanitized within the
 step. Two debugging aids see the state before `sanitize` does:
@@ -29,7 +37,8 @@ step. Two debugging aids see the state before `sanitize` does:
   up to `min(8, num_envs)` blown-up envs into a device ring in
   `EnvState.forensic` (`MJLAB_BLOWUP_DUMP_MAX` slots, default 40), with no
   host read; `maybe_dump_forensics` fetches it into `<dir>/blowup_ring.npz`
-  for scripts/blowup_replay.py.
+  for scripts/blowup_replay.py (a sharded env's rank writes
+  `blowup_ring_rank<r>.npz`, with global env ids).
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from mjlab_torch.managers.managers import (
     RewardManager,
     TerminationManager,
 )
+from mjlab_torch.parallel.sharding import World, all_reduce_flat
 from mjlab_torch.physics import pipeline as phys_pipeline
 from mjlab_torch.physics.types import Data
 from mjlab_torch.scene.scene import Scene, SceneCfg
@@ -61,6 +71,7 @@ from mjlab_torch.sim.sim import (
     expand_model_fields,
     make_batched_data,
 )
+from mjlab_torch.utils.math import ShardedGenerator
 
 
 @dataclasses.dataclass
@@ -104,17 +115,26 @@ class ManagerBasedRlEnv:
 
   device: 'cuda' unless the caller asks for 'cpu'; asking for CUDA on a
   host without a GPU raises. mj_model: the compiled scene (a
-  mujoco.MjModel or a ModelArrays); None takes `cfg.scene.model_fn()`."""
+  mujoco.MjModel or a ModelArrays); None takes `cfg.scene.model_fn()`.
+  world: this rank's parallel.sharding.World (its device is the env's);
+  None is one process holding every env."""
 
   def __init__(self, cfg: ManagerBasedRlEnvCfg, device='cuda',
-               dtype=torch.float32, mj_model=None):
+               dtype=torch.float32, mj_model=None,
+               world: 'World | None' = None):
     self.cfg = cfg
-    self.num_envs = cfg.scene.num_envs
+    if world is not None and world.num_envs != cfg.scene.num_envs:
+      raise ValueError(f'the world holds {world.num_envs} envs, the cfg '
+                       f'{cfg.scene.num_envs}')
 
     # --- scene + model ---
     self.scene = Scene(cfg.scene, mj_model=mj_model, device=device,
-                       dtype=dtype)
+                       dtype=dtype,
+                       env_rows=None if world is None else world.rows)
     self.device = self.scene.device
+    self.world = world or World(num_envs=cfg.scene.num_envs,
+                                device=self.device)
+    self.num_envs = self.world.n_local
     # the solver and integrator options of the cfg, written into the
     # compiled model as the reference writes them into the spec
     self.scene.mj_model = cfg.sim.mujoco.apply(self.scene.mj_model)
@@ -142,7 +162,9 @@ class ManagerBasedRlEnv:
     self._origin_term = self.curriculum_manager.origin_term()
 
     # --- template state (also used to measure observation widths) ---
-    self._gen = torch.Generator(device=dev)
+    w = self.world
+    self._gen = (ShardedGenerator(dev, (w.offset, n, w.num_envs))
+                 if w.sharded else torch.Generator(device=dev))
     self._gen.manual_seed(cfg.seed)
     data = make_batched_data(base_model, n, device=dev)
     model, data = self.event_manager.apply_startup(model, data, self._gen)
@@ -285,12 +307,15 @@ class ManagerBasedRlEnv:
     keep = ring['env_id'] >= 0
     payload = {k: v[keep] for k, v in ring.items()
                if k not in ('count', 'total_bad')}
-    payload['env_ids'] = payload.pop('env_id')
+    # global env ids: a sharded env's rank holds rows from its offset
+    payload['env_ids'] = payload.pop('env_id') + self.world.offset
     # the replay reads (decimation, n), as the step computes them
     payload['qvel_peaks'] = payload['qvel_peaks'].T
     payload['n_bad_total'] = int(ring['total_bad'])
     payload['model_field_names'] = np.array(self._batched_model_fields)
-    path = os.path.join(self._blowup_dump_dir, 'blowup_ring.npz')
+    name = ('blowup_ring.npz' if not self.world.sharded
+            else f'blowup_ring_rank{self.world.rank}.npz')
+    path = os.path.join(self._blowup_dump_dir, name)
     np.savez(path, **payload)
     print(f'[blowup] ring has {count} captures '
           f'({int(ring["total_bad"])} bad envs total); latest '
@@ -318,7 +343,7 @@ class ManagerBasedRlEnv:
         env_origins=origins,
         terminated=torch.zeros(self.num_envs, dtype=torch.bool,
                                device=self.device),
-        generator=self._gen)
+        generator=self._gen, world=self.world)
 
   # ------------------------------------------------------------------
   # functional core
@@ -477,10 +502,15 @@ class ManagerBasedRlEnv:
     with stage('reset'):
       state, extras = self._reset_masked(state, done, term_info)
     with stage('refresh'):
+      any_done = done.any()
+      if self.world.sharded:
+        flag, = all_reduce_flat([any_done.to(torch.float32)], self.world,
+                                'max')
+        any_done = flag > 0
       if guard is None:
-        refresh = bool(done.any())
+        refresh = bool(any_done)
       else:
-        refresh, blew_up = torch.stack((done.any(), nonfinite.any())).tolist()
+        refresh, blew_up = torch.stack((any_done, nonfinite.any())).tolist()
         guard.settle(blew_up)
       if refresh:
         state = state.replace(
@@ -537,6 +567,16 @@ class ManagerBasedRlEnv:
   def generator(self) -> torch.Generator:
     """The env's one generator (reseeded by `init_state`)."""
     return self._gen
+
+  @property
+  def replicated_state(self) -> frozenset:
+    """Paths ('/'-joined keys of envs/io.py's env_state_to_numpy tree) of
+    the state that every rank of a sharded env holds alike, as its terms
+    name it: parallel.sharding's `replicated_paths` for this env's state."""
+    return frozenset(
+        [f'command/{p}' for p in self.command_manager.replicated_state()]
+        + [f'curriculum/{p}'
+           for p in self.curriculum_manager.replicated_state()])
 
   # ------------------------------------------------------------------
   # gym-like stateful API

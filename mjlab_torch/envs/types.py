@@ -65,6 +65,9 @@ class EnvCtx:
   # the env's one torch.Generator, for terms that draw outside a manager's
   # own generator argument (the terrain-level curriculum)
   generator: 'torch.Generator | None' = None
+  # the env's parallel.sharding.World: terms whose state every rank holds
+  # alike reduce over its ranks (the tracking command's bin failures)
+  world: Any = None
 
   @property
   def max_episode_length_s(self) -> float:

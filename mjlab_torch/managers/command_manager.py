@@ -17,7 +17,12 @@ from mjlab_torch.utils.dataclasses import get_terms
 
 class CommandTerm:
   """Base command term. Subclasses implement _resample/_update/
-  _update_metrics; `device` and `dtype` are those of the env's Model."""
+  _update_metrics; `device` and `dtype` are those of the env's Model.
+  `replicated_state` names the keys of its state that are no per-env rows
+  but every rank's alike in a sharded env (a name ending in '/' names the
+  keys it begins): a checkpoint holds them once, and no rank cuts them."""
+
+  replicated_state: 'tuple[str, ...]' = ()
 
   def __init__(self, cfg: CommandTermCfg, scene, num_envs: int):
     self.cfg = cfg
@@ -89,6 +94,11 @@ class CommandManager:
 
   def init_state(self, gen: torch.Generator) -> dict:
     return {name: term.init_state(gen) for name, term in self.terms.items()}
+
+  def replicated_state(self) -> 'list[str]':
+    """The terms' replicated_state as '<term>/<key>' paths of its state."""
+    return [f'{name}/{k}' for name, term in self.terms.items()
+            for k in term.replicated_state]
 
   def values(self, state: dict) -> dict:
     return {name: term.value(state[name])

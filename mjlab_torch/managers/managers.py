@@ -470,6 +470,13 @@ class CurriculumManager:
         st[name] = init_fn(scene=self.scene, **self.params[name])
     return st
 
+  def replicated_state(self) -> 'list[str]':
+    """'<term>/<key>' paths of the state keys that a term's function names
+    in its `replicated_state` attribute: every rank's alike in a sharded
+    env (CommandTerm.replicated_state)."""
+    return [f'{name}/{k}' for name, tcfg in self.terms.items()
+            for k in getattr(tcfg.func, 'replicated_state', ())]
+
   def compute(self, ctx, state: dict, mask: torch.Tensor):
     """Run curriculum terms on reset envs; returns (new state, metrics)."""
     new_state = dict(state)

@@ -133,9 +133,13 @@ class RunningNorm(nn.Module):
     statistics, in place. The batch variance is the population one
     (ddof 0), as jnp.var's."""
     x = batch.reshape(-1, batch.shape[-1]).to(self.mean.dtype)
-    bmean = x.mean(dim=0)
-    bvar = x.var(dim=0, correction=0)
-    bcount = x.shape[0]
+    self.merge(x.mean(dim=0), x.var(dim=0, correction=0), x.shape[0])
+
+  @torch.no_grad()
+  def merge(self, bmean: torch.Tensor, bvar: torch.Tensor,
+            bcount: int) -> None:
+    """Fold a batch of `bcount` samples of mean `bmean` and population
+    variance `bvar` into the statistics, in place (Chan's merge)."""
     delta = bmean - self.mean
     tot = self.count + bcount
     new_mean = self.mean + delta * (bcount / tot)

@@ -14,6 +14,20 @@ Random draws (initialisation, action noise, minibatch permutations) come
 from the learner's own `torch.Generator` on the env's device, seeded from
 `seed + 1`; the env keeps its own, seeded from `seed`. The learner runs in
 float32 whatever the env's dtype, as the JAX learner does.
+
+Sharded (the env's `world` has a process group, parallel/sharding.py):
+every rank holds the same learner and collects on its own envs. What the
+JAX package's GSPMD reduces over the env axis is reduced here by hand: the
+normalizers' batch moments (merged from the ranks' means and variances:
+two all-reduces an env-step), the advantages' mean and standard deviation
+(the same merge), each minibatch's gradients with its loss terms and kl
+(one all-reduce, then divided by the world size) and the iteration's logs
+(one all-reduce). Action noise is drawn for every
+rank's envs and cut to this rank's rows, so the learner's generator stays
+in lockstep on every rank. Minibatches are stratified by rank: each rank
+permutes its own samples with that generator and takes the same slice, so
+a global minibatch is the union of the ranks' slices; at a world of one
+this is the unsharded update. Under NCCL none of this reads the device.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from mjlab_torch.parallel.sharding import World, all_reduce_flat, broadcast_
 from mjlab_torch.rl.config import RslRlOnPolicyRunnerCfg
 from mjlab_torch.rl.networks import (
     ActorCritic,
@@ -34,6 +49,7 @@ from mjlab_torch.rl.networks import (
     gaussian_entropy,
     gaussian_logprob,
 )
+from mjlab_torch.utils.math import ShardedGenerator, env_rows
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 UPDATE_LOGS = ('loss', 'pg', 'v', 'ent', 'kl')
@@ -157,6 +173,9 @@ class PPO:
     self.env = env
     self.cfg = cfg
     self.device = torch.device(env.device)
+    # the env's world: its rank's envs are `env.num_envs` of world.num_envs
+    self.world: World = (getattr(env, 'world', None)
+                         or World(num_envs=env.num_envs, device=self.device))
     self._step_fn = step_fn or env.step_fn
     self.actor_groups = cfg.obs_groups['policy']
     self.critic_groups = cfg.obs_groups['critic']
@@ -184,7 +203,9 @@ class PPO:
   def init_state(self, seed: 'int | None' = None) -> TrainState:
     seed = self.cfg.seed if seed is None else seed
     env_state, obs = self.env.init_state(seed)
-    gen = torch.Generator(device=self.device)
+    w = self.world
+    gen = (ShardedGenerator(self.device, (w.offset, w.n_local, w.num_envs))
+           if w.sharded else torch.Generator(device=self.device))
     gen.manual_seed(seed + 1)
     net = self.init_net(gen)
     zeros = {k: torch.zeros_like(p) for k, p in net.named_parameters()}
@@ -244,10 +265,9 @@ class PPO:
     clip = self.cfg.clip_actions
     for t in range(self.cfg.num_steps_per_env):
       a_obs, c_obs, a_n, c_n, mean, std, value = self._policy(ts, obs)
-      ts.actor_norm.update(a_obs)
-      ts.critic_norm.update(c_obs)
-      action = mean + std * torch.randn(mean.shape, generator=ts.gen,
-                                        device=dev)
+      self._update_norms(ts, a_obs, c_obs)
+      action = mean + std * env_rows(ts.gen, lambda s: torch.randn(
+          s, generator=ts.gen, device=dev), mean.shape)
       if clip is not None:
         action = action.clamp(-clip, clip)
       logprob = gaussian_logprob(mean, std, action)
@@ -279,6 +299,44 @@ class PPO:
     return traj, last_value, extras, stats
 
   @torch.no_grad()
+  def _update_norms(self, ts: TrainState, a_obs: torch.Tensor,
+                    c_obs: torch.Tensor) -> None:
+    """Fold one env-step's observations into both normalizers; sharded,
+    the moments of every rank's envs (`_moments`: two all-reduces of both
+    normalizers' moments in one buffer)."""
+    if not self.world.sharded:
+      ts.actor_norm.update(a_obs)
+      ts.critic_norm.update(c_obs)
+      return
+    (ma, mc), (va, vc) = self._moments(
+        [a_obs.mean(0), c_obs.mean(0)],
+        [a_obs.var(0, correction=0), c_obs.var(0, correction=0)])
+    n = a_obs.shape[0] * self.world.size
+    ts.actor_norm.merge(ma, va, n)
+    ts.critic_norm.merge(mc, vc, n)
+
+  def _moments(self, means: 'list[torch.Tensor]',
+               variances: 'list[torch.Tensor]'):
+    """The mean and population variance over every rank's samples of each
+    rank's (mean, population variance) pairs, ranks of equal sample counts:
+    the mean of the means, then the mean of variance + (mean - global
+    mean)^2 (Chan's merge, by two all-reduces; no sum of squares, which
+    cancels in float32 on near-constant observations). One rank's pairs
+    come back as they were, to the bit."""
+    w = self.world
+    glob = [m / w.size for m in all_reduce_flat(means, w)]
+    spread = [v + torch.square(m_r - m)
+              for v, m_r, m in zip(variances, means, glob)]
+    return glob, [v / w.size for v in all_reduce_flat(spread, w)]
+
+  def _normalized(self, x: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / (std + 1e-8) over every rank's `x` (population std)."""
+    if not self.world.sharded:
+      return (x - x.mean()) / (x.std(correction=0) + 1e-8)
+    (mean,), (var,) = self._moments([x.mean()], [x.var(correction=0)])
+    return (x - mean) / (torch.sqrt(var) + 1e-8)
+
+  @torch.no_grad()
   def _gae(self, traj: Transition, last_value: torch.Tensor):
     """(advantages, returns) into their preallocated tensors. Truncation
     bootstrapping: reward + gamma V(s) on a time-out; `done` cuts the
@@ -298,7 +356,8 @@ class PPO:
     return self.advantages, self.returns
 
   def _loss(self, net: ActorCritic, mb: tuple, old_std: torch.Tensor):
-    """(loss, (pg, v, ent, kl)) of one minibatch; kl is detached."""
+    """(loss, (pg, v, ent, kl)) of one minibatch, its advantages already
+    normalized; kl is detached."""
     alg = self.cfg.algorithm
     o_a, o_c, act, old_lp, old_mean, old_v, a, ret = mb
     mean = net.act_mean(o_a)
@@ -306,8 +365,6 @@ class PPO:
     value = net.value(o_c)
     lp = gaussian_logprob(mean, std, act)
     ratio = torch.exp(lp - old_lp)
-    if alg.normalize_advantage_per_mini_batch:
-      a = (a - a.mean()) / (a.std(correction=0) + 1e-8)
     surr1 = -a * ratio
     surr2 = -a * ratio.clamp(1 - alg.clip_param, 1 + alg.clip_param)
     pg_loss = torch.maximum(surr1, surr2).mean()
@@ -331,7 +388,8 @@ class PPO:
               returns: torch.Tensor) -> 'dict[str, torch.Tensor]':
     """num_learning_epochs x num_mini_batches Adam steps on ts.net, in
     place; the learning rate is set before the step of the same minibatch.
-    Returns the mean loss terms over the steps."""
+    Returns the mean loss terms over the steps. Sharded, each step's
+    gradients and loss terms are the means over every rank's slice."""
     alg = self.cfg.algorithm
     T, N = traj.reward.shape
     batch = T * N
@@ -341,8 +399,9 @@ class PPO:
         traj.mean, traj.value)]
     adv_f = adv.reshape(batch)
     if not alg.normalize_advantage_per_mini_batch:
-      adv_f = (adv_f - adv_f.mean()) / (adv_f.std(correction=0) + 1e-8)
+      adv_f = self._normalized(adv_f)
     flat += [adv_f, returns.reshape(batch)]
+    world = self.world
     net = ts.net
     params = dict(net.named_parameters())
     with torch.no_grad():
@@ -352,9 +411,17 @@ class PPO:
       perm = torch.randperm(batch, generator=ts.gen, device=self.device)
       for i in range(alg.num_mini_batches):
         idx = perm[i * mb:(i + 1) * mb]
-        loss, (pg, vl, ent, kl) = self._loss(
-            net, tuple(x[idx] for x in flat), old_std)
+        batch_i = [x[idx] for x in flat]
+        if alg.normalize_advantage_per_mini_batch:
+          batch_i[6] = self._normalized(batch_i[6])
+        loss, (pg, vl, ent, kl) = self._loss(net, tuple(batch_i), old_std)
         grads = torch.autograd.grad(loss, list(params.values()))
+        if world.sharded:
+          *grads, terms = all_reduce_flat(
+              list(grads) + [torch.stack([loss.detach(), pg, vl, ent, kl])],
+              world)
+          grads = [g / world.size for g in grads]
+          loss, pg, vl, ent, kl = (terms / world.size).unbind()
         if alg.schedule == 'adaptive':
           ts.lr = adaptive_lr(ts.lr, kl, alg.desired_kl)
         adam_step_(params, clip_by_global_norm(grads, alg.max_grad_norm),
@@ -374,32 +441,56 @@ class PPO:
       adv, returns = self._gae(traj, last_value)
       logs = self._update(ts, traj, adv, returns)
 
-    # aggregate episode logs
     with torch.no_grad():
-      nresets = stats['nresets'].clamp_min(1.0)
-      logs['mean_reward'] = traj.reward.mean() / self.env.step_dt
-      logs['mean_episode_reward'] = stats['ep_rew'] / nresets
-      logs['resets'] = stats['nresets']
+      logs.update(self._rollout_logs(traj, extras, stats))
       logs['lr'] = ts.lr
       logs['std'] = ts.net.std().mean()
-      # env extras: weighted mean over steps by reset counts
-      w = extras['reset_count'].clamp_min(0.0)
-      wsum = w.sum().clamp_min(1.0)
-      for k, v in extras.items():
-        if k in ('reset_count', 'episode_length_sum'):
-          continue
-        if k.startswith('Episode_Termination'):
-          logs[k] = v.sum()
-        else:
-          logs[k] = (v * w).sum() / wsum
-      # true episode length from the env (the rollout-local counter would
-      # cap at num_steps_per_env)
-      if 'episode_length_sum' in extras:
-        logs['mean_episode_length'] = extras['episode_length_sum'].sum() / wsum
-      else:
-        logs['mean_episode_length'] = stats['ep_len'] / nresets
     ts.iteration += 1
     return ts, logs
+
+  def _rollout_logs(self, traj: Transition, extras: dict,
+                    stats: dict) -> 'dict[str, torch.Tensor]':
+    """The rollout's logs over every rank's envs, by one all-reduce when
+    sharded. The env's extras are per env-step (T,): 'Episode_Termination/'
+    counts are summed; 'Curriculum/' metrics are means over the envs,
+    averaged over the ranks; the others are means over the envs that reset
+    (weighted by the reset counts over the steps), reduced as their
+    numerators and the counts."""
+    world = self.world
+    w = extras['reset_count'].clamp_min(0.0)
+    keys = [k for k in extras if k != 'reset_count']
+    num = lambda k: not k.startswith(('Episode_Termination', 'Curriculum/',
+                                      'episode_length_sum'))
+    parts = {'/reward': traj.reward.mean()[None],
+             '/stats': torch.stack([stats['ep_rew'], stats['ep_len'],
+                                    stats['nresets']]), '/w': w}
+    parts.update({k: extras[k] * w if num(k) else extras[k] for k in keys})
+    if world.sharded:
+      parts = dict(zip(parts, all_reduce_flat(list(parts.values()), world)))
+    ep_rew, ep_len, nresets = parts['/stats'].unbind()
+    w = parts['/w']
+    wsum = w.sum().clamp_min(1.0)
+    logs = {'mean_reward':
+                parts['/reward'][0] / world.size / self.env.step_dt,
+            'mean_episode_reward': ep_rew / nresets.clamp_min(1.0),
+            'resets': nresets}
+    for k in keys:
+      v = parts[k]
+      if k == 'episode_length_sum':
+        continue
+      if k.startswith('Episode_Termination'):
+        logs[k] = v.sum()
+      elif k.startswith('Curriculum/'):
+        logs[k] = (v / world.size * w).sum() / wsum
+      else:
+        logs[k] = v.sum() / wsum
+    # true episode length from the env (the rollout-local counter would
+    # cap at num_steps_per_env)
+    if 'episode_length_sum' in extras:
+      logs['mean_episode_length'] = parts['episode_length_sum'].sum() / wsum
+    else:
+      logs['mean_episode_length'] = ep_len / nresets.clamp_min(1.0)
+    return logs
 
   def learn_iteration(self, ts: TrainState):
     """`_learn_iteration` with its collection and learning stages timed;
@@ -418,6 +509,24 @@ class PPO:
         a_obs = ts.actor_norm.normalize(a_obs)
       return ts.net.act_mean(a_obs)
     return act
+
+
+def learner_tensors(ts: TrainState) -> 'list[torch.Tensor]':
+  """The learner's tensors of `ts` in a fixed order: the parameters, Adam's
+  count and moments, both normalizers and the learning rate."""
+  out = [p.data for _, p in ts.net.named_parameters()]
+  out.append(ts.adam.count)
+  out += [ts.adam.mu[k] for k in sorted(ts.adam.mu)]
+  out += [ts.adam.nu[k] for k in sorted(ts.adam.nu)]
+  out += [b for _, b in ts.actor_norm.named_buffers()]
+  out += [b for _, b in ts.critic_norm.named_buffers()]
+  out.append(ts.lr)
+  return out
+
+
+def broadcast_learner(ts: TrainState, world: World) -> None:
+  """Every rank's learner set in place to rank 0's."""
+  broadcast_(learner_tensors(ts), world)
 
 
 def _f32(obs: dict) -> dict:

@@ -6,6 +6,13 @@ files of plain tensors and dicts (`torch.save`, read back with
 the learning rate, the learner's generator, the iteration and, with
 `full_state`, the env's state (through envs/io.py), its observations and
 its generator.
+
+Sharded (the env's `world`, parallel/sharding.py): every rank runs the same
+learn loop, and so the same collectives on the same iterations; only rank 0
+prints, writes `metrics.jsonl` and the writers, saves and exports. A
+checkpoint holds the global env axis, gathered from the ranks, so that it is
+laid out as an unsharded run's and resumes at any world size; `load` gives
+each rank its rows and every rank rank 0's learner.
 """
 
 from __future__ import annotations
@@ -17,9 +24,14 @@ import time
 import numpy as np
 import torch
 
+from mjlab_torch.parallel.sharding import (
+    broadcast_object,
+    gather_env,
+    shard_batched,
+)
 from mjlab_torch.physics.io import resolve_device
 from mjlab_torch.rl.config import RslRlOnPolicyRunnerCfg
-from mjlab_torch.rl.ppo import PPO, AdamState, TrainState
+from mjlab_torch.rl.ppo import PPO, AdamState, TrainState, broadcast_learner
 
 
 def _cpu(tree):
@@ -59,10 +71,12 @@ class OnPolicyRunner:
     self.env = env
     self.cfg = cfg
     self.alg = PPO(env, cfg, step_fn=step_fn)
+    self.world = self.alg.world
     self.ts: TrainState = self.alg.init_state(cfg.seed)
+    broadcast_learner(self.ts, self.world)
     self.log_dir = log_dir
     self._writers = []
-    if log_dir:
+    if log_dir and self.world.is_main:
       os.makedirs(log_dir, exist_ok=True)
       if cfg.logger != 'none':
         from mjlab_torch.rl.writers import make_writers
@@ -73,7 +87,8 @@ class OnPolicyRunner:
   def learn(self, num_iterations: 'int | None' = None,
             log_every: int = 10) -> dict:
     n_iter = num_iterations or self.cfg.max_iterations
-    steps_per_iter = self.cfg.num_steps_per_env * self.env.num_envs
+    # env-steps of every rank's envs
+    steps_per_iter = self.cfg.num_steps_per_env * self.world.num_envs
     last_logs = {}
     t_start = time.time()
     # throughput over the whole logging window: the host runs ahead of the
@@ -114,6 +129,8 @@ class OnPolicyRunner:
     return os.path.join(self.log_dir, f'model_{self.ts.iteration}.pt')
 
   def _write_log(self, logs: dict):
+    if not self.world.is_main:
+      return
     msg = (f"it {logs.get('iteration', 0):6d} | "
            f"rew/s {logs.get('mean_reward', 0):8.3f} | "
            f"ep_rew {logs.get('mean_episode_reward', 0):8.2f} | "
@@ -132,8 +149,8 @@ class OnPolicyRunner:
 
   # ------------------------------------------------------------------
   def save(self, path: str, full_state: bool = True):
-    """Write the learner (and with `full_state` the env's state) to
-    `path`."""
+    """Write the learner (and with `full_state` the env's state, of every
+    rank's envs) to `path`. Every rank calls it; rank 0 writes."""
     ts = self.ts
     payload = {
         'params': _cpu(dict(ts.net.named_parameters())),
@@ -151,18 +168,35 @@ class OnPolicyRunner:
       # env_state_to_numpy leaves out the forensic ring: a checkpoint is
       # the same with the ring on or off
       from mjlab_torch.envs.io import env_state_to_numpy
-      payload['env_state'] = _cpu(env_state_to_numpy(ts.env_state, self.env))
-      payload['obs'] = _cpu(ts.obs)
+      payload['env_state'] = _cpu(gather_env(
+          env_state_to_numpy(ts.env_state, self.env), self.world,
+          replicated_paths=self.env.replicated_state))
+      payload['obs'] = _cpu(gather_env(ts.obs, self.world))
+      # the ranks' generators are in lockstep: rank 0's is every rank's
       payload['env_gen'] = self.env.generator.get_state()
-    torch.save(payload, path)
+    if self.world.is_main:
+      torch.save(payload, path)
 
   def load(self, path: str, load_env_state: bool = False) -> dict:
     """Restore the learner from `path`; the env's state (and generator)
     only on request and only if the checkpoint holds it. Generators are
     restored only from a checkpoint written on the same device type (a
-    CUDA generator's state is no CPU generator's). Returns the checkpoint's
-    payload."""
-    payload = torch.load(path, map_location='cpu', weights_only=True)
+    CUDA generator's state is no CPU generator's). Sharded, rank 0 alone
+    reads the learner and sends it to the others, which need not see the
+    file; with `load_env_state` every rank reads the file and takes its
+    rows of the checkpoint's envs, whose count must be the world's. Every
+    rank then holds rank 0's learner. Returns the checkpoint's payload
+    (sharded and without `load_env_state`, its learner's part)."""
+    world = self.world
+    if world.sharded and not load_env_state:
+      payload = None
+      if world.is_main:
+        payload = {k: v for k, v in torch.load(
+            path, map_location='cpu', weights_only=True).items()
+                   if k not in ('env_state', 'obs', 'env_gen')}
+      payload = broadcast_object(payload, world)
+    else:
+      payload = torch.load(path, map_location='cpu', weights_only=True)
     ts = self.ts
     _copy_(dict(ts.net.named_parameters()), payload['params'])
     adam = payload['adam']
@@ -179,11 +213,19 @@ class OnPolicyRunner:
     ts.iteration = int(payload['iteration'])
     if load_env_state and 'env_state' in payload:
       from mjlab_torch.envs.io import env_state_from_numpy
-      ts.env_state = env_state_from_numpy(_numpy(payload['env_state']),
-                                          self.env)
-      ts.obs = {k: v.to(self.alg.device) for k, v in payload['obs'].items()}
+      n_ckpt = {v.shape[0] for v in payload['obs'].values()}
+      if n_ckpt != {world.num_envs}:
+        raise ValueError(f'the checkpoint holds {n_ckpt} envs, the world '
+                         f'{world.num_envs}')
+      ts.env_state = env_state_from_numpy(
+          shard_batched(_numpy(payload['env_state']), world,
+                        replicated_paths=self.env.replicated_state),
+          self.env)
+      ts.obs = {k: v.to(self.alg.device)
+                for k, v in shard_batched(payload['obs'], world).items()}
       if same_device:
         self.env.generator.set_state(payload['env_gen'])
+    broadcast_learner(ts, self.world)
     return payload
 
   def get_inference_policy(self):
@@ -198,6 +240,8 @@ class VelocityOnPolicyRunner(OnPolicyRunner):
 
   def save(self, path: str, full_state: bool = True):
     super().save(path, full_state)
+    if not self.world.is_main:
+      return
     try:
       from mjlab_torch.rl.exporter import export_policy_as_onnx
       pol = self.cfg.policy
@@ -227,6 +271,8 @@ class MotionTrackingOnPolicyRunner(OnPolicyRunner):
 
   def save(self, path: str, full_state: bool = True):
     super().save(path, full_state)
+    if not self.world.is_main:
+      return
     try:
       from mjlab_torch.rl.exporter import export_motion_policy_as_onnx
       motion = _motion(self.env)

@@ -40,16 +40,20 @@ class SceneCfg:
 
 
 class Scene:
+  """`env_rows`: one rank's slice of a sharded env's `cfg.num_envs` envs
+  (parallel/sharding.py); the scene then holds those envs, with the origins
+  of the global env's rows."""
 
   def __init__(self, cfg: SceneCfg, mj_model=None, device='cuda',
-               dtype=torch.float32):
+               dtype=torch.float32, env_rows: 'slice | None' = None):
     self.cfg = cfg
-    self.num_envs = cfg.num_envs
+    self._rows = slice(0, cfg.num_envs) if env_rows is None else env_rows
+    self.num_envs = self._rows.stop - self._rows.start
     self.device = phys_io.resolve_device(device)
     self._dtype = dtype
     self.terrain = None
     if cfg.terrain is not None:
-      self.terrain = TerrainImporter(cfg.terrain, cfg.num_envs)
+      self.terrain = TerrainImporter(cfg.terrain, cfg.num_envs, self._rows)
     gen = None if self.terrain is None else self.terrain.generator
     if mj_model is None:
       if cfg.model_fn is None:
@@ -90,5 +94,6 @@ class Scene:
   def env_origins(self) -> torch.Tensor:
     """(num_envs, 3) spawn origins from the terrain, or a square grid."""
     origins = (self.terrain.env_origins if self.terrain is not None
-               else grid_origins(self.num_envs, self.cfg.env_spacing))
+               else grid_origins(self.cfg.num_envs,
+                                 self.cfg.env_spacing)[self._rows])
     return table(origins, self._dtype, self.device)

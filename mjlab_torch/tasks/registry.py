@@ -38,10 +38,12 @@ def load_cfg(task_id: str, kind: str = 'env_cfg_entry_point'):
 
 
 def make(task_id: str, cfg=None, device='cuda', dtype=torch.float32,
-         mj_model=None, **cfg_overrides):
+         mj_model=None, world=None, **cfg_overrides):
   """Build the task's environment on `device` (the GPU unless the caller
   asks for 'cpu'). `mj_model` replaces the compiled scene the cfg names;
-  `cfg_overrides` set dotted cfg fields (`**{'scene.num_envs': 4096}`)."""
+  `world` makes it one rank's part of a sharded env
+  (parallel/sharding.py); `cfg_overrides` set dotted cfg fields
+  (`**{'scene.num_envs': 4096}`)."""
   from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
   if cfg is None:
     cfg = load_cfg(task_id)
@@ -52,7 +54,7 @@ def make(task_id: str, cfg=None, device='cuda', dtype=torch.float32,
       obj = getattr(obj, p)
     setattr(obj, parts[-1], v)
   return ManagerBasedRlEnv(cfg, device=device, dtype=dtype,
-                           mj_model=mj_model)
+                           mj_model=mj_model, world=world)
 
 
 def _import_all():

@@ -67,6 +67,9 @@ class MotionCommandCfg(CommandTermCfg):
 
 class MotionCommand(CommandTerm):
 
+  # the clip, and the bin failures every rank reduces over the ranks
+  replicated_state = ('bin_failed', 'current_bin_failed', 'motion/')
+
   def __init__(self, cfg: MotionCommandCfg, scene, num_envs: int):
     super().__init__(cfg, scene, num_envs)
     self.view = view = scene[cfg.asset_name]
@@ -185,9 +188,10 @@ class MotionCommand(CommandTerm):
     probs = self._adaptive_probs(st)
     # the JAX package draws jax.random.categorical on log(probs + 1e-12):
     # these are the probabilities those logits give
-    bins = torch.multinomial(torch.softmax(torch.log(probs + 1e-12), -1), n,
-                             replacement=True, generator=gen)
-    frac = torch.rand(n, generator=gen, dtype=self.dtype, device=gen.device)
+    p = torch.softmax(torch.log(probs + 1e-12), -1)
+    bins = tmath.env_rows(gen, lambda s: torch.multinomial(
+        p, s[0], replacement=True, generator=gen), (n,))
+    frac = tmath.sample_uniform(gen, 0.0, 1.0, (n,), self.dtype)
     new_ts = ((bins + frac) / self.n_bins * (T - 1)).to(torch.int32)
     st = dict(st)
     H = -(probs * torch.log(probs + 1e-12)).sum() / math.log(self.n_bins)
@@ -238,7 +242,12 @@ class MotionCommand(CommandTerm):
     st['body_pos_relative_w'] = delta_pos[:, None, :] + tmath.quat_apply(
         delta_ori, self.body_pos_w(st, ctx) - anchor_pos[:, None, :])
 
-    # EMA of failure bins
+    # EMA of failure bins, over the failures of every rank's envs
+    world = ctx.world
+    if world is not None and world.sharded:
+      from mjlab_torch.parallel.sharding import all_reduce_flat
+      st['current_bin_failed'], = all_reduce_flat(
+          [st['current_bin_failed']], world)
     a = self.cfg.adaptive_alpha
     st['bin_failed'] = a * st['current_bin_failed'] + (1 - a) * st[
         'bin_failed']

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from mjlab_torch.physics.tables import table
+from mjlab_torch.utils import math as tmath
 
 
 def commands_vel(ctx, state, mask, command_name: str = 'twist',
@@ -40,13 +41,17 @@ def _commands_vel_init(scene=None, base_range=(-1.0, 1.0), **kw):
 
 
 commands_vel.init_state = _commands_vel_init
+# the ranges follow the global step: every rank's alike
+commands_vel.replicated_state = ('range_lin_vel_x', 'range_ang_vel_z')
 
 
 def draw_levels(ctx, num_envs: int, max_level: int) -> torch.Tensor:
   """A level in [0, max_level) for every env, from the env's generator:
   where the terrain-level curriculum sends an env promoted past the top."""
-  return torch.randint(0, max_level, (num_envs,), generator=ctx.generator,
-                       device=ctx.env_origins.device)
+  gen = ctx.generator
+  return tmath.env_rows(gen, lambda s: torch.randint(
+      0, max_level, s, generator=gen, device=ctx.env_origins.device),
+                        (num_envs,))
 
 
 def terrain_levels_vel(ctx, state, mask, command_name: str = 'twist',

@@ -41,11 +41,24 @@ class TerrainImporter:
   """The terrain's env origins; for a generator terrain also the generator,
   each env's level (row) and type (column), and the (level, type) table of
   spawn origins that the terrain-level curriculum moves envs over.
-  `check_scene` checks a compiled scene against it."""
+  `check_scene` checks a compiled scene against it.
 
-  def __init__(self, cfg: TerrainImporterCfg, num_envs: int):
+  `num_envs` is the global env count; with `rows` (one rank's slice of a
+  sharded env, parallel/sharding.py) the per-env arrays are those rows of
+  the global env's."""
+
+  def __init__(self, cfg: TerrainImporterCfg, num_envs: int,
+               rows: 'slice | None' = None):
     self.cfg = cfg
-    self.num_envs = num_envs
+    self._lay_out(num_envs)
+    rows = slice(None) if rows is None else rows
+    self.env_origins = self.env_origins[rows]
+    self.terrain_levels = self.terrain_levels[rows]
+    self.terrain_types = self.terrain_types[rows]
+    self.num_envs = len(self.env_origins)
+
+  def _lay_out(self, num_envs: int) -> None:
+    cfg = self.cfg
     self.generator: 'TerrainGenerator | None' = None
     if cfg.terrain_type == 'plane':
       self.env_origins = grid_origins(num_envs, cfg.env_spacing)

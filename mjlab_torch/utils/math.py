@@ -3,7 +3,8 @@
 Counterpart of mjlab_tpu/utils/math.py, holding what the environment layer
 calls. Quaternions are (w, x, y, z); every function broadcasts over leading
 axes. Samplers draw from an explicit `torch.Generator` that lives on the
-device of the result.
+device of the result; a sharded env's generator draws the whole env axis
+and keeps its rows (`ShardedGenerator`, `env_rows`).
 """
 
 from __future__ import annotations
@@ -81,11 +82,40 @@ def wrap_to_pi(angle: torch.Tensor) -> torch.Tensor:
   return torch.remainder(angle + math.pi, 2 * math.pi) - math.pi
 
 
+class ShardedGenerator(torch.Generator):
+  """The generator of one rank of a sharded env or learner
+  (parallel/sharding.py). Seeded alike on every rank, it draws the whole
+  env axis wherever a draw has one, so that env i draws what it draws in
+  one process, and keeps the rank's rows: `rows` is (offset, n_local,
+  num_envs). The ranks' generators stay in lockstep; each draw costs the
+  random numbers of every rank's envs."""
+
+  def __new__(cls, device, rows: 'tuple[int, int, int]'):
+    return super().__new__(cls, device)
+
+  def __init__(self, device, rows: 'tuple[int, int, int]'):
+    self.rows = rows
+
+
+def env_rows(gen: torch.Generator, draw, shape) -> torch.Tensor:
+  """`draw(shape)`, where a leading axis of the rank's env count is the
+  env axis: with a ShardedGenerator it is drawn at the global env count and
+  cut to the rank's rows."""
+  shape = tuple(shape)
+  rows = getattr(gen, 'rows', None)
+  if rows is None or not shape or shape[0] != rows[1] or rows[1] == rows[2]:
+    return draw(shape)
+  offset, n, total = rows
+  return draw((total,) + shape[1:])[offset:offset + n].clone()
+
+
 def sample_uniform(gen: torch.Generator, lo, hi, shape, dtype=torch.float32
                    ) -> torch.Tensor:
   """Uniform on [lo, hi) as lo + (hi - lo) * u, so a range collapsed to a
-  point gives exactly that point. The result lives on `gen`'s device."""
-  u = torch.rand(shape, generator=gen, dtype=dtype, device=gen.device)
+  point gives exactly that point. The result lives on `gen`'s device; a
+  leading env axis draws as env_rows says."""
+  u = env_rows(gen, lambda s: torch.rand(s, generator=gen, dtype=dtype,
+                                         device=gen.device), shape)
   return lo + (hi - lo) * u
 
 
@@ -97,5 +127,6 @@ def sample_log_uniform(gen: torch.Generator, lo, hi, shape,
 
 def sample_gaussian(gen: torch.Generator, mean, std, shape,
                     dtype=torch.float32) -> torch.Tensor:
-  return mean + std * torch.randn(shape, generator=gen, dtype=dtype,
-                                  device=gen.device)
+  return mean + std * env_rows(
+      gen, lambda s: torch.randn(s, generator=gen, dtype=dtype,
+                                 device=gen.device), shape)

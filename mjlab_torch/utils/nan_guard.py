@@ -101,9 +101,12 @@ class NanGuard:
     os.makedirs(self.out_dir, exist_ok=True)
     stamp = time.strftime('%Y%m%d_%H%M%S')
     path = os.path.join(self.out_dir, f'nan_dump_{stamp}.npz')
+    # global env ids: a sharded env's rank holds rows from its offset
+    world = getattr(self.env, 'world', None)
+    env_ids = bad_ids + (0 if world is None else world.offset)
     np.savez(
         path,
-        bad_env_ids=bad_ids,
+        bad_env_ids=env_ids,
         steps=np.array([int(s) for s in hist['step']]),
         qpos=hist['qpos'],
         qvel=hist['qvel'],
@@ -116,7 +119,7 @@ class NanGuard:
       snap = (mj_model if isinstance(mj_model, ModelArrays)
               else ModelArrays.of(mj_model))
       snap.save(os.path.join(self.out_dir, 'model.npz'))
-    print(f'[NanGuard] non-finite state in envs {bad_ids.tolist()}; '
+    print(f'[NanGuard] non-finite state in envs {env_ids.tolist()}; '
           f'dumped {len(hist["step"])}-step history to {path}', flush=True)
 
   # -- the wrapper ----------------------------------------------------

@@ -26,7 +26,8 @@ from mjlab_torch.ops import smooth_kernel as tsk
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mjlab_tpu')
 SUBPACKAGES = ('utils', 'sim', 'entity', 'scene', 'terrains', 'managers',
-               'envs', 'tasks', 'rl', 'scripts', 'physics', 'ops', 'asset_zoo')
+               'envs', 'tasks', 'rl', 'scripts', 'physics', 'ops', 'asset_zoo',
+               'parallel')
 
 
 def _modules():
@@ -54,7 +55,8 @@ def test_the_walk_reaches_every_subpackage():
                'tasks.tracking.mdp.terminations',
                'tasks.tracking.config.g1.flat_env_cfg',
                'asset_zoo.tiny_bot', 'asset_zoo.tiny_scene',
-               'tasks.velocity.config.tiny', 'tasks.tracking.config.tiny'):
+               'tasks.velocity.config.tiny', 'tasks.tracking.config.tiny',
+               'parallel.sharding'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
@@ -132,6 +134,20 @@ def test_every_module_imports_without_jax():
                        capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == 'ok'
+
+
+def test_train_help_imports_no_jax():
+  """`scripts.train --help` (which lists --shard) runs with JAX and the JAX
+  package unimportable, and so does importing mjlab_torch.parallel."""
+  block = '; '.join(f'sys.modules[{b!r}] = None' for b in BANNED)
+  code = (f'import runpy, sys; {block}; '
+          'import mjlab_torch.parallel.sharding; '
+          "sys.argv = ['train', '--help']; "
+          "runpy.run_module('mjlab_torch.scripts.train', run_name='__main__')")
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+  assert out.returncode == 0, out.stderr
+  assert '--shard' in out.stdout
 
 
 def _python_files():

@@ -39,6 +39,7 @@ from mjlab_tpu.envs.manager_based_rl_env import ManagerBasedRlEnv as JaxEnv
 from mjlab_tpu.scripts import nan_viz as jax_nan_viz
 from mjlab_tpu.utils.nan_guard import NanGuard as JaxGuard
 from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
+from mjlab_torch.parallel.sharding import World
 from mjlab_torch.rl.runner import OnPolicyRunner
 from mjlab_torch.scripts import blowup_replay, nan_viz, train
 from mjlab_torch.tasks import registry
@@ -216,7 +217,8 @@ def _stand_ins(tmp_path):
   jenv = SimpleNamespace(**common)
   tenv = SimpleNamespace(**common, device=torch.device('cpu'),
                          cfg=SimpleNamespace(decimation=DEC),
-                         action_manager=SimpleNamespace(total_dim=NA))
+                         action_manager=SimpleNamespace(total_dim=NA),
+                         world=World(RING_N, torch.device('cpu')))
   jenv._blowup_dump_dir = str(tmp_path / 'jax')
   tenv._blowup_dump_dir = str(tmp_path / 'torch')
   return jenv, tenv

@@ -333,8 +333,9 @@ def _state(jterm, tterm, n, seed=1):
 
 
 def _ctx(conv, origins, terminated=None):
+  # world: the env context's parallel.sharding.World, none for one process
   return types.SimpleNamespace(
-      data=None, env_origins=conv(origins),
+      data=None, env_origins=conv(origins), world=None,
       terminated=None if terminated is None else conv(terminated))
 
 
