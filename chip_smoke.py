@@ -138,7 +138,22 @@ Phases, each of which exits non-zero on failure:
      unsharded run, its parameters by phase 6c's rule (every element
      within 2 lr x steps, under 1 % beyond lr / 10) and Adam's moments
      after the first Adam step within 1e-5 of (1 + max |plain|), the
-     checkpoint of 4096 envs loaded and trained on at a world of one).
+     checkpoint of 4096 envs loaded and trained on at a world of one);
+ 14. run the engine's oracle models of equality constraints, tendons,
+     mocap bodies and sensors (asset_zoo/oracle_models.py: connect, weld,
+     joint, the four-bar, the mocap weld, the tendon model and the sensor
+     robot) through put_model, make_batched_data and step at 4096 envs
+     (14a: each from seeded states under seeded controls for
+     ORACLE_SUBSTEPS substeps, ORACLE_PLAIN_SUBSTEPS where the plain
+     Newton solves its equality rows, the mocap target moving on a circle,
+     launches a substep equal to ORACLE_LAUNCHES, everything finite, the
+     equality residual within ORACLE_RESIDUAL, the welded box within
+     ORACLE_LAG of its target, tendon-limit rows active in some envs,
+     substeps/s, the run's first 8 envs (float32) against the CPU in
+     float64 over its first 20 substeps; 14b: K2 at the tendon model's and the robot's
+     shapes and K1 on every Hessian of the four-bar's plain Newton, each
+     against its plain version and timed, one four-bar substep stage by
+     stage and the equality block's share of it).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -153,10 +168,12 @@ in phase 10, `nan_path_launches` those in phase 11, `tiny_path_launches`
 those in phase 12b, `elliptic_path_launches` those in phase 12c and
 `shard_path_launches` those of phase 13's sharded runs (13a's two and
 both ranks' in 13b; the unsharded runs they are compared with count for
-no path); K2's
-row holds its phase-10d numbers as `rough_go1`, each row its phase-12a
+no path), `oracle_path_launches` those of phase 14a's runs; K2's
+row holds its phase-10d numbers as `rough_go1` and its phase-14b numbers
+as `oracle_tendon` and `oracle_robot`, each row its phase-12a
 numbers at the TinyBot's shapes as `tiny`, K1's its numbers on the
-elliptic Hessians as `elliptic_hessians`); the last
+elliptic Hessians as `elliptic_hessians` and on the four-bar's as
+`oracle_fourbar_hessians`); the last
 line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
 `python3 chip_smoke.py --shard-rank ROOT TRAIN_ARGS...` is one rank of
@@ -1467,9 +1484,8 @@ def shape_kernels(torch, card: str, busy, what: str, m, d,
   the tolerances of phase 2 and timed as there; `widths` the (n, ncr, nl)
   K2 must take. Returns {kernel: its numbers}."""
   from mjlab_torch.ops import newton as k_newton
-  from mjlab_torch.ops import pd_solve as k_pd
   from mjlab_torch.ops import smooth_kernel as k_smooth
-  from mjlab_torch.physics import constraint, linalg, pipeline, smooth
+  from mjlab_torch.physics import constraint, pipeline, smooth
   from mjlab_torch.physics import smooth_fused, solver
   from mjlab_torch.physics.types import GeomType
 
@@ -1509,31 +1525,9 @@ def shape_kernels(torch, card: str, busy, what: str, m, d,
         f'{k_newton.newton_smem_bytes(n, ncr, nl)} B of shared memory a '
         f'block', flush=True)
   check((n, ncr, nl) == widths, f'the {what} rows are not {widths}')
-  check(k_newton.fits(n, ncr, nl), f'K2 does not fit the {what}')
   check(box_envs > 0, f'no active plane-box rows in the {what} K2 input')
-  args = solver.newton_args(df, efc)
-  iters, polish, ldof, grad_th = solver.solver_params(s)
-  kargs = dict(iterations=iters, ls_polish=polish, ldof=ldof,
-               grad_th=grad_th)
-  got = k_newton.newton_solve_cuda(*args, **kargs)
-  want = solver.newton_plain(*args, iters, polish, ldof, grad_th)
-  rel = max(rel_err(a, b) for a, b in zip(got, want))
-  check(rel <= 1e-3, f'K2 disagrees with its plain version on the {what}: '
-        f'{rel:.3e}')
-  call = lambda: k_newton.newton_solve_cuda(*args, **kargs)
-  need, nc, rows_b, nbytes, flops = newton_work(torch, solver, args, iters,
-                                                polish, ldof, grad_th)
-  bound, by = bound_ms(nbytes, flops)
-  out['newton'] = dict(
-      max_abs_err=max_err(got[0], want[0]), rel_err=rel,
-      ms=time_ms(torch, call, 20),
-      device_ms=time_ms(torch, call, 20, busy=busy),
-      plain_ms=time_ms(torch, lambda: solver.newton_plain(
-          *args, iters, polish, ldof, grad_th), 5),
-      bound_ms=bound, bound_by=by, library_ms=None,
-      newton_steps=float(need.double().mean()),
-      active_contact_rows=float(nc.double().mean()),
-      smem_bytes=k_newton.newton_smem_bytes(n, ncr, nl))
+  out['newton'] = k2_numbers(torch, busy, m, solver.newton_args(df, efc),
+                             f'the {what}')
 
   # K1 on the implicitfast system
   dfw = pipeline.forward(m, d)
@@ -2313,12 +2307,17 @@ def substep_stages(torch, m, d, card: str, what: str) -> dict:
     efc['v'] = constraint.make_efc(m, d)
     return d
 
-  solve = ('solve (plain Newton, K1)' if constraint.elliptic_dmax(m.stat)
-           else 'solve (K2)')
+  plain = (constraint.elliptic_dmax(m.stat)
+           or constraint.efc_layout(m.stat).ne)
+  solve = 'solve (plain Newton, K1)' if plain else 'solve (K2)'
+  if m.stat.integrator == 0:  # Euler, its implicit damping solved by K1
+    integrate = ('euler (K1)', lambda d: pipeline._euler(m, d))
+  else:
+    integrate = ('implicitfast (K1)', lambda d: pipeline._implicitfast(m, d))
   stages = (
       ('smooth_all (K3)', lambda d: smooth_fused.smooth_all(m, d)),
       ('collision', lambda d: smooth.transmission(
-          m, collision.collision(m, d))),
+          m, smooth.tendon(m, collision.collision(m, d)))),
       ('passive+actuation', lambda d: smooth.actuation(
           m, pipeline.fwd_velocity(m, d))),
       ('fwd_smooth (K1)', lambda d: smooth.fwd_smooth(m, d)),
@@ -2326,7 +2325,7 @@ def substep_stages(torch, m, d, card: str, what: str) -> dict:
       (solve, lambda d: solver.solve(m, d, efc['v'])),
       ('sensors', lambda d: sensor.sensors(
           m, d.replace(qacc_warmstart=d.qacc))),
-      ('implicitfast (K1)', lambda d: pipeline._implicitfast(m, d)),
+      integrate,
   )
   gpu = {name: [] for name, _ in stages}
   host = {name: [] for name, _ in stages}
@@ -3162,19 +3161,7 @@ def elliptic_hessians(torch, card: str, busy) -> dict:
   df = smooth.fwd_smooth(m, smooth.actuation(m, df))
   efc = constraint.make_efc(m, df)
   args, xargs = solver.newton_args(df, efc), solver.elliptic_args(efc)
-  iters, polish, ldof, grad_th = solver.solver_params(s)
-  seen = []
-  kernel = k_pd.solve_pd
-
-  def recording(H, g):
-    seen.append((H.contiguous().clone(), g.contiguous().clone()))
-    return kernel(H, g)
-
-  k_pd.solve_pd = recording
-  try:
-    x, *_ = solver.newton_plain(*args, iters, polish, ldof, grad_th, xargs)
-  finally:
-    k_pd.solve_pd = kernel
+  seen, x = newton_hessians(torch, m, args, xargs=xargs)
   xJ, x_aref, xD, x_mu, x_fr, x_act = xargs
   jx = torch.einsum('bcdv,bv->bcd', xJ, x) - x_aref
   mid, bot, *_ = solver._elliptic_zones(jx, xD, x_mu, x_fr, x_act)
@@ -3200,8 +3187,6 @@ def elliptic_hessians(torch, card: str, busy) -> dict:
         + ', '.join(f'({a:.2e}, {b:.2e}, {c:.2e})' for a, b, c in errs)
         + ' (tolerance: 1e-4 beyond twice the plain version\'s float32 '
         'floor, and never above 1e-3)', flush=True)
-  check(len(seen) == iters, f'the plain Newton called K1 {len(seen)} times, '
-        f'not {iters}')
   check(zones['middle'] > 0, 'no elliptic contact in the cone\'s middle '
         'zone: the Hessians hold no non-diagonal block')
   # the floor follows the plain version; the fixed ceiling keeps a worse
@@ -3992,10 +3977,307 @@ def _shard_path(torch, card: str, root: str) -> dict:
   return dict(path)
 
 
+ORACLE_SUBSTEPS = 200  # substeps of each oracle model in phase 14 ...
+# ... but of one whose equality rows the plain Newton solves: its substep
+# takes ~250 ms of host issue at 4096 envs on an H100 (PERF.md §5), and
+# 200 of them each put the script at ~840 s of its 1200
+ORACLE_PLAIN_SUBSTEPS = 100
+# phase 14's launches a substep of each oracle model, (K3, K2, K1), written
+# into PERF.md before the first call on the card: K3 on every tree but the
+# mocap one (its gate); K2 only without equality rows (its gate: the
+# tendon model, its limit rows in the contact block, and the robot); K1
+# for the smooth acceleration, the integrator and, where the plain Newton
+# solves, each of its ITERATIONS iterations
+ORACLE_LAUNCHES = {'connect': (1, 0, 32), 'weld': (1, 0, 32),
+                   'joint': (1, 0, 32), 'fourbar': (1, 0, 32),
+                   'mocap_weld': (0, 0, 32), 'tendon': (1, 1, 2),
+                   'robot': (1, 1, 2)}
+# phase 14's gates on the state each model reaches, written before the
+# first call on the card: every equality residual of a model without a
+# moving target (m, or the weld's torque-scaled rad) within
+# ORACLE_RESIDUAL; the welded box within ORACLE_LAG m of where the weld
+# holds it (its target, moving at 2 m/s, plus the compiled offset)
+ORACLE_RESIDUAL = 0.01
+ORACLE_LAG = 0.12
+
+
+def oracle_states(torch, m, name: str, batch: int, seed: int):
+  """`batch` seeded states of the oracle model `name` (float32, on the
+  model's device): qpos0 moved by up to 0.05 and velocities up to 0.3 a
+  coordinate; the tendon model's hinges up to 0.8 rad, so the coupling of
+  some envs starts past its +-0.5 limit; the robot's base raised by up to
+  0.2 m, its foot on the floor in the lower envs; controls drawn in their
+  ranges."""
+  s, dev = m.stat, m.qpos0.device
+  gen = torch.Generator().manual_seed(seed)
+  u = lambda *shape: 2.0 * torch.rand(*shape, generator=gen) - 1.0
+  qpos = m.qpos0.cpu().float().expand(batch, s.nq) + 0.05 * u(batch, s.nq)
+  qvel = 0.3 * u(batch, s.nv)
+  if name == 'tendon':
+    qpos[:, :2] = 0.8 * u(batch, 2)
+  if name == 'robot':
+    qpos[:, 2] += 0.1 * (u(batch) + 1.0)
+  lo, hi = m.actuator_ctrlrange.cpu().float().unbind(-1)
+  ctrl = lo + (hi - lo) * 0.5 * (u(batch, s.nu) + 1.0)
+  return (qpos.to(dev), qvel.to(dev), ctrl.to(dev))
+
+
+def mocap_targets(torch, t: int, batch: int, device):
+  """(batch, 1, 3) mocap targets at substep t: the circle of
+  tests/test_equality.py's test_mocap_weld_target_parity, each env on its
+  own phase."""
+  ph = 0.02 * (t + 7 * torch.arange(batch, device=device, dtype=torch.float32))
+  return torch.stack([0.3 + 0.2 * torch.sin(ph),
+                      torch.full_like(ph, 0.1),
+                      1.2 + 0.1 * torch.cos(ph)], -1)[:, None]
+
+
+def k2_numbers(torch, busy, m, args, what: str) -> dict:
+  """K2 on the Newton inputs `args` of the model `m` against its plain
+  version (within 1e-3 of (1 + max |plain|)), timed bare, behind a busy
+  card and plain; the work its inputs need and its bound."""
+  from mjlab_torch.ops import newton as k_newton
+  from mjlab_torch.physics import solver
+  iters, polish, ldof, grad_th = solver.solver_params(m.stat)
+  kargs = dict(iterations=iters, ls_polish=polish, ldof=ldof,
+               grad_th=grad_th)
+  n, ncr, nl = m.stat.nv, args[3].shape[1], len(ldof)
+  check(k_newton.fits(n, ncr, nl), f'K2 does not fit {what}')
+  got = k_newton.newton_solve_cuda(*args, **kargs)
+  want = solver.newton_plain(*args, iters, polish, ldof, grad_th)
+  rel = max(rel_err(a, b) for a, b in zip(got, want))
+  check(all(bool(torch.isfinite(g).all()) for g in got),
+        f'K2 gave non-finite output on {what}')
+  check(rel <= 1e-3, f'K2 disagrees with its plain version on {what}: '
+        f'{rel:.3e}')
+  call = lambda: k_newton.newton_solve_cuda(*args, **kargs)
+  need, nc, _, nbytes, flops = newton_work(torch, solver, args, iters,
+                                           polish, ldof, grad_th)
+  bound, by = bound_ms(nbytes, flops)
+  return dict(
+      max_abs_err=max_err(got[0], want[0]), rel_err=rel,
+      ms=time_ms(torch, call, 20),
+      device_ms=time_ms(torch, call, 20, busy=busy),
+      plain_ms=time_ms(torch, lambda: solver.newton_plain(
+          *args, iters, polish, ldof, grad_th), 5),
+      bound_ms=bound, bound_by=by, library_ms=None,
+      newton_steps=float(need.double().mean()),
+      active_contact_rows=float(nc.double().mean()), widths=(n, ncr, nl),
+      smem_bytes=k_newton.newton_smem_bytes(n, ncr, nl))
+
+
+def newton_hessians(torch, m, args, xargs=None, ne: int = 0):
+  """([(H, g) of each plain Newton iteration], the solution) on the inputs
+  `args` (and the elliptic block `xargs`): the systems the plain solve
+  hands K1."""
+  from mjlab_torch.ops import pd_solve as k_pd
+  from mjlab_torch.physics import solver
+  iters, polish, ldof, grad_th = solver.solver_params(m.stat)
+  seen, kernel = [], k_pd.solve_pd
+
+  def recording(H, g):
+    seen.append((H.contiguous().clone(), g.contiguous().clone()))
+    return kernel(H, g)
+
+  k_pd.solve_pd = recording
+  try:
+    x, *_ = solver.newton_plain(*args, iters, polish, ldof, grad_th, xargs,
+                                ne)
+  finally:
+    k_pd.solve_pd = kernel
+  check(len(seen) == iters, f'the plain Newton called K1 {len(seen)} times, '
+        f'not {iters}')
+  return seen, x
+
+
+ORACLE_CPU_ENVS, ORACLE_CPU_STEPS = 8, 20  # phase 14a's card-vs-CPU run
+
+
+def oracle_card_vs_cpu(torch, arrays, name: str, start, card_states) -> float:
+  """Phase 14a's check of the card against the CPU: the first
+  ORACLE_CPU_ENVS envs of the 4096-env run (their states after each of its
+  first ORACLE_CPU_STEPS substeps, `card_states`, float32) against the port
+  on the CPU in float64 from the same `start` (qpos, qvel, ctrl) and mocap
+  targets: the largest err/(1 + max |cpu|) over qpos, qvel and
+  sensordata."""
+  import mjlab_torch.physics as phys
+  n = ORACLE_CPU_ENVS
+  m = phys.put_model(arrays, device='cpu', dtype=torch.float64)
+  qpos, qvel, ctrl = (x[:n].cpu().double() for x in start)
+  d = phys.make_batched_data(m, n, device='cpu').replace(
+      qpos=qpos, qvel=qvel, ctrl=ctrl)
+  worst = 0.0
+  for t, card in enumerate(card_states):
+    if m.stat.nmocap:
+      d = d.replace(mocap_pos=mocap_targets(torch, t, n, 'cpu').double())
+    d = phys.step(m, d)
+    for f, got in card.items():
+      worst = max(worst, rel_err(got.cpu(), getattr(d, f)))
+  return worst
+
+
+def oracle_path(torch, card: str, busy) -> 'tuple[dict, dict]':
+  """Phase 14: the engine's oracle models of equality constraints,
+  tendons, mocap bodies and sensors (asset_zoo/oracle_models.py) through
+  put_model, make_batched_data and step at 4096 envs. Returns (the
+  kernels' launches over the counted runs, {kernel: numbers of 14b})."""
+  import collections
+
+  import numpy as np
+
+  import mjlab_torch.physics as phys
+  from mjlab_torch.asset_zoo import oracle_models as om
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  from mjlab_torch.ops import pd_solve as k_pd
+  from mjlab_torch.ops import smooth_kernel as k_smooth
+  from mjlab_torch.physics import constraint, linalg, pipeline, smooth
+  from mjlab_torch.physics import smooth_fused, solver
+
+  total = collections.Counter()
+  numbers, k3_errs = {}, {}
+  kern = ('smooth', 'newton', 'pd_solve')
+  for name in om.NAMES:
+    arrays = om.oracle_arrays(name)
+    m = phys.put_model(arrays)
+    s = m.stat
+    lay = constraint.efc_layout(s)
+    qpos, qvel, ctrl = oracle_states(torch, m, name, B, seed=14)
+    d = phys.make_batched_data(m, B).replace(qpos=qpos, qvel=qvel,
+                                             ctrl=ctrl)
+    # ---- 14a: the rows at the start; 200 substeps, launches counted ------
+    df = smooth.fwd_smooth(m, smooth.actuation(m, pipeline.fwd_velocity(
+        m, pipeline.fwd_position(m, d))))
+    efc = constraint.make_efc(m, df)
+    args = solver.newton_args(df, efc)
+    t_envs = int(efc['t_active'].any(-1).sum()) if lay.nlt else 0
+    c_envs = int(efc['c_active'].any(-1).sum())
+    steps = ORACLE_PLAIN_SUBSTEPS if lay.ne else ORACLE_SUBSTEPS
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    card_states = []  # the first envs' states for the check against the CPU
+    cmp = ('qpos', 'qvel') + (('sensordata',) if s.nsensor else ())
+    for t in range(steps):
+      if s.nmocap:
+        d = d.replace(mocap_pos=mocap_targets(torch, t, B, d.qpos.device))
+      d = phys.step(m, d)
+      if t < ORACLE_CPU_STEPS:
+        card_states.append({f: getattr(d, f)[:ORACLE_CPU_ENVS].clone()
+                            for f in cmp})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = tuple(LAUNCHES[k] for k in kern)
+    total.update(LAUNCHES)
+    want = tuple(steps * k for k in ORACLE_LAUNCHES[name])
+    fields = ('qpos', 'qvel', 'qacc', 'efc_force') + (
+        ('sensordata',) if s.nsensor else ())
+    finite = all(bool(torch.isfinite(getattr(d, f)).all()) for f in fields)
+    end = constraint.make_efc(m, smooth.fwd_smooth(m, smooth.actuation(
+        m, pipeline.fwd_velocity(m, pipeline.fwd_position(m, d)))))
+    resid = float(end['e_pos'].abs().max()) if lay.ne else 0.0
+    line = (f'oracle {name}: nv {s.nv}, ne {lay.ne}, nlt {lay.nlt}, ncr '
+            f'{lay.ncr}, K3 {smooth_fused.enabled(s)}; {steps} '
+            f'substeps x {B} envs in {wall:.3f} s = '
+            f'{steps / wall:.1f} substeps/s, '
+            f'{steps * B / wall:.1f} env-substeps/s; launches '
+            f'(K3, K2, K1) {got}, predicted {want}; envs with active '
+            f'tendon-limit rows at the start {t_envs}, with active contact '
+            f'rows {c_envs}; max |equality residual| at the end {resid:.3e}')
+    lag = None
+    if s.nmocap:  # the weld keeps the compiled offset from the target
+      box = d.qpos[:, :3]
+      offset = m.qpos0[:3] - m.body_pos[int(np.nonzero(
+          s.body_mocapid >= 0)[0][0])]
+      target = mocap_targets(torch, steps - 1, B, box.device)[:, 0]
+      lag = float((box - target - offset).norm(dim=-1).max())
+      line += f'; the box at most {lag:.4f} m from where the weld holds it'
+    if s.nsensor:
+      line += (f'; sensordata max |x| '
+               f'{float(d.sensordata.abs().max()):.3e}')
+    err = oracle_card_vs_cpu(torch, arrays, name, (qpos, qvel, ctrl),
+                             card_states)
+    print(f'{line}; its first {ORACLE_CPU_ENVS} envs (card f32) against the '
+          f'CPU (f64) over {ORACLE_CPU_STEPS} substeps, worst '
+          f'err/(1+max|cpu|) {err:.3e} (tolerance 1e-3); card {card}',
+          flush=True)
+    check(finite, f'non-finite state after the {name} oracle model')
+    check(got == want, f'the {name} oracle model launched (K3, K2, K1) '
+          f'{got} in {steps} substeps, not {want}')
+    check(s.nmocap or resid <= ORACLE_RESIDUAL, f'the {name} equality '
+          f'residual {resid:.3e} exceeds {ORACLE_RESIDUAL}')
+    check(err <= 1e-3, f'the {name} oracle model on the card disagrees with '
+          f'the CPU: {err:.3e}')
+    if name == 'tendon':
+      check(t_envs > 0, 'no tendon-limit rows active in the tendon model')
+    if lag is not None:
+      check(lag <= ORACLE_LAG, f'the welded box is {lag:.4f} m from where '
+            'the weld holds it')
+    if name == 'robot':
+      check(c_envs > 0, 'no contact rows active in the robot model')
+
+    # ---- 14b: K3 on each tree it takes, K2 at the tendon model's and the
+    # robot's shapes, K1 on the four-bar's plain Newton Hessians; one
+    # four-bar substep by stage -----------------------------------------
+    if smooth_fused.enabled(s):
+      e3 = k3_rel_err(torch, k_smooth.smooth_fused_cuda(m, qpos, qvel),
+                      smooth_fused.plain_all(m, d.replace(
+                          qpos=qpos, qvel=qvel)), s.nsite)
+      k3_errs[name] = e3
+      check(e3 <= 1e-4, f'K3 disagrees with its plain version on the {name} '
+            f'oracle model: {e3:.3e}')
+    if name in ('tendon', 'robot'):
+      k2 = k2_numbers(torch, busy, m, [a.contiguous() for a in args],
+                      f'the {name} oracle model')
+      numbers.setdefault('newton', {})[f'oracle_{name}'] = k2
+      print(f'oracle {name} K2: (n, ncr, nl) {k2["widths"]}, Newton steps '
+            f'an env {k2["newton_steps"]:.3f}, active contact-block rows an '
+            f'env {k2["active_contact_rows"]:.2f}; max abs err '
+            f'{k2["max_abs_err"]:.3e}, err/(1+max|plain|) '
+            f'{k2["rel_err"]:.3e} (tolerance 1e-3); {k2["ms"]:.4f} ms, '
+            f'{k2["device_ms"]:.4f} ms behind a busy card, plain '
+            f'{k2["plain_ms"]:.4f} ms, bound {k2["bound_ms"]:.5f} ms by '
+            f'{k2["bound_by"]}; {k2["smem_bytes"]} B of shared memory a '
+            f'block; card {card}', flush=True)
+    if name == 'fourbar':
+      seen, _ = newton_hessians(torch, m, args, ne=lay.ne)
+      errs = [rel_err(k_pd.solve_pd_cuda(H, g), linalg.solve_pd(H, g))
+              for H, g in seen]
+      check(max(errs) <= 1e-4, 'K1 disagrees with its plain version on the '
+            f'four-bar Newton Hessians: {max(errs):.3e}')
+      k1 = k1_numbers(torch, busy, *seen[-1], 'the four-bar Hessians')
+      k1['worst_rel_err_of_the_iterations'] = max(errs)
+      numbers.setdefault('pd_solve', {})['oracle_fourbar_hessians'] = k1
+      print(f'oracle fourbar K1 on the plain Newton\'s {len(seen)} Hessians '
+            f'(n {s.nv}): worst err/(1+max|plain|) {max(errs):.3e} '
+            f'(tolerance 1e-4); on the last {k1["ms"]:.4f} ms, '
+            f'{k1["device_ms"]:.4f} ms behind a busy card, plain '
+            f'{k1["plain_ms"]:.4f} ms, bound {k1["bound_ms"]:.5f} ms by '
+            f'{k1["bound_by"]}, library {k1["library_ms"]:.4f} ms; card '
+            f'{card}', flush=True)
+      stages = substep_stages(torch, m, d, card, 'oracle fourbar')
+      eq_ms = time_ms(torch, lambda: constraint.equality_block(
+          m, df, m.opt.timestep, True), 5)
+      sub_ms = sum(g for g, _ in stages.values())
+      print(f'oracle fourbar: the equality block alone {eq_ms:.3f} ms, '
+            f'{eq_ms / sub_ms:.3f} of the {sub_ms:.3f} ms substep (events '
+            f'around each stage); card {card}', flush=True)
+  print('oracle K3 against its plain version at the start, worst output '
+        'err/(1+max|plain|) (tolerance 1e-4): ' + ', '.join(
+            f'{k} {v:.3e}' for k, v in k3_errs.items()), flush=True)
+  numbers['smooth'] = {'oracle_rel_err': k3_errs}
+  return total, numbers
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
     fail('torch.cuda.is_available() is false: this script needs a GPU')
+  t_script = time.perf_counter()
+
+  def stamp(phase: str) -> None:  # where the script's time goes
+    print(f'{phase} ends {time.perf_counter() - t_script:.1f} s into the '
+          'script', flush=True)
+
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -4321,8 +4603,12 @@ def main() -> None:
 
   capped = k2_cap_check('the phase-2c input', args, need)
 
+  stamp('phase 2')
+
   # ---- phase 2e: K1-K3 at the Go1's shapes ---------------------------------
   go1 = go1_kernels(torch, card, busy)
+
+  stamp('phase 2e')
 
   # ---- phase 3: the main path --------------------------------------------
   gen.manual_seed(1)
@@ -4409,6 +4695,8 @@ def main() -> None:
         flush=True)
   check(err4 <= tol4, 'CUDA rollout disagrees with the CPU reference')
 
+  stamp('phases 3-4')
+
   # ---- phase 5: the environment path ----------------------------------------
   env_launches = env_path(torch, card)
   kernel_of = {'smooth_fused (K3)': 'smooth', 'pd_solve (K1)': 'pd_solve',
@@ -4418,6 +4706,8 @@ def main() -> None:
     check(r['env_path_launches'] > 0,
           f'{r["name"]} was not launched on the env path')
 
+  stamp('phase 5')
+
   # ---- phase 6: the training path ------------------------------------------
   train_launches = train_path(torch, card)
   for r in rows:
@@ -4425,6 +4715,8 @@ def main() -> None:
                                                       0))
     check(r['train_path_launches'] > 0,
           f'{r["name"]} was not launched on the training path')
+
+  stamp('phase 6')
 
   # ---- phase 7: config 5, every K3 launch in its per-env form ---------------
   c5_launches = config5_path(torch, card)
@@ -4438,6 +4730,8 @@ def main() -> None:
         'a kernel of the config-5 path was not launched on it')
   rows.append(row_env)
 
+  stamp('phase 7')
+
   # ---- phase 8: the Go1 flat task: env-steps, the demo, card vs CPU ---------
   go1_launches = go1_path(torch, card)
   for r in rows:
@@ -4448,6 +4742,8 @@ def main() -> None:
       check(r['go1_path_launches'] > 0,
             f'{r["name"]} was not launched on the Go1 path')
 
+  stamp('phase 8')
+
   # ---- phase 9: G1 motion tracking: env, training, shipped policy -----------
   track_launches, row_env['tracking'] = tracking_path(torch, card, busy)
   for r in rows:
@@ -4456,6 +4752,8 @@ def main() -> None:
     check((r['tracking_path_launches'] > 0) == (kern != 'smooth'),
           f'{r["name"]} was launched {r["tracking_path_launches"]} times on '
           'the tracking path')
+
+  stamp('phase 9')
 
   # ---- phase 10: rough terrain, the G1 and the Go1 ---------------------------
   rough_launches, rough_k2 = rough_path(torch, card, busy)
@@ -4468,6 +4766,8 @@ def main() -> None:
     if kern == 'newton':
       r['rough_go1'] = rough_k2
 
+  stamp('phase 10')
+
   # ---- phase 11: the NaN guard and the blowup ring on G1 flat training -------
   nan_launches = nan_path(torch, card)
   for r in rows:
@@ -4476,6 +4776,8 @@ def main() -> None:
     check((r['nan_path_launches'] > 0) == (kern != 'smooth_env'),
           f'{r["name"]} was launched {r["nan_path_launches"]} times on the '
           'nan path')
+
+  stamp('phase 11')
 
   # ---- phase 12: the Tiny tasks and the elliptic cone -------------------------
   # 12a: K1-K3 at the TinyBot's shapes; K1 on the elliptic G1's Hessians
@@ -4500,6 +4802,8 @@ def main() -> None:
           f'{r["name"]} was launched {r["elliptic_path_launches"]} times on '
           'the elliptic path')
 
+  stamp('phase 12')
+
   # ---- phase 13: multi-GPU training, scripts.train --shard -----------------
   shard_launches = shard_path(torch, card)
   for r in rows:
@@ -4509,6 +4813,19 @@ def main() -> None:
           f'{r["name"]} was launched {r["shard_path_launches"]} times on '
           'the shard path')
 
+  stamp('phase 13')
+
+  # ---- phase 14: equality constraints, tendons, mocap bodies, sensors ------
+  oracle_launches, oracle_k = oracle_path(torch, card, busy)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['oracle_path_launches'] = int(oracle_launches.get(kern, 0))
+    r.update(oracle_k.get(kern, {}))
+    check((r['oracle_path_launches'] > 0) == (kern != 'smooth_env'),
+          f'{r["name"]} was launched {r["oracle_path_launches"]} times on '
+          'the oracle path')
+
+  stamp('phase 14')
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -4523,7 +4840,8 @@ def main() -> None:
           f'{r["nan_path_launches"]}, the Tiny path '
           f'{r["tiny_path_launches"]}, the elliptic path '
           f'{r["elliptic_path_launches"]}, the shard path '
-          f'{r["shard_path_launches"]}; card {card}', flush=True)
+          f'{r["shard_path_launches"]}, the oracle path '
+          f'{r["oracle_path_launches"]}; card {card}', flush=True)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

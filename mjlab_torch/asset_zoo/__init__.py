@@ -8,7 +8,8 @@ data/g1_tracking_model.npz and data/tiny_flat_model.npz, written by
 `python -m mjlab_torch.asset_zoo.g1_flat_scene`, `... .go1_flat_scene`,
 `... .g1_tracking_scene` and `... .tiny_scene`), so hosts without the
 mujoco package can build the engine's Model; tests check each against a
-fresh compile.
+fresh compile. `oracle_models.oracle_arrays(name)` loads the engine's
+oracle models of equality constraints, tendons and sensors the same way.
 """
 
 from pathlib import Path

@@ -8,8 +8,10 @@ constraint rows.
 
 Implemented colliders: plane-sphere, plane-capsule, plane-box,
 sphere-sphere, sphere-capsule and capsule-capsule (the pairs of the
-Unitree G1 and Go1 scenes), and heightfield-sphere, -capsule and -box (the
-same robots on generated rough terrain). Any other pair raises
+Unitree G1 and Go1 scenes), sphere-box, capsule-box and box-box (the
+pairs of the engine's oracle models of equality constraints and tendons),
+and heightfield-sphere, -capsule and -box (the same robots on generated
+rough terrain). Any other pair raises
 NotImplementedError naming it.
 
 Contact conventions match MuJoCo: normal points from geom1 into geom2,
@@ -146,6 +148,43 @@ def _sphere_box(p1, m1, s1, p2, m2, s2):
   return dist[..., None], pos[..., None, :], n[..., None, :]
 
 
+def _capsule_box(p1, m1, s1, p2, m2, s2):
+  """The JAX engine's capsule-box: each end sphere of the capsule against
+  the box (2 candidates)."""
+  a, b = _capsule_ends(p1, m1, s1[..., 1])
+  r = s1[..., 0]
+  d1, pos1, n1 = _sphere_box_raw(a, r, p2, m2, s2)
+  d2, pos2, n2 = _sphere_box_raw(b, r, p2, m2, s2)
+  return (torch.stack([d1, d2], -1), torch.stack([pos1, pos2], -2),
+          torch.stack([n1, n2], -2))
+
+
+def _box_box(p1, m1, s1, p2, m2, s2):
+  """The JAX engine's approximate box-box: each box's corners against the
+  other box's faces, the 4 deepest of either (8 candidates; the second
+  box's normals flipped to point from the first into the second)."""
+
+  def corners_vs_box(pa, ma, sa, pb, mb, sb, flip: bool):
+    local = table(_BOX_SIGNS, pa.dtype, pa.device) * sa[..., None, :3]
+    corners = pa[..., None, :] + torch.einsum('...ij,...kj->...ki', ma,
+                                              local)
+    shape = corners.shape
+    dist, pos, n = _sphere_box_raw(
+        corners, corners.new_zeros(shape[:-1]),
+        pb[..., None, :].expand(shape),
+        mb[..., None, :, :].expand(shape + (3,)), sb[..., None, :])
+    idx = torch.argsort(dist, dim=-1, stable=True)[..., :4]
+    n = torch.take_along_dim(n, idx[..., None], dim=-2)
+    return (torch.take_along_dim(dist, idx, dim=-1),
+            torch.take_along_dim(pos, idx[..., None], dim=-2),
+            -n if flip else n)
+
+  d1, pos1, n1 = corners_vs_box(p1, m1, s1, p2, m2, s2, False)
+  d2, pos2, n2 = corners_vs_box(p2, m2, s2, p1, m1, s1, True)
+  return (torch.cat([d1, d2], -1), torch.cat([pos1, pos2], -2),
+          torch.cat([n1, n2], -2))
+
+
 _COLLIDERS = {
     (GeomType.PLANE, GeomType.SPHERE): _plane_sphere,
     (GeomType.PLANE, GeomType.CAPSULE): _plane_capsule,
@@ -154,6 +193,8 @@ _COLLIDERS = {
     (GeomType.SPHERE, GeomType.CAPSULE): _sphere_capsule,
     (GeomType.SPHERE, GeomType.BOX): _sphere_box,
     (GeomType.CAPSULE, GeomType.CAPSULE): _capsule_capsule,
+    (GeomType.CAPSULE, GeomType.BOX): _capsule_box,
+    (GeomType.BOX, GeomType.BOX): _box_box,
 }
 
 

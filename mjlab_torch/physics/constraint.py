@@ -1,10 +1,13 @@
-"""Constraint row assembly (dof friction, joint limits, contacts), batched.
+"""Constraint row assembly (equality, dof friction, joint and tendon
+limits, contacts), batched.
 
-Counterpart of mjlab_tpu/physics/constraint.py without equality rows. The
-row layout is static: every dof has a friction-loss row (J = I, masked by
-frictionloss > 0), every limited hinge/slide joint a limit row (one-hot
-J), and the contact block holds either the rows of every candidate contact
-slot or, with compaction (large pair tables), the rows of the deepest
+Counterpart of mjlab_tpu/physics/constraint.py. The row layout is static
+and in MuJoCo's order: the equality rows (connect 3, weld 6, joint 1, each
+bilateral), a friction-loss row for every dof (J = I, masked by
+frictionloss > 0), a limit row for every limited hinge/slide joint
+(one-hot J), a limit row for every limited tendon (J = +-ten_J), and the
+contact block, which holds either the rows of every candidate contact slot
+or, with compaction (large pair tables), the rows of the deepest
 candidates chosen per env from two static slot pools (frictional and
 frictionless). Inactive rows carry zero D, so the solver's shapes never
 change.
@@ -14,8 +17,6 @@ one when d == 1, all in the dense `c_*` block. Elliptic cone: a
 frictional slot has d rows (normal, then its friction axes) in the
 structured `x_*` block, one entry per slot, which the solver's cone cost
 couples; frictionless slots keep one normal row in the `c_*` block.
-
-Equality rows raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,28 +44,43 @@ _MAXIMP = 0.9999
 _MINVAL = 1e-15
 
 
+_EQ_CONNECT, _EQ_WELD, _EQ_JOINT = 0, 1, 2  # mjtEq
+_EQ_ROWS = {_EQ_CONNECT: 3, _EQ_WELD: 6, _EQ_JOINT: 1}
+
+
+def equality_rows_count(stat: ModelStatic) -> int:
+  return int(sum(_EQ_ROWS[int(t)] for t in stat.eq_type[:stat.neq])
+             ) if stat.neq else 0
+
+
 @dataclasses.dataclass(frozen=True)
 class EfcLayout:
-  """Row order matches MuJoCo's efc arrays: [friction | limits | contacts]."""
+  """Row order matches MuJoCo's efc arrays:
+  [equality | friction | joint limits | tendon limits | contacts]."""
   nefc: int
-  nf: int
+  ne: int  # equality rows, [0, ne)
+  nf: int  # friction rows, one a dof, [ne, ne + nf)
   limit_jnt: np.ndarray  # joint ids with limit rows
   con_base: np.ndarray  # first row of each contact slot (or pool slot)
+  limit_ten: np.ndarray  # tendon ids with limit rows
 
   @property
   def nl(self) -> int:
     return len(self.limit_jnt)
 
   @property
+  def nlt(self) -> int:
+    return len(self.limit_ten)
+
+  @property
+  def con_row0(self) -> int:
+    """The first contact row."""
+    return self.ne + self.nf + self.nl + self.nlt
+
+  @property
   def ncr(self) -> int:
     """Total dense contact rows."""
-    return self.nefc - self.nf - self.nl
-
-
-def _check_supported(stat: ModelStatic) -> None:
-  if stat.neq:
-    raise NotImplementedError('equality constraint rows are not '
-                              'implemented in mjlab_torch yet')
+    return self.nefc - self.con_row0
 
 
 def elliptic_dmax(stat: ModelStatic) -> int:
@@ -79,11 +95,13 @@ def elliptic_dmax(stat: ModelStatic) -> int:
 
 @functools.lru_cache(maxsize=32)
 def efc_layout(stat: ModelStatic) -> EfcLayout:
-  _check_supported(stat)
+  ne = equality_rows_count(stat)
   nf = stat.nv
   limit_jnt = np.nonzero(
       stat.jnt_limited &
       np.isin(stat.jnt_type, (int(JointType.HINGE), int(JointType.SLIDE))))[0]
+  limit_ten = (np.nonzero(stat.ten_limited[:stat.ntendon])[0]
+               if stat.ntendon else np.zeros(0, np.int64))
   ell = stat.cone == int(ConeType.ELLIPTIC)
   if stat.ncon_cap or stat.ncon_cap1:
     # compacted: ncon_cap frictional slots of 2*(maxdim-1) rows (elliptic:
@@ -98,10 +116,11 @@ def efc_layout(stat: ModelStatic) -> EfcLayout:
     dims = np.asarray(stat.con_dim[:stat.pairs.ncon_max], np.int32)
     con_rows = np.where(dims == 1, 1,
                         dims if ell else 2 * (dims - 1)).astype(np.int32)
-  base0 = nf + len(limit_jnt)
+  base0 = ne + nf + len(limit_jnt) + len(limit_ten)
   con_base = (base0 + np.cumsum(con_rows) - con_rows).astype(np.int32)
-  return EfcLayout(nefc=base0 + int(con_rows.sum()), nf=nf,
-                   limit_jnt=limit_jnt, con_base=con_base)
+  return EfcLayout(nefc=base0 + int(con_rows.sum()), ne=ne, nf=nf,
+                   limit_jnt=limit_jnt, con_base=con_base,
+                   limit_ten=limit_ten)
 
 
 def limit_dofadr(stat: ModelStatic) -> np.ndarray:
@@ -184,6 +203,13 @@ def _pool_static(stat: ModelStatic, slots_key: tuple):
           stat.body_rootid[b2])
 
 
+def deepest(p_pool: torch.Tensor, K: int) -> torch.Tensor:
+  """(B, K) positions in a pool of its K deepest candidates (p_pool (B,
+  np) their distances past the margin); ties take the lower slot first,
+  as the JAX engine's top_k."""
+  return torch.sort(-p_pool, dim=-1, descending=True, stable=True)[1][:, :K]
+
+
 def _selected_contact_data(m: Model, d: Data, slots: np.ndarray, K: int):
   """Per env, the K deepest candidate slots of a pool (ties: lower slot
   first, as the JAX engine's top_k) and their contact data."""
@@ -194,7 +220,7 @@ def _selected_contact_data(m: Model, d: Data, slots: np.ndarray, K: int):
       s, tuple(int(x) for x in slots))
   sl = _ix(slots, dev)
   p_pool = (con.dist - con.includemargin)[:, sl]  # (B, np)
-  sel = torch.sort(-p_pool, dim=-1, descending=True, stable=True)[1][:, :K]
+  sel = deepest(p_pool, K)
   slot = sl[sel]  # (B, K) candidate slot ids
 
   def take(x):  # (B, ncon, ...) -> (B, K, ...)
@@ -431,7 +457,7 @@ def _contacts_all(m: Model, d: Data, ts, refsafe: bool):
   c_aref = torch.zeros_like(c_D)
   c_pos = torch.zeros_like(c_D)
   c_active = torch.zeros((B, ncr), dtype=torch.bool, device=dev)
-  row0 = lay.nf + lay.nl
+  row0 = lay.con_row0
   for dim in sorted(set(int(x) for x in s.con_dim[:ncon])):
     sl_np = np.nonzero(s.con_dim[:ncon] == dim)[0]
     sl = _ix(sl_np, dev)
@@ -473,14 +499,192 @@ def _contacts_all(m: Model, d: Data, ts, refsafe: bool):
   return (c_J, c_D, c_aref, c_active, c_pos), None
 
 
+def _rot(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """R v for R (B, 3, 3) and v (3,) or per env (B, 3)."""
+  return (R * v[..., None, :]).sum(-1)
+
+
+def _body_point_jac(m: Model, d: Data, body: int, point: torch.Tensor):
+  """(B, 3, nv) translational Jacobian of the world point (B, 3) on body."""
+  s = m.stat
+  anc = table(s.ancestor_mask[body], d.qpos.dtype, d.qpos.device)
+  croot = d.subtree_com[:, int(s.body_rootid[body])]
+  col = d.cdof[..., 3:] + pmath.cross(d.cdof[..., :3],
+                                      (point - croot)[:, None, :])
+  return (col * anc[:, None]).transpose(1, 2)
+
+
+def _jdot_qvel(m: Model, d: Data) -> torch.Tensor:
+  """J_dot qvel of the connect and weld rows (B, rows), in closed form:
+  the second derivative of their residuals along the position-integration
+  path qpos(t) = integratePos(qpos, qvel, t) at t = 0, which the JAX
+  engine takes by two nested jax.jvp through forward kinematics. On that
+  path every joint moves at its constant velocity (the exp map keeps a
+  ball or free joint's angular velocity), so a body point accelerates as
+  a + alpha x r + w x (v + w x r), with (alpha, a) = sum cdof_dot qvel (the
+  body's spatial acceleration at qacc = 0) and (w, v) = cvel, both at the
+  root's subtree com; a body's quaternion as q'' = [0, alpha] q / 2 +
+  [0, w] q' / 2 with q' = [0, w] q / 2."""
+  s = m.stat
+  anc = table(s.ancestor_mask, d.qpos.dtype, d.qpos.device)
+  cacc = anc @ (d.cdof_dot * d.qvel[..., None])  # (B, nbody, 6)
+
+  def point_acc(body, p):
+    r = p - d.subtree_com[:, int(s.body_rootid[body])]
+    w, v = d.cvel[:, body, :3], d.cvel[:, body, 3:]
+    return (cacc[:, body, 3:] + pmath.cross(cacc[:, body, :3], r)
+            + pmath.cross(w, v + pmath.cross(w, r)))
+
+  def quat_rates(body):  # (q, q', q'') of the body's orientation
+    q, w, al = d.xquat[:, body], d.cvel[:, body, :3], cacc[:, body, :3]
+    pure = lambda x: torch.cat([torch.zeros_like(x[..., :1]), x], -1)
+    dq = 0.5 * pmath.mul_quat(pure(w), q)
+    return q, dq, 0.5 * (pmath.mul_quat(pure(al), q)
+                         + pmath.mul_quat(pure(w), dq))
+
+  parts = []
+  for e in range(s.neq):
+    etype, o1, o2 = int(s.eq_type[e]), int(s.eq_obj1[e]), int(s.eq_obj2[e])
+    if etype == _EQ_JOINT:
+      continue
+    data = m.eq_data[..., e, :]
+    weld = etype == _EQ_WELD
+    a1, a2 = (data[..., 3:6], data[..., 0:3]) if weld else (
+        data[..., 0:3], data[..., 3:6])
+    parts.append(point_acc(o1, d.xpos[:, o1] + _rot(d.xmat[:, o1], a1))
+                 - point_acc(o2, d.xpos[:, o2] + _rot(d.xmat[:, o2], a2)))
+    if weld:  # of tq vec(q2^-1 q1 relq)
+      q1, dq1, ddq1 = quat_rates(o1)
+      q2, dq2, ddq2 = (pmath.neg_quat(x) for x in quat_rates(o2))
+      mq = pmath.mul_quat
+      dd = mq(mq(ddq2, q1) + 2.0 * mq(dq2, dq1) + mq(q2, ddq1),
+              data[..., 6:10])
+      parts.append(data[..., 10, None] * dd[..., 1:4])
+  return torch.cat(parts, -1)
+
+
+def equality_block(m: Model, d: Data, ts, refsafe: bool):
+  """The bilateral equality rows (connect, weld, joint), MuJoCo's:
+
+  connect: residual = anchor1_w - anchor2_w, J = jacp1 - jacp2.
+  weld:    position rows as connect on (x1 + R1 relpose_p) - (x2 + R2
+           anchor); rotation rows r = tq vec(q2^-1 q1 relq), tq the
+           torquescale, with columns 0.5 tq vec(q2^-1 [0, axis] q1 relq)
+           signed by the ancestor delta.
+  joint:   r = y - y0 - poly(x - x0), J = e_y - poly'(x - x0) e_x.
+
+  aref = -b (J qvel) - k imp r - J_dot qvel, the last for connect and weld
+  only (MuJoCo's). Returns (e_J (B, ne, nv), e_D, e_aref, e_active,
+  e_pos), each (B, ne)."""
+  s = m.stat
+  dev, dtype = d.qpos.device, d.qpos.dtype
+  B, nv = d.qpos.shape[0], s.nv
+  disabled = bool(s.disableflags & DisableBit.EQUALITY)
+  point = any(int(t) != _EQ_JOINT for t in s.eq_type[:s.neq])
+  jdot = _jdot_qvel(m, d) if point else None
+  iw = m.body_invweight0
+  rows, row0 = [], 0
+
+  for e in range(s.neq):
+    etype, o1, o2 = int(s.eq_type[e]), int(s.eq_obj1[e]), int(s.eq_obj2[e])
+    data = m.eq_data[..., e, :]
+    if etype == _EQ_JOINT:
+      adr1, dof1 = int(s.jnt_qposadr[o1]), int(s.jnt_dofadr[o1])
+      y = d.qpos[:, adr1] - m.qpos0[..., adr1]
+      if o2 >= 0:
+        adr2, dof2 = int(s.jnt_qposadr[o2]), int(s.jnt_dofadr[o2])
+        x = d.qpos[:, adr2] - m.qpos0[..., adr2]
+      else:
+        x = torch.zeros_like(y)
+      k5 = torch.arange(5, dtype=dtype, device=dev)
+      poly = data[..., :5]
+      res = (y - (poly * x[:, None] ** k5).sum(-1))[:, None]
+      dpoly = (poly[..., 1:] * k5[1:] * x[:, None] ** k5[:4]).sum(-1)
+      J = torch.zeros((B, 1, nv), dtype=dtype, device=dev)
+      J[:, 0, dof1] = 1.0
+      diag = m.dof_invweight0[..., dof1]
+      if o2 >= 0:
+        J[:, 0, dof2] = J[:, 0, dof2] - dpoly
+        diag = diag + m.dof_invweight0[..., dof2]
+      imp_pos = res.abs()
+      diag = diag[..., None].expand(B, 1)
+      bias = None
+    else:
+      weld = etype == _EQ_WELD
+      a1, a2 = (data[..., 3:6], data[..., 0:3]) if weld else (
+          data[..., 0:3], data[..., 3:6])
+      p1 = d.xpos[:, o1] + _rot(d.xmat[:, o1], a1)
+      p2 = d.xpos[:, o2] + _rot(d.xmat[:, o2], a2)
+      res = p1 - p2
+      J = _body_point_jac(m, d, o1, p1) - _body_point_jac(m, d, o2, p2)
+      w_t = (iw[..., o1, 0] + iw[..., o2, 0])[..., None].expand(B, 3)
+      diag = w_t
+      if weld:
+        relq, tq = data[..., 6:10], data[..., 10]
+        q2inv = pmath.neg_quat(d.xquat[:, o2])
+        res_r = tq[..., None] * pmath.mul_quat(
+            pmath.mul_quat(q2inv, d.xquat[:, o1]), relq)[..., 1:4]
+        # rotation columns: 0.5 tq vec(q2^-1 [0, a] q1 relq), a = cdof_ang
+        ancd = table(s.ancestor_mask[o1] - s.ancestor_mask[o2], dtype, dev)
+        axes4 = torch.cat([torch.zeros_like(d.cdof[..., :1]),
+                           d.cdof[..., :3]], -1)  # (B, nv, 4)
+        q1relq = pmath.mul_quat(d.xquat[:, o1], relq)
+        tmp = pmath.mul_quat(pmath.mul_quat(q2inv[:, None], axes4),
+                             q1relq[:, None])  # (B, nv, 4)
+        Jr = ((0.5 * tq)[..., None, None] * tmp[..., 1:4].transpose(1, 2)
+              * ancd)
+        J = torch.cat([J, Jr], dim=1)
+        res = torch.cat([res, res_r], -1)
+        w_r = (iw[..., o1, 1] + iw[..., o2, 1])[..., None].expand(B, 3)
+        diag = torch.cat([w_t, w_r], -1)
+      nrow = J.shape[1]
+      imp_pos = torch.linalg.vector_norm(res, dim=-1, keepdim=True).expand(
+          B, nrow)
+      bias = jdot[:, row0:row0 + nrow]
+      row0 += nrow
+    b_c, k_c, imp = _kbi(m.eq_solref[..., e, None, :],
+                         m.eq_solimp[..., e, None, :], imp_pos, ts, refsafe)
+    vel = torch.einsum('brv,bv->br', J, d.qvel)
+    r = ((1.0 - imp) / imp * diag).clamp_min(_MINVAL)
+    aref = -b_c * vel - k_c * imp * res
+    if bias is not None:
+      aref = aref - bias
+    active = (m.eq_active0[..., e] > 0) & (not disabled)
+    rows.append((J, 1.0 / r, aref,
+                 active[..., None].expand(B, J.shape[1]), res))
+  return tuple(torch.cat([r[i] for r in rows], dim=1) for i in range(5))
+
+
+def _tendon_limit_rows(m: Model, d: Data, ts, refsafe: bool):
+  """The tendon-limit rows, one-sided: J = sign ten_J with sign +1 at the
+  lower limit, -1 at the upper; (t_J (B, nlt, nv), t_D, t_aref, t_active,
+  t_pos)."""
+  lay = efc_layout(m.stat)
+  tl = _ix(lay.limit_ten, d.qpos.device)
+  L = d.ten_length[:, tl]
+  dist_lo = L - m.tendon_range[..., tl, 0]
+  dist_hi = m.tendon_range[..., tl, 1] - L
+  use_lo = dist_lo <= dist_hi
+  sign = torch.where(use_lo, 1.0, -1.0).to(L.dtype)
+  p = torch.where(use_lo, dist_lo, dist_hi) - m.tendon_margin[..., tl]
+  b, k, imp = _kbi(m.tendon_solref_lim[..., tl, :],
+                   m.tendon_solimp_lim[..., tl, :], p, ts, refsafe)
+  r = ((1.0 - imp) / imp * m.tendon_invweight0[..., tl]).clamp_min(_MINVAL)
+  return (sign[..., None] * d.ten_J[:, tl], 1.0 / r,
+          -b * sign * d.ten_velocity[:, tl] - k * imp * p, p < 0, p)
+
+
 def make_efc(m: Model, d: Data) -> dict:
   """Constraint blocks, batched (B, ...):
     f_D, f_aref, f_floss, f_active           (B, nv)  friction (Huber)
     l_sign, l_D, l_aref, l_active, l_pos     (B, nl)  limits (one-sided)
     c_J (B, nc, nv), c_D, c_aref, c_active, c_pos     contacts
-  and on an elliptic model the x block (`_elliptic_block`), whose c block
-  holds the frictionless slots alone (one inactive row when there are
-  none). Row order for dense views (efc_force): friction, limits,
+  with a model's equality rows (`equality_block`) as e_J (B, ne, nv), e_D,
+  e_aref, e_active, e_pos, its tendon-limit rows (`_tendon_limit_rows`) as
+  t_J (B, nlt, nv), t_D, t_aref, t_active, t_pos, and on an elliptic model
+  the x block (`_elliptic_block`), whose c block holds the frictionless
+  slots alone (one inactive row when there are none). Row order for dense
+  views (efc_force): equality, friction, joint limits, tendon limits,
   contacts."""
   s = m.stat
   lay = efc_layout(s)
@@ -532,6 +736,15 @@ def make_efc(m: Model, d: Data) -> dict:
     l_sign, l_D, l_aref, l_active, l_pos = (zeros(n1), zeros(n1),
                                             zeros(n1), false(n1), zeros(n1))
 
+  # ---- tendon-limit rows (J = sign ten_J), equality rows (bilateral) ----
+  rows = {}
+  if lay.nlt:
+    rows['t'] = (_tendon_limit_rows(m, d, ts, refsafe)
+                 if not (s.disableflags & DisableBit.LIMIT)
+                 else _no_rows(B, lay.nlt, nv, dtype, dev))
+  if lay.ne:
+    rows['e'] = equality_block(m, d, ts, refsafe)
+
   # ---- contact rows: the dense c block and, elliptic, the x block ----
   ell_dm = elliptic_dmax(s)
   x_block = None
@@ -550,6 +763,8 @@ def make_efc(m: Model, d: Data) -> dict:
     f_active = torch.zeros_like(f_active)
     l_active = torch.zeros_like(l_active)
     c_active = torch.zeros_like(c_active)
+    rows = {k: v[:3] + (torch.zeros_like(v[3]), v[4])
+            for k, v in rows.items()}
     if x_block is not None:
       x_block['x_active'] = torch.zeros_like(x_block['x_active'])
 
@@ -561,6 +776,9 @@ def make_efc(m: Model, d: Data) -> dict:
       l_active=l_active, l_pos=l_pos,
       c_J=c_J, c_D=torch.where(c_active, c_D, zero), c_aref=c_aref,
       c_active=c_active, c_pos=c_pos)
+  for k, (J, D, aref, active, pos) in rows.items():
+    out.update({f'{k}_J': J, f'{k}_D': torch.where(active, D, zero),
+                f'{k}_aref': aref, f'{k}_active': active, f'{k}_pos': pos})
   if x_block is not None:
     x_block['x_D'] = torch.where(x_block['x_active'][..., None],
                                  x_block['x_D'], zero)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from mjlab_torch.physics.constraint import efc_layout
+from mjlab_torch.physics.tables import ix as _ix
 from mjlab_torch.physics.types import (
     CollisionPairs,
     Contact,
@@ -240,13 +241,20 @@ def names_of(m, kind: str, n: int) -> tuple:
   return tuple(out)
 
 
+_EQ_CONNECT, _EQ_WELD, _EQ_JOINT = 0, 1, 2  # mjtEq
+_TRN_TENDON = 3  # mjtTrn.mjTRN_TENDON
+_WRAP_JOINT, _WRAP_SITE = 1, 3  # mjtWrap
+_INT_IMPLICIT, _INT_IMPLICITFAST = 2, 3  # mjtIntegrator
+
+
 def _check_supported(m) -> None:
-  """Model features outside this engine's slice raise here, loudly."""
+  """Model features outside this engine raise here, loudly (the JAX
+  engine's build-time gates; `_parse_tendons` holds the tendons' own)."""
   unsupported = []
-  if m.neq:
-    unsupported.append('equality constraints')
-  if m.ntendon:
-    unsupported.append('tendons')
+  for t in np.asarray(m.eq_type)[:m.neq]:
+    if int(t) not in (_EQ_CONNECT, _EQ_WELD, _EQ_JOINT):
+      unsupported.append(f'equality type {int(t)} (connect, weld and joint '
+                         'are implemented)')
   dyn_ok = (_DYN_NONE, _DYN_INTEGRATOR, _DYN_FILTER, _DYN_FILTEREXACT)
   if m.na and any(int(t) not in dyn_ok for t in m.actuator_dyntype):
     unsupported.append('actuator dynamics other than integrator/filter/'
@@ -257,8 +265,6 @@ def _check_supported(m) -> None:
     unsupported.append('actearly')
   if m.nhfield > 1:
     unsupported.append('more than one heightfield')
-  if m.nmocap:
-    unsupported.append('mocap bodies')
   if (m.opt.density != 0 or m.opt.viscosity != 0
       or np.any(np.asarray(m.opt.wind) != 0)):
     unsupported.append('fluid forces')
@@ -268,8 +274,16 @@ def _check_supported(m) -> None:
     unsupported.append('noslip')
   if m.npair and (np.asarray(m.pair_solreffriction) != 0).any():
     unsupported.append('pair solreffriction')
-  if any(int(t) != _TRN_JOINT for t in m.actuator_trntype):
-    unsupported.append('non-joint actuator transmissions')
+  trn = [int(t) for t in m.actuator_trntype]
+  if any(t not in (_TRN_JOINT, _TRN_TENDON) for t in trn):
+    unsupported.append('actuator transmissions other than joint and tendon')
+  if m.ntendon and int(m.opt.integrator) in (_INT_IMPLICIT,
+                                             _INT_IMPLICITFAST):
+    if (_TRN_TENDON in trn
+        or (np.asarray(m.tendon_damping)[:m.ntendon] != 0).any()):
+      unsupported.append(
+          'implicit integrators with tendon damping or tendon actuators '
+          '(their velocity derivative is not diagonal; use Euler)')
   for b in range(m.nbody):
     jn = m.body_jntnum[b]
     for j in range(m.body_jntadr[b], m.body_jntadr[b] + jn):
@@ -277,8 +291,53 @@ def _check_supported(m) -> None:
         unsupported.append('free joint sharing a body')
   if unsupported:
     raise NotImplementedError(
-        'not supported by mjlab_torch yet: ' + ', '.join(sorted(set(
+        'not supported by mjlab_torch: ' + ', '.join(sorted(set(
             unsupported))))
+
+
+def _parse_tendons(m) -> dict:
+  """The static tendon structure (the JAX engine's): a fixed tendon (joint
+  couplings on hinge or slide joints) becomes constant coefficient rows,
+  a spatial tendon its chain of sites. Tendon frictionloss, wrapping
+  geoms and pulleys raise."""
+  nt = int(m.ntendon)
+  n1 = max(nt, 1)
+  out = dict(ntendon=nt, ten_is_fixed=np.zeros(n1, bool),
+             ten_coef_q=np.zeros((n1, m.nq)),
+             ten_coef_v=np.zeros((n1, m.nv)), ten_site_chains=(),
+             ten_limited=np.zeros(n1, bool))
+  if not nt:
+    return out
+  if (np.asarray(m.tendon_frictionloss)[:nt] != 0).any():
+    raise NotImplementedError('tendon frictionloss is not supported')
+  chains = []
+  for t in range(nt):
+    adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+    wt = [int(w) for w in m.wrap_type[adr:adr + num]]
+    if all(w == _WRAP_JOINT for w in wt):
+      out['ten_is_fixed'][t] = True
+      chains.append(())
+      for w in range(adr, adr + num):
+        j = int(m.wrap_objid[w])
+        if int(m.jnt_type[j]) not in (int(JointType.HINGE),
+                                      int(JointType.SLIDE)):
+          raise NotImplementedError(
+              'fixed tendons on joints other than hinge and slide are not '
+              'supported')
+        out['ten_coef_q'][t, int(m.jnt_qposadr[j])] += m.wrap_prm[w]
+        out['ten_coef_v'][t, int(m.jnt_dofadr[j])] += m.wrap_prm[w]
+    elif all(w == _WRAP_SITE for w in wt):
+      if num < 2:
+        raise NotImplementedError('a spatial tendon needs at least 2 sites')
+      chains.append(tuple(int(m.wrap_objid[w])
+                          for w in range(adr, adr + num)))
+    else:
+      raise NotImplementedError(
+          'tendon wrapping geoms and pulleys are not supported (site chains '
+          'and fixed joint couplings are)')
+  out['ten_site_chains'] = tuple(chains)
+  out['ten_limited'][:nt] = np.asarray(m.tendon_limited)[:nt].astype(bool)
+  return out
 
 
 def _note_elliptic_path(cone: int) -> int:
@@ -346,6 +405,7 @@ def model_static(m, ncon_cap: 'int | None' = None
                  ) -> ModelStatic:
   """The host-side static tables of a compiled model."""
   _check_supported(m)
+  tendons = _parse_tendons(m)
   hf = _hfield(m)
   pairs = _build_pairs(m)
   con_geom1, con_geom2, con_dim = contact_slot_meta(m, pairs)
@@ -418,8 +478,11 @@ def model_static(m, ncon_cap: 'int | None' = None
       actuator_dyntype=np.asarray(m.actuator_dyntype, np.int32),
       actuator_actadr=np.asarray(m.actuator_actadr, np.int32),
       actuator_actlimited=np.asarray(m.actuator_actlimited).astype(bool),
-      ntendon=int(m.ntendon),
+      **tendons,
       neq=int(m.neq),
+      eq_type=np.asarray(m.eq_type, np.int32)[:m.neq].copy(),
+      eq_obj1=np.asarray(m.eq_obj1id, np.int32)[:m.neq].copy(),
+      eq_obj2=np.asarray(m.eq_obj2id, np.int32)[:m.neq].copy(),
       newton_tolerance=float(m.opt.tolerance),
       meaninertia=float(m.stat.meaninertia),
       **{k: v for k, v in hf.items() if k != 'data'},
@@ -431,10 +494,27 @@ MODEL_FIELDS = tuple(f.name for f in dataclasses.fields(Model)
                      if f.name not in ('stat', 'opt'))
 
 
+# Model fields of a model's equality constraints and tendons, with the
+# (1, ...) placeholder each takes when the model has none (the JAX engine's)
+_EQ_PLACEHOLDERS = {'eq_data': np.zeros((1, 11)), 'eq_solref': np.zeros((1, 2)),
+                    'eq_solimp': np.zeros((1, 5)), 'eq_active0': np.zeros(1)}
+_TENDON_PLACEHOLDERS = {
+    'tendon_stiffness': np.zeros(1), 'tendon_damping': np.zeros(1),
+    'tendon_lengthspring': np.zeros((1, 2)), 'tendon_range': np.zeros((1, 2)),
+    'tendon_solref_lim': np.zeros((1, 2)),
+    'tendon_solimp_lim': np.zeros((1, 5)), 'tendon_margin': np.zeros(1),
+    'tendon_invweight0': np.ones(1)}
+
+
 def _model_arrays(m) -> dict:
   out = {name: getattr(m, name) for name in MODEL_FIELDS
-         if not name.startswith('pair_') and name != 'hfield_data'}
+         if not name.startswith(('pair_', 'eq_', 'tendon_'))
+         and name != 'hfield_data'}
   out['hfield_data'] = _hfield(m)['data']
+  out.update({k: np.asarray(getattr(m, k), np.float64) if m.neq else v
+              for k, v in _EQ_PLACEHOLDERS.items()})
+  out.update({k: getattr(m, k) if m.ntendon else v
+              for k, v in _TENDON_PLACEHOLDERS.items()})
   out.update(
       pair_friction=m.pair_friction if m.npair else np.zeros((1, 5)),
       pair_solref=m.pair_solref if m.npair else np.zeros((1, 2)),
@@ -491,6 +571,16 @@ def make_data(model: Model, batch_size: int = 1, device='cuda') -> Data:
       solref=z(ncon, 2), solimp=z(ncon, 5), includemargin=z(ncon))
   xquat = z(s.nbody, 4)
   xquat[..., 0] = 1.0
+  # mocap poses start at the bodies' model pose (mj_resetData)
+  if s.nmocap:
+    mocap = _ix(np.nonzero(s.body_mocapid >= 0)[0], dev)
+    mocap_pos = model.body_pos[..., mocap, :].expand(B, s.nmocap, 3).clone()
+    mocap_quat = model.body_quat[..., mocap, :].expand(B, s.nmocap,
+                                                       4).clone()
+  else:
+    mocap_pos, mocap_quat = z(1, 3), z(1, 4)
+    mocap_quat[..., 0] = 1.0
+  nt = max(s.ntendon, 1)
   return Data(
       qpos=model.qpos0.expand(B, s.nq).clone(),
       qvel=z(s.nv), ctrl=z(s.nu), qacc=z(s.nv), qacc_warmstart=z(s.nv),
@@ -513,6 +603,8 @@ def make_data(model: Model, batch_size: int = 1, device='cuda') -> Data:
       solver_niter=torch.zeros(B, dtype=torch.int32, device=dev),
       sensordata=z(max(s.nsensordata, 1)),
       act=z(max(s.na, 1)), act_dot=z(max(s.na, 1)),
+      mocap_pos=mocap_pos, mocap_quat=mocap_quat,
+      ten_length=z(nt), ten_velocity=z(nt), ten_J=z(nt, s.nv),
   )
 
 
@@ -590,6 +682,23 @@ HFIELD_ARRAYS = {
     'hfield_data': np.zeros(0, np.float32),
 }
 
+# the arrays of equality constraints and tendons, in a snapshot only when
+# the model has either, each with its value in a model that has none (a
+# snapshot written before they were ported lacks them too)
+EQ_TENDON_ARRAYS = {
+    'eq_type': np.zeros(0, np.int32), 'eq_obj1id': np.zeros(0, np.int32),
+    'eq_obj2id': np.zeros(0, np.int32), 'eq_data': np.zeros((0, 11)),
+    'eq_solref': np.zeros((0, 2)), 'eq_solimp': np.zeros((0, 5)),
+    'eq_active0': np.zeros(0, bool), 'tendon_adr': np.zeros(0, np.int32),
+    'tendon_num': np.zeros(0, np.int32), 'tendon_limited': np.zeros(0, bool),
+    'tendon_frictionloss': np.zeros(0), 'tendon_stiffness': np.zeros(0),
+    'tendon_damping': np.zeros(0), 'tendon_lengthspring': np.zeros((0, 2)),
+    'tendon_range': np.zeros((0, 2)), 'tendon_solref_lim': np.zeros((0, 2)),
+    'tendon_solimp_lim': np.zeros((0, 5)), 'tendon_margin': np.zeros(0),
+    'tendon_invweight0': np.zeros(0), 'wrap_type': np.zeros(0, np.int32),
+    'wrap_objid': np.zeros(0, np.int32), 'wrap_prm': np.zeros(0),
+}
+
 
 class ModelArrays:
   """Read-only snapshot of the compiled-model fields the engine reads,
@@ -604,7 +713,7 @@ class ModelArrays:
     self.stat = _Namespace({'meaninertia': self._arrays['stat.meaninertia']})
     for k in SNAPSHOT_ARRAYS:
       setattr(self, k, self._arrays[k])
-    for k, empty in HFIELD_ARRAYS.items():
+    for k, empty in {**HFIELD_ARRAYS, **EQ_TENDON_ARRAYS}.items():
       setattr(self, k, self._arrays.get(k, empty))
 
   @classmethod
@@ -616,6 +725,8 @@ class ModelArrays:
     arrays.update({f'opt.{k}': np.asarray(getattr(m.opt, k))
                    for k in _SNAPSHOT_OPT})
     arrays['stat.meaninertia'] = np.asarray(m.stat.meaninertia)
+    if m.neq or m.ntendon:
+      arrays.update({k: np.asarray(getattr(m, k)) for k in EQ_TENDON_ARRAYS})
     if m.nhfield:
       arrays.update({k: np.asarray(getattr(m, k)) for k in HFIELD_ARRAYS})
     return cls(arrays)

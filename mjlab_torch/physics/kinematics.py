@@ -43,6 +43,13 @@ def kinematics(m: Model, d: Data) -> Data:
     pos = p_pos + pmath.rot_vec_quat(m.body_pos[..., tids, :], p_quat)
     quat = pmath.mul_quat(p_quat, m.body_quat[..., tids, :])
 
+    if s.nmocap:  # mocap bodies take the pose the caller set
+      msel = np.nonzero(s.body_mocapid[ids] >= 0)[0]
+      if len(msel):
+        mid = _ix(s.body_mocapid[ids][msel], dev)
+        pos[:, _ix(msel, dev)] = d.mocap_pos[:, mid]
+        quat[:, _ix(msel, dev)] = pmath.normalize_quat(d.mocap_quat[:, mid])
+
     max_jnt = int(s.body_jntnum[ids].max()) if len(ids) else 0
     for k in range(max_jnt):
       has = s.body_jntnum[ids] > k

@@ -167,3 +167,35 @@ def make_tangent_frame(normal: torch.Tensor) -> torch.Tensor:
       1e-12)
   t2 = cross(n, t1)
   return torch.stack([n, t1, t2], dim=-2)
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+  """3x3 rotation matrix -> unit quaternion (w, x, y, z), w >= 0: of the
+  four constructions, the one of the largest pivot (branchless)."""
+  m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+  m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+  m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+  qw = torch.stack([1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
+                    1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+  case = torch.argmax(qw, dim=-1, keepdim=True)
+  s = torch.sqrt(torch.gather(qw, -1, case)[..., 0].clamp_min(1e-12)) * 2.0
+  cands = torch.stack([
+      torch.stack([0.25 * s, (m21 - m12) / s, (m02 - m20) / s,
+                   (m10 - m01) / s], -1),
+      torch.stack([(m21 - m12) / s, 0.25 * s, (m01 + m10) / s,
+                   (m02 + m20) / s], -1),
+      torch.stack([(m02 - m20) / s, (m01 + m10) / s, 0.25 * s,
+                   (m12 + m21) / s], -1),
+      torch.stack([(m10 - m01) / s, (m02 + m20) / s, (m12 + m21) / s,
+                   0.25 * s], -1),
+  ], dim=-2)
+  q = torch.gather(cands, -2, case[..., None].expand(
+      case.shape[:-1] + (1, 4)))[..., 0, :]
+  return normalize_quat(torch.where(q[..., :1] < 0, -q, q))
+
+
+def transform_motion(vec: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+  """A motion vector moved to a frame displaced by `offset` (newpos -
+  oldpos, same orientation): lin - offset x ang (mju_transformSpatial)."""
+  ang, lin = vec[..., :3], vec[..., 3:]
+  return torch.cat([ang, lin - cross(offset, ang)], dim=-1)

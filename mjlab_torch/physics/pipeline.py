@@ -3,8 +3,9 @@
 Counterpart of mjlab_tpu/physics/pipeline.py, natively batched: `step(m, d)`
 advances every env of `d` by one timestep. One substep runs
 
-  smooth_all (K3) -> collision -> transmission -> passive -> actuation ->
-  fwd_smooth (K1) -> make_efc -> solve (K2) -> sensors -> integrator (K1).
+  smooth_all (K3) -> collision -> tendon -> transmission -> passive ->
+  actuation -> fwd_smooth (K1) -> make_efc -> solve (K2) -> sensors ->
+  integrator (K1).
 
 Supported integrators: Euler (implicit joint damping, as MuJoCo's
 eulerdamp) and implicitfast (implicit in velocity through the diagonal
@@ -45,6 +46,7 @@ def fwd_position(m: Model, d: Data) -> Data:
     d = _kinematics.com_pos(m, d)
     d = _smooth.crb(m, d)
   d = _collision.collision(m, d)
+  d = _smooth.tendon(m, d)
   return _smooth.transmission(m, d)
 
 
@@ -94,7 +96,9 @@ def _actuator_vel_deriv(m: Model, d: Data) -> torch.Tensor:
                        | (force >= m.actuator_forcerange[:, 1]))
   dforce_dvel = torch.where(clamped, zero, dforce_dvel)
   gear = m.actuator_gear[:, 0]
-  _, dadr = _smooth._joint_trn(s, dev)
+  _, dadr, _, ten = _smooth.trn_tables(s, dev)
+  if ten is not None:  # io.put_model refuses tendon actuators under
+    dforce_dvel = torch.where(ten, zero, dforce_dvel)  # implicit ones
   return torch.zeros_like(d.qvel).index_add(1, dadr,
                                             gear * gear * dforce_dvel)
 

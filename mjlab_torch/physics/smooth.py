@@ -58,8 +58,54 @@ def rne(m: Model, d: Data) -> Data:
   return d.replace(qfrc_bias=qfrc_bias)
 
 
+def tendon(m: Model, d: Data) -> Data:
+  """Tendon lengths, velocities and Jacobian rows (B, ntendon, nv), as
+  mj_tendon for the tendons io.put_model admits: a fixed tendon is
+  constant rows (L = W_q qpos, J = W_v); a spatial tendon is a straight
+  chain of sites, L = sum |p_i+1 - p_i| and J = sum u^T (Jp_i+1 - Jp_i)."""
+  s = m.stat
+  if not s.ntendon:
+    return d
+  dev = d.qpos.device
+  nt = s.ntendon
+  lengths = d.qpos @ _mask(s.ten_coef_q[:nt], d.qpos).T  # (B, nt)
+  J = _mask(s.ten_coef_v[:nt], d.qpos)  # (nt, nv)
+  anc = _mask(s.ancestor_mask, d.qpos)
+  cdof_ang = d.cdof[..., :3]
+  cdof_lin = d.cdof[..., 3:]
+
+  def point_jac(body, p):  # (B, nv, 3) of a world point p (B, 3) on body
+    croot = d.subtree_com[:, int(s.body_rootid[body])]
+    col = cdof_lin + pmath.cross(cdof_ang, (p - croot)[:, None, :])
+    return col * anc[body][:, None]
+
+  cols_L, cols_J = [], []
+  for t, chain in enumerate(s.ten_site_chains):
+    if not chain:
+      cols_L.append(lengths[:, t])
+      cols_J.append(J[t].expand(d.qpos.shape[0], s.nv))
+      continue
+    L = torch.zeros_like(lengths[:, t])
+    row = torch.zeros_like(d.qvel)
+    for a, b in zip(chain[:-1], chain[1:]):
+      pa, pb = d.site_xpos[:, a], d.site_xpos[:, b]
+      seg = pb - pa
+      ln = torch.sqrt((seg * seg).sum(-1).clamp_min(1e-24))
+      u = seg / ln[:, None]
+      L = L + ln
+      jab = (point_jac(int(s.site_bodyid[b]), pb)
+             - point_jac(int(s.site_bodyid[a]), pa))
+      row = row + torch.einsum('bvx,bx->bv', jab, u)
+    cols_L.append(L)
+    cols_J.append(row)
+  ten_J = torch.stack(cols_J, dim=1)
+  return d.replace(ten_length=torch.stack(cols_L, dim=1), ten_J=ten_J,
+                   ten_velocity=torch.einsum('btv,bv->bt', ten_J, d.qvel))
+
+
 def passive(m: Model, d: Data) -> Data:
-  """Joint spring and damper forces."""
+  """Joint and tendon spring and damper forces (a tendon's spring acts
+  outside its deadband [lengthspring0, lengthspring1] only)."""
   s = m.stat
   dev = d.qpos.device
   if s.disableflags & DisableBit.PASSIVE:
@@ -95,6 +141,15 @@ def passive(m: Model, d: Data) -> Data:
         off += 3
 
   qfrc_damper = -m.dof_damping * d.qvel
+  if s.ntendon:
+    L, ls = d.ten_length, m.tendon_lengthspring
+    zero = L.new_zeros(())
+    disp = torch.where(L < ls[..., 0], ls[..., 0] - L,
+                       torch.where(L > ls[..., 1], ls[..., 1] - L, zero))
+    f_spring = m.tendon_stiffness * disp
+    f_damper = -m.tendon_damping * d.ten_velocity
+    qfrc_spring = qfrc_spring + torch.einsum('bt,btv->bv', f_spring, d.ten_J)
+    qfrc_damper = qfrc_damper + torch.einsum('bt,btv->bv', f_damper, d.ten_J)
   return d.replace(qfrc_passive=qfrc_spring + qfrc_damper,
                    qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper)
 
@@ -140,22 +195,36 @@ def act_input(m: Model, d: Data, ctrl: torch.Tensor):
   return inp, act_dot
 
 
-def _joint_trn(s, dev):
-  """(joint-transmission actuator ids, their joints' qpos/dof addresses);
-  io.put_model admits joint transmissions only."""
-  jid = s.actuator_trnid[:, 0]
-  return (_ix(s.jnt_qposadr[jid], dev), _ix(s.jnt_dofadr[jid], dev))
+_TRN_JOINT = 0  # mjtTrn
+
+
+def trn_tables(s, dev):
+  """Per actuator, the tables of its transmission (io.put_model admits
+  joint and tendon ones): (qpos address, dof address, tendon id, and a
+  (nu,) bool tensor marking the tendon actuators, or None when every
+  actuator drives a joint). An actuator's entries of the other kind are
+  0, masked by the caller."""
+  ids = np.asarray(s.actuator_trnid)[:, 0]
+  joint = np.asarray(s.actuator_trntype) == _TRN_JOINT
+  jid = np.where(joint, ids, 0)
+  ten = None if joint.all() else table(~joint, torch.bool, dev)
+  return (_ix(s.jnt_qposadr[jid], dev), _ix(s.jnt_dofadr[jid], dev),
+          _ix(np.where(joint, 0, ids), dev), ten)
 
 
 def transmission(m: Model, d: Data) -> Data:
-  """Actuator lengths and velocities for joint transmissions."""
+  """Actuator lengths and velocities for joint and tendon transmissions."""
   s = m.stat
   if s.nu == 0:
     return d
-  qadr, dadr = _joint_trn(s, d.qpos.device)
+  qadr, dadr, tid, ten = trn_tables(s, d.qpos.device)
   gear = m.actuator_gear[:, 0]
-  return d.replace(actuator_length=d.qpos[:, qadr] * gear,
-                   actuator_velocity=d.qvel[:, dadr] * gear)
+  length, velocity = d.qpos[:, qadr], d.qvel[:, dadr]
+  if ten is not None:
+    length = torch.where(ten, d.ten_length[:, tid], length)
+    velocity = torch.where(ten, d.ten_velocity[:, tid], velocity)
+  return d.replace(actuator_length=length * gear,
+                   actuator_velocity=velocity * gear)
 
 
 def clamp_ctrl(m: Model, ctrl: torch.Tensor) -> torch.Tensor:
@@ -201,9 +270,16 @@ def actuation(m: Model, d: Data) -> Data:
   force = torch.where(
       limited, torch.minimum(torch.maximum(force, fr[:, 0]), fr[:, 1]),
       force)
-  _, dadr = _joint_trn(s, d.qpos.device)
+  _, dadr, tid, ten = trn_tables(s, d.qpos.device)
+  frc = m.actuator_gear[:, 0] * force
   qfrc = torch.zeros_like(d.qvel)
-  qfrc.index_add_(1, dadr, m.actuator_gear[:, 0] * force)
+  if ten is None:
+    qfrc.index_add_(1, dadr, frc)
+  else:  # a tendon actuator's force maps through its tendon's J row
+    zero = frc.new_zeros(())
+    qfrc.index_add_(1, dadr, torch.where(ten, zero, frc))
+    qfrc = qfrc + torch.einsum('bu,buv->bv', torch.where(ten, frc, zero),
+                               d.ten_J[:, tid])
   return d.replace(actuator_force=force, qfrc_actuator=qfrc)
 
 

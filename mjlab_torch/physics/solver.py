@@ -12,10 +12,11 @@ convex phi(alpha).
 
 `newton_plain` is the plain version of kernel K2 (ops/newton.py). `solve`
 dispatches: a batch on a CUDA device runs the kernel when the model fits
-its shared-memory rule (ops.newton.fits) and its cone is pyramidal (K2
-implements the pyramidal cost alone, as the JAX package's whole-solver
-kernel), else the plain version; a batch on the CPU runs the plain
-version.
+its shared-memory rule (ops.newton.fits), its cone is pyramidal and it has
+no equality rows (K2 implements the pyramidal cost of one-sided rows
+alone, as the JAX package's whole-solver kernel; tendon-limit rows ride
+in its contact block), else the plain version; a batch on the CPU runs
+the plain version.
 """
 
 from __future__ import annotations
@@ -39,8 +40,12 @@ _SCALES = (0.0, 0.125, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 4.0, 8.0)
 UNSAFE_LS_POLISH = False
 
 
-def _forces_oneside(jar, D, active):
+def _forces_oneside(jar, D, active, bilateral=None):
+  """Forces of one-sided rows; a row of `bilateral` (an equality row) has
+  its quadratic cost on both sides."""
   quad = (jar < 0) & active
+  if bilateral is not None:
+    quad = quad | (bilateral & active)
   return torch.where(quad, -D * jar, torch.zeros_like(jar)), quad
 
 
@@ -52,8 +57,10 @@ def _forces_friction(jar, D, floss, active):
   return f, quad
 
 
-def _cost_oneside(jar, D, active):
+def _cost_oneside(jar, D, active, bilateral=None):
   quad = (jar < 0) & active
+  if bilateral is not None:
+    quad = quad | (bilateral & active)
   return torch.where(quad, 0.5 * D * jar * jar,
                      torch.zeros_like(jar)).sum(-1)
 
@@ -147,13 +154,17 @@ def _elliptic_gh(jx, jdx, xD, mu, fr, act):
 
 def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
                  l_act, f_aref, fD, floss, f_act, iterations: int,
-                 ls_polish: int, ldof, grad_th: float, xargs=None):
+                 ls_polish: int, ldof, grad_th: float, xargs=None,
+                 ne: int = 0):
   """Batched structured Newton solve -> (qacc (B,n), f_friction (B,n),
   f_limit (B,nl), f_contact (B,nc)[, f_elliptic (B,NX,DM)]). Activity
   masks are bool. xargs = (xJ (B,NX,DM,n), x_aref, xD, x_mu, x_fr, x_act)
-  adds the elliptic-cone block (`elliptic_args`)."""
+  adds the elliptic-cone block (`elliptic_args`). The first `ne` rows of
+  the dense block are bilateral (equality rows): no one-sided clamp."""
   ldof_ix = _ix(ldof, M.device)
   c_act, l_act, f_act = c_act.bool(), l_act.bool(), f_act.bool()
+  bilat = (table(np.arange(cJ.shape[1]) < ne, torch.bool, M.device)
+           if ne else None)
   mv = lambda A, v: torch.einsum('...ij,...j->...i', A, v)
   elliptic = xargs is not None
   if elliptic:
@@ -171,7 +182,7 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
     jf, jl, jc = jars[:3]
     ff, qf = _forces_friction(jf, fD, floss, f_act)
     fl, ql = _forces_oneside(jl, lD, l_act)
-    fc, qc = _forces_oneside(jc, cD, c_act)
+    fc, qc = _forces_oneside(jc, cD, c_act, bilat)
     forces = (ff, fl, fc)
     if elliptic:
       forces += (_elliptic_forces(jars[3], xD, x_mu, x_fr, x_act)[0],)
@@ -184,7 +195,7 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
     cost = (0.5 * (dx * mv(M, dx)).sum(-1)
             + _cost_friction(jf, fD, floss, f_act)
             + _cost_oneside(jl, lD, l_act)
-            + _cost_oneside(jc, cD, c_act))
+            + _cost_oneside(jc, cD, c_act, bilat))
     if elliptic:
       cost = cost + _elliptic_forces(jars[3], xD, x_mu, x_fr, x_act)[1]
     return cost
@@ -236,7 +247,7 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
       fl_a, ql_a = _forces_oneside(jl0[:, None] + a * jd_l[:, None],
                                    lD[:, None], l_act[:, None])
       fc_a, qc_a = _forces_oneside(jc0[:, None] + a * jd_c[:, None],
-                                   cD[:, None], c_act[:, None])
+                                   cD[:, None], c_act[:, None], bilat)
       g = (alpha * dMd[:, None] + xMd[:, None]
            - (ff_a * jd_f[:, None]).sum(-1) - (fl_a * jd_l[:, None]).sum(-1)
            - (fc_a * jd_c[:, None]).sum(-1))
@@ -315,7 +326,8 @@ def solver_params(stat):
 
 
 def newton_steps(args: tuple, iterations: int, ls_polish: int,
-                 ldof: tuple, grad_th: float, xargs=None) -> torch.Tensor:
+                 ldof: tuple, grad_th: float, xargs=None,
+                 ne: int = 0) -> torch.Tensor:
   """(B,) the Newton iterations each env steps before the freeze rule
   (||grad||^2 <= grad_th^2) stops it, counted on the plain solver: the
   gradient after k plain iterations decides iteration k + 1. `args` are
@@ -323,7 +335,8 @@ def newton_steps(args: tuple, iterations: int, ls_polish: int,
   M, a0 = args[0], args[1]
   need = torch.zeros(M.shape[0], dtype=torch.long, device=M.device)
   for k in range(iterations):
-    x, *forces = newton_plain(*args, k, ls_polish, ldof, grad_th, xargs)
+    x, *forces = newton_plain(*args, k, ls_polish, ldof, grad_th, xargs,
+                              ne)
     grad = (torch.einsum('bij,bj->bi', M, x - a0)
             - constraint_force(args[3], args[7], ldof, forces,
                                None if xargs is None else xargs[0]))
@@ -345,11 +358,20 @@ def constraint_force(cJ, l_sign, ldof: tuple, forces, xJ=None):
 
 def newton_args(d: Data, efc: dict) -> tuple:
   """The tensor arguments of `newton_plain` (M through f_act), which are
-  also those of the kernel wrapper, from a Data and `make_efc`'s rows."""
-  return (d.qM, d.qacc_smooth, d.qacc_warmstart, efc['c_J'], efc['c_aref'],
-          efc['c_D'], efc['c_active'], efc['l_sign'], efc['l_aref'],
-          efc['l_D'], efc['l_active'], efc['f_aref'], efc['f_D'],
-          efc['f_floss'], efc['f_active'])
+  also those of the kernel wrapper, from a Data and `make_efc`'s rows. The
+  dense block is the contact rows with the equality rows (bilateral) and
+  then the tendon-limit rows put in front, as the JAX engine's solve
+  builds it."""
+  pre = [k for k in ('e', 't') if f'{k}_J' in efc]
+
+  def block(name, key):
+    parts = [efc[f'{k}_{key}'] for k in pre] + [efc[f'c_{name}']]
+    return torch.cat(parts, dim=1) if pre else parts[0]
+
+  return (d.qM, d.qacc_smooth, d.qacc_warmstart, block('J', 'J'),
+          block('aref', 'aref'), block('D', 'D'), block('active', 'active'),
+          efc['l_sign'], efc['l_aref'], efc['l_D'], efc['l_active'],
+          efc['f_aref'], efc['f_D'], efc['f_floss'], efc['f_active'])
 
 
 def elliptic_args(efc: dict):
@@ -363,39 +385,42 @@ def elliptic_args(efc: dict):
 
 def solve(m: Model, d: Data, efc: dict) -> Data:
   """Run the Newton solver; returns Data with qacc, qfrc_constraint and
-  efc_force (MuJoCo's row order; on an elliptic model the frictionless
-  and the elliptic rows go to their slots' rows)."""
+  efc_force (MuJoCo's row order [equality | friction | joint limits |
+  tendon limits | contacts]; on an elliptic model the frictionless and the
+  elliptic rows go to their slots' rows)."""
   s = m.stat
   lay = _constraint.efc_layout(s)
   iterations, ls_polish, ldof, grad_th = solver_params(s)
   args = newton_args(d, efc)
   xargs = elliptic_args(efc)
-  ncr = efc['c_J'].shape[1]
-  # model-class gates: K2 solves the pyramidal cost within its smem rule
-  if (d.qpos.device.type != 'cpu' and xargs is None
+  ne, nlt = lay.ne, lay.nlt
+  ncr = args[3].shape[1]  # the dense block, equality and tendon rows in it
+  # model-class gates, the JAX dispatch's: K2 solves the pyramidal cost of
+  # one-sided rows (no equality rows) within its smem rule
+  if (d.qpos.device.type != 'cpu' and xargs is None and ne == 0
       and _newton.fits(s.nv, ncr, len(ldof))):
     x, *forces = _newton.newton_solve_cuda(
         *args, iterations=iterations, ls_polish=ls_polish, ldof=ldof,
         grad_th=grad_th)
   else:
     x, *forces = newton_plain(*args, iterations, ls_polish, ldof, grad_th,
-                              xargs)
+                              xargs, ne)
   ff, fl, fc = forces[:3]
-  qfrc = constraint_force(efc['c_J'], efc['l_sign'], ldof, forces,
+  qfrc = constraint_force(args[3], efc['l_sign'], ldof, forces,
                           efc.get('x_J'))
+  head = [fc[:, :ne], ff, fl[:, :lay.nl], fc[:, ne:ne + nlt]]
+  fcon = fc[:, ne + nlt:]
   if xargs is None:
-    efc_force = torch.cat([ff, fl[:, :lay.nl], fc[:, :lay.ncr]], dim=1)
+    efc_force = torch.cat(head + [fcon[:, :lay.ncr]], dim=1)
   else:
-    # the dense rows [friction | limits | contacts by slot], one spare
-    # column past nefc for the axes beyond a slot's condim, cut off after
+    # the dense rows [... | contacts by slot], one spare column past nefc
+    # for the axes beyond a slot's condim, cut off after
     x_rows, c1_rows = _constraint.elliptic_row_maps(s)
-    nf_nl = s.nv + lay.nl
-    efc_force = torch.cat([ff, fl[:, :lay.nl],
-                           x.new_zeros((x.shape[0], lay.nefc + 1 - nf_nl))],
-                          dim=1)
+    efc_force = torch.cat(head + [x.new_zeros((x.shape[0],
+                                               lay.ncr + 1))], dim=1)
     if len(c1_rows):
       efc_force = efc_force.index_copy(1, _ix(c1_rows, x.device),
-                                       fc[:, :len(c1_rows)])
+                                       fcon[:, :len(c1_rows)])
     fx = forces[3]
     if not _constraint.elliptic_block_empty(s):
       assert fx.shape[1] == x_rows.shape[0], (fx.shape, x_rows.shape)

@@ -228,8 +228,21 @@ class ModelStatic(StaticBase):
   actuator_dyntype: np.ndarray = None  # (nu,) mjtDyn
   actuator_actadr: np.ndarray = None  # (nu,) act index, -1 = stateless
   actuator_actlimited: np.ndarray = None  # (nu,) bool
+  # tendons: a fixed tendon (a joint coupling) is constant rows, L =
+  # ten_coef_q @ qpos and J = ten_coef_v; a spatial tendon is a straight
+  # chain of sites (wrapping geoms and pulleys raise in io.put_model)
   ntendon: int = 0
+  ten_is_fixed: np.ndarray = None  # (max(ntendon, 1),) bool
+  ten_coef_q: np.ndarray = None  # (max(ntendon, 1), nq)
+  ten_coef_v: np.ndarray = None  # (max(ntendon, 1), nv)
+  ten_site_chains: tuple = ()  # per tendon, its site ids (() if fixed)
+  ten_limited: np.ndarray = None  # (max(ntendon, 1),) bool
+  # equality constraints (connect, weld, joint): their rows lead the efc
+  # rows, ahead of friction, limits and contacts (MuJoCo's order)
   neq: int = 0
+  eq_type: np.ndarray = None  # (neq,) mjtEq
+  eq_obj1: np.ndarray = None  # (neq,) body or joint id
+  eq_obj2: np.ndarray = None
 
   # heightfield terrain (at most one hfield asset): generated rough terrain
   # collides as one hfield geom; Model.hfield_data holds its grid
@@ -325,6 +338,22 @@ class Model:
   # along y; (1, 1) zeros when the model has no hfield
   hfield_data: torch.Tensor
 
+  # equality constraints; (1, ...) zeros when neq == 0
+  eq_data: torch.Tensor  # (neq, 11)
+  eq_solref: torch.Tensor  # (neq, 2)
+  eq_solimp: torch.Tensor  # (neq, 5)
+  eq_active0: torch.Tensor  # (neq,) 0 or 1
+
+  # tendons; (1, ...) placeholders when ntendon == 0
+  tendon_stiffness: torch.Tensor  # (ntendon,)
+  tendon_damping: torch.Tensor
+  tendon_lengthspring: torch.Tensor  # (ntendon, 2): the spring's deadband
+  tendon_range: torch.Tensor  # (ntendon, 2)
+  tendon_solref_lim: torch.Tensor  # (ntendon, 2)
+  tendon_solimp_lim: torch.Tensor  # (ntendon, 5)
+  tendon_margin: torch.Tensor
+  tendon_invweight0: torch.Tensor
+
   replace = _replace
 
   @property
@@ -404,6 +433,16 @@ class Data:
 
   act: torch.Tensor  # (B, max(na, 1))
   act_dot: torch.Tensor
+
+  # mocap poses, set by the caller and read by kinematics: (B, nmocap, 3)
+  # and (B, nmocap, 4); (B, 1, .) placeholders without mocap bodies
+  mocap_pos: torch.Tensor
+  mocap_quat: torch.Tensor
+
+  # tendon state; (B, 1) and (B, 1, nv) placeholders without tendons
+  ten_length: torch.Tensor  # (B, ntendon)
+  ten_velocity: torch.Tensor  # (B, ntendon)
+  ten_J: torch.Tensor  # (B, ntendon, nv)
 
   replace = _replace
 

@@ -1,7 +1,8 @@
 """The port stands alone: no module of mjlab_torch, and not chip_smoke.py,
 imports JAX, flax, optax, orbax or the JAX package; the G1 and Go1 flat
-environments and the G1 tracking environment are made and stepped without
-the mujoco package; its entry
+environments and the G1 tracking environment are made and stepped, and the
+engine's oracle models of equality constraints, tendons and sensors
+stepped, without the mujoco package; its entry
 points default to the GPU and refuse to fall back to the CPU silently; its
 kernel wrappers refuse CPU tensors."""
 
@@ -56,7 +57,7 @@ def test_the_walk_reaches_every_subpackage():
                'tasks.tracking.config.g1.flat_env_cfg',
                'asset_zoo.tiny_bot', 'asset_zoo.tiny_scene',
                'tasks.velocity.config.tiny', 'tasks.tracking.config.tiny',
-               'parallel.sharding'):
+               'parallel.sharding', 'asset_zoo.oracle_models'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
@@ -122,6 +123,33 @@ print('ok')
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300,
                        env={**os.environ, 'MJLAB_TORCH_CACHE': str(tmp_path)})
+  assert out.returncode == 0, out.stderr
+  assert out.stdout.strip() == 'ok'
+
+
+def test_oracle_models_step_without_jax_or_mujoco():
+  """The equality, tendon, mocap and sensor oracle models load from their
+  committed snapshots and step on the CPU with jax, the JAX package and
+  mujoco all unimportable."""
+  block = '; '.join(f'sys.modules[{b!r}] = None'
+                    for b in BANNED + ('mujoco',))
+  code = f"""
+import sys; {block}
+import torch
+import mjlab_torch.physics as phys
+from mjlab_torch.asset_zoo import oracle_models as om
+for name in om.NAMES:
+  m = phys.put_model(om.oracle_arrays(name), device='cpu')
+  d = phys.make_batched_data(m, 2, device='cpu')
+  for _ in range(2):
+    d = phys.step(m, d)
+  assert bool(torch.isfinite(d.qpos).all()), name
+loaded = [m for m in {BANNED + ('mujoco',)!r} if sys.modules.get(m)]
+assert not loaded, loaded
+print('ok')
+"""
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == 'ok'
 

@@ -76,9 +76,11 @@ def data_leaves(jd) -> dict:
   return out
 
 
-def to_port(jm, jd, mj):
-  """The port's Model and Data holding the JAX package's values."""
-  stat = tphys.put_model(mj, device='cpu', dtype=torch.float64).stat
+def to_port(jm, jd, mj, ncon_cap=None):
+  """The port's Model and Data holding the JAX package's values (`ncon_cap`
+  as the JAX Model was built with)."""
+  stat = tphys.put_model(mj, device='cpu', dtype=torch.float64,
+                         ncon_cap=ncon_cap).stat
   tm = tphys.model_from_numpy(model_leaves(jm), stat, device='cpu',
                               dtype=torch.float64)
   return tm, tphys.data_from_numpy(data_leaves(jd), tm)
@@ -269,3 +271,34 @@ def jax_state_from_leaves(jenv, arrays):
       'episode_length', 'common_step', 'actions', 'prev_actions',
       'reward_sums', 'command', 'obs', 'event', 'curriculum', 'reward')}
   return t.replace(model=jm, data=jd, **rest)
+
+
+# ---------------------------------------------------------------------------
+# the engine's oracle models (equality constraints, tendons, sensors)
+# ---------------------------------------------------------------------------
+
+
+def oracle_pair(mj, qpos, qvel, ctrl=None):
+  """(JAX Model, batched JAX Data at the numpy state, the port's Model and
+  Data holding the same values), float64, both built from the MjModel
+  `mj`; ctrl defaults to zeros."""
+  from mjlab_tpu.physics import io as jio
+  jm = jio.put_model(mj, dtype=jnp.float64)
+  n = qpos.shape[0]
+  ctrl = np.zeros((n, mj.nu)) if ctrl is None else ctrl
+  jd = jax_batch(jm, n, qpos, qvel, ctrl)
+  tm, td = to_port(jm, jd, mj)
+  return jm, jd, tm, td
+
+
+def port_data(tm, jd):
+  """The port's Data holding a batched JAX Data's values."""
+  return tphys.data_from_numpy(data_leaves(jd), tm)
+
+
+def assert_close(got, want, tol, what):
+  """max |got - want| <= tol (got a tensor or an array, want an array)."""
+  got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
+  np.testing.assert_allclose(got.astype(np.float64),
+                             np.asarray(want).astype(np.float64), rtol=0,
+                             atol=tol, err_msg=what)
