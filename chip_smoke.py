@@ -153,7 +153,24 @@ Phases, each of which exits non-zero on failure:
      float64 over its first 20 substeps; 14b: K2 at the tendon model's and the robot's
      shapes and K1 on every Hessian of the four-bar's plain Newton, each
      against its plain version and timed, one four-bar substep stage by
-     stage and the equality block's share of it).
+     stage and the equality block's share of it);
+ 15. run the convex pile (asset_zoo/oracle_models.py: nine free solids
+     over a plane, every collider group of ellipsoids, cylinders and mesh
+     hulls) through put_model, make_batched_data and step at 4096 envs
+     (15a: from seeded states (pile_states) for PILE_SUBSTEPS substeps,
+     launches a substep equal to PILE_LAUNCHES, everything finite, each of
+     the 18 groups this slice ported active in some env, no active
+     contact of the last PILE_LAST substeps deeper than PILE_PEN_GATE,
+     every |qvel| and body position within PILE_QVEL_GATE and
+     PILE_FAR_GATE, substeps/s; then, for each of the 18 groups, the env
+     of its earliest first contact over a window around that contact
+     (PILE_WINDOW), the card (float32) against the CPU in float64 from
+     the card's state, contact-activation flips allowed within
+     PILE_FLIP_GAP of the threshold; 15b: each of those groups timed, with its host issue, its
+     kernel launches a call and its device time, one substep stage by
+     stage, and K1-K3
+     at the pile's shapes against their plain versions, each a row of the
+     kernels line).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -173,7 +190,9 @@ row holds its phase-10d numbers as `rough_go1` and its phase-14b numbers
 as `oracle_tendon` and `oracle_robot`, each row its phase-12a
 numbers at the TinyBot's shapes as `tiny`, K1's its numbers on the
 elliptic Hessians as `elliptic_hessians` and on the four-bar's as
-`oracle_fourbar_hessians`); the last
+`oracle_fourbar_hessians`; each row's `pile_path_launches` its
+launches in phase 15a, and K1-K3's rows at the pile's shapes follow the
+others); the last
 line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
 `python3 chip_smoke.py --shard-rank ROOT TRAIN_ARGS...` is one rank of
@@ -404,17 +423,28 @@ def per_env_k3_model(torch, m, batch: int, gen, fields=None):
   return m.replace(**out)
 
 
+def k3_compared(kern: dict, nsite: int) -> dict:
+  """K3's outputs held against the plain version: a model without sites
+  has no site frames (the kernel leaves their padded row unwritten)."""
+  return {k: v for k, v in kern.items()
+          if nsite or not k.startswith('site_')}
+
+
 def k3_rel_err(torch, kern: dict, plain, nsite: int) -> float:
-  """Worst max |kernel - plain| / (1 + max |plain|) over K3's outputs; a
-  model without sites has no site frames to compare."""
+  """Worst max |kernel - plain| / (1 + max |plain|) over K3's compared
+  outputs (k3_compared)."""
   worst = 0.0
-  for key, got in kern.items():
-    if key.startswith('site_') and not nsite:
-      continue
+  for key, got in k3_compared(kern, nsite).items():
     if not bool(torch.isfinite(got).all()):
       return float('inf')
     worst = max(worst, rel_err(got, getattr(plain, key)))
   return worst
+
+
+def k3_max_err(kern: dict, plain, nsite: int) -> float:
+  """Worst max |kernel - plain| over K3's compared outputs."""
+  return max(max_err(v, getattr(plain, k))
+             for k, v in k3_compared(kern, nsite).items())
 
 
 def k2_dropped_input(torch, phys, mj, m, batch: int, gen):
@@ -1497,7 +1527,7 @@ def shape_kernels(torch, card: str, busy, what: str, m, d,
   check(smooth_fused.enabled(s), f'K3 refuses the {what}')
   kern = k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
   plain = smooth_fused.plain_all(m, d)
-  err = max(max_err(kern[k], getattr(plain, k)) for k in k_smooth.OUT_KEYS)
+  err = k3_max_err(kern, plain, s.nsite)
   rel = k3_rel_err(torch, kern, plain, s.nsite)
   check(rel <= 1e-4, f'K3 disagrees with its plain version on the {what}: '
         f'{rel:.3e}')
@@ -1935,7 +1965,7 @@ def _tracking_path(torch, card: str, busy, root: str):
   d = env.state.data
   kern = k_smooth.smooth_fused_cuda(me, d.qpos, d.qvel)
   plain = smooth_fused.plain_all(me, d)
-  err3 = max(max_err(kern[k], getattr(plain, k)) for k in k_smooth.OUT_KEYS)
+  err3 = k3_max_err(kern, plain, s.nsite)
   rel3 = k3_rel_err(torch, kern, plain, s.nsite)
   check(rel3 <= 1e-4, f'K3 at tracking\'s segments disagrees with its plain '
         f'version: {rel3:.3e}')
@@ -4136,7 +4166,7 @@ def oracle_path(torch, card: str, busy) -> 'tuple[dict, dict]':
   total = collections.Counter()
   numbers, k3_errs = {}, {}
   kern = ('smooth', 'newton', 'pd_solve')
-  for name in om.NAMES:
+  for name in ORACLE_LAUNCHES:  # the convex pile is phase 15's
     arrays = om.oracle_arrays(name)
     m = phys.put_model(arrays)
     s = m.stat
@@ -4268,6 +4298,344 @@ def oracle_path(torch, card: str, busy) -> 'tuple[dict, dict]':
   return total, numbers
 
 
+PILE_SUBSTEPS = 60  # substeps of phase 15a's counted run at 4096 envs
+# phase 15's launches a substep of the convex pile, (K3, K2, K1), written
+# into PERF.md before the first call on the card: K3 (nine free bodies on
+# the world pass its gate), K2 (no equality rows, pyramidal, n 54 with 248
+# contact rows fits its shared memory), K1 in fwd_smooth and in the Euler
+# step's implicit damping
+PILE_LAUNCHES = (1, 1, 2)
+# phase 15's gate, written before the first call on the card: no active
+# contact of the last PILE_LAST substeps is deeper than this (m)
+PILE_PEN_GATE = 0.02
+PILE_LAST = 20
+# and no |qvel| of any env passes PILE_QVEL_GATE (m/s or rad/s), nor does
+# any body lie more than PILE_FAR_GATE (m) from the grid's centre, at any
+# substep (tools/pile_blowup.py finds and replays the envs that would)
+PILE_QVEL_GATE, PILE_FAR_GATE = 50.0, 2.0
+# phase 15a's card-vs-CPU check: for each of the 18 ported groups, the env
+# of its earliest first contact, from the card's state PILE_WINDOW[0]
+# substeps before that contact for sum(PILE_WINDOW) substeps on the CPU in
+# float64; a contact that is active on one side only must lie within
+# PILE_FLIP_GAP (m) of its threshold on the CPU
+PILE_WINDOW = (4, 6)
+PILE_FLIP_GAP = 1e-4
+# the start: nine of the 27 cells of a 3 x 3 x 3 grid PILE_SPACING apart
+# whose lowest layer is PILE_BASE above the floor, each body jittered by
+# up to PILE_JITTER, turned at random and sent toward the grid's centre at
+# PILE_SPEED m/s, spinning at up to PILE_SPIN rad/s about each axis
+PILE_SPACING, PILE_BASE, PILE_JITTER = 0.25, 0.13, 0.02
+PILE_SPEED, PILE_SPIN = (0.3, 1.2), 3.0
+PILE_WIDTHS = (54, 248, 1)  # (n, ncr, limit-row width) of K2 on the pile
+# K1-K3's rows of the kernels line, and the numbers each row takes from
+# shape_kernels
+KERNEL_ROWS = {
+    'smooth': ('smooth_fused (K3)', 'mjlab_torch/csrc/smooth.cu',
+               'mjlab_tpu/ops/smooth_kernel.py:226'),
+    'newton': ('newton_solve (K2)', 'mjlab_torch/csrc/newton.cu',
+               'mjlab_tpu/ops/newton.py:40'),
+    'pd_solve': ('pd_solve (K1)', 'mjlab_torch/csrc/pd_solve.cu',
+                 'mjlab_tpu/ops/pd_solve.py:36')}
+ROW_NUMBERS = ('max_abs_err', 'ms', 'device_ms', 'plain_ms', 'bound_ms',
+               'bound_by', 'library_ms')
+# the pile's pair groups whose colliders this slice ported (the other six,
+# plane- and sphere-/capsule-/box- pairs, are the G1's and the oracle
+# models')
+PILE_GROUPS = (
+    'plane-ellipsoid', 'plane-cylinder', 'sphere-ellipsoid',
+    'sphere-cylinder', 'capsule-ellipsoid', 'capsule-cylinder',
+    'ellipsoid-ellipsoid', 'ellipsoid-cylinder', 'ellipsoid-box',
+    'cylinder-cylinder', 'cylinder-box', 'plane-mesh', 'sphere-mesh',
+    'capsule-mesh', 'ellipsoid-mesh', 'cylinder-mesh', 'box-mesh',
+    'mesh-mesh')
+
+
+def pair_name(key) -> str:
+  from mjlab_torch.physics.types import GeomType
+  return '-'.join(GeomType(k).name.lower() for k in key)
+
+
+def pile_states(torch, m, batch: int, seed: int):
+  """`batch` seeded start states of the convex pile (float32, on the
+  model's device): its nine bodies in distinct cells of the grid, each
+  turned at random and moving toward the grid's centre (PILE_*)."""
+  gen = torch.Generator().manual_seed(seed)
+  u = lambda *shape: torch.rand(*shape, generator=gen)
+  cells = u(batch, 27).argsort(-1)[:, :9]
+  ijk = torch.stack([cells % 3, cells // 3 % 3, cells // 9], -1).float()
+  centre = torch.tensor([0.0, 0.0, PILE_BASE + PILE_SPACING])
+  pos = (centre + (ijk - 1.0) * PILE_SPACING
+         + PILE_JITTER * (2.0 * u(batch, 9, 3) - 1.0))
+  quat = torch.randn(batch, 9, 4, generator=gen)
+  quat = quat / quat.norm(dim=-1, keepdim=True)
+  toward = centre - pos
+  lo, hi = PILE_SPEED
+  speed = lo + (hi - lo) * u(batch, 9, 1)
+  vel = speed * toward / toward.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+  spin = PILE_SPIN * (2.0 * u(batch, 9, 3) - 1.0)
+  dev = m.qpos0.device
+  return (torch.cat([pos, quat], -1).reshape(batch, 63).to(dev),
+          torch.cat([vel, spin], -1).reshape(batch, 54).to(dev))
+
+
+def pile_cpu_rollout(qpos, qvel, warm, steps: int) -> list:
+  """Phase 15a's CPU side: the convex pile from the states (qpos, qvel,
+  qacc_warmstart) (numpy, a few envs) for `steps` substeps in float64 on
+  the CPU. Returns, after each substep, (qpos, qvel, dist - includemargin)
+  as numpy."""
+  import torch
+
+  import mjlab_torch.physics as phys
+  from mjlab_torch.asset_zoo import oracle_models as om
+  m = phys.put_model(om.oracle_arrays('convex_pile'), device='cpu',
+                     dtype=torch.float64)
+  d = phys.make_batched_data(m, len(qpos), device='cpu').replace(
+      qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+      qacc_warmstart=torch.as_tensor(warm))
+  out = []
+  for _ in range(steps):
+    d = phys.step(m, d)
+    c = d.contact
+    out.append((d.qpos.numpy(), d.qvel.numpy(),
+                (c.dist - c.includemargin).numpy()))
+  return out
+
+
+def pile_windows(torch, groups: dict, active) -> 'tuple[list, dict]':
+  """The card-vs-CPU windows of phase 15a from the run's active contacts
+  `active` (substeps, envs, slots; bool): for each group in PILE_GROUPS,
+  the env whose first active contact of the group comes earliest (the
+  lowest env on a tie) and the substep t of that contact; its window
+  starts at s = t - PILE_WINDOW[0], moved to lie inside the run. Returns
+  ([(env, s)] without repeats, {group: (env, t, s)})."""
+  steps = active.shape[0]
+  width = sum(PILE_WINDOW)
+  picks = {}
+  for name in PILE_GROUPS:
+    g1s, _, _, base, npts = groups[name]
+    hit = active[:, :, base:base + len(g1s) * npts].any(-1)  # (T, B)
+    first = torch.where(hit.any(0), hit.float().argmax(0), steps)
+    env = int(first.argmin())
+    t = int(first[env])
+    picks[name] = (env, t, min(max(t - PILE_WINDOW[0], 0), steps - width))
+  windows = sorted({(e, s) for e, _, s in picks.values()})
+  return windows, picks
+
+
+def pile_card_vs_cpu(torch, card_states, cpu_states):
+  """Phase 15a's check of the card against the CPU over the windows:
+  `card_states` the card's states (qpos, qvel and the active contacts,
+  float32) after each substep of every window, `cpu_states`
+  pile_cpu_rollout's float64 states from the same starts. A contact
+  within float32 rounding of its threshold may be active on one side
+  only; a window whose active contacts first differ after its substep i
+  is compared up to its substep i - 1 (card_vs_cpu_flips). Returns (the
+  worst err/(1 + max |cpu|) over qpos and qvel, {window: (substep of its
+  flip, |dist - includemargin| there on the CPU)}, [the substeps each
+  window was compared over])."""
+  n = card_states[0]['qpos'].shape[0]
+  keep = torch.ones(n, dtype=torch.bool)
+  upto = [len(card_states)] * n
+  worst, flips = 0.0, {}
+  for t, (card, (qpos, qvel, gap)) in enumerate(zip(card_states,
+                                                      cpu_states)):
+    gap = torch.as_tensor(gap)
+    differ = card['active'].cpu() != (gap < 0)
+    for e in torch.nonzero(differ.any(-1) & keep).flatten().tolist():
+      flips[e] = (t, float(gap[e][differ[e]].abs().max()))
+      keep[e] = False
+      upto[e] = t
+    for f, want in (('qpos', qpos), ('qvel', qvel)):
+      worst = max(worst, rel_err(card[f].cpu()[keep],
+                                 torch.as_tensor(want)[keep]))
+  return worst, flips, upto
+
+
+def pile_group_numbers(torch, m, d, card: str) -> None:
+  """Prints each ported collider group of the pile at the batch `d`: its
+  time between CUDA events and its host issue, the card idle before each
+  call (medians of 3), and the kernels one call launches with their
+  device time (torch.profiler, device events)."""
+  from torch.profiler import ProfilerActivity, profile
+
+  from mjlab_torch.physics import collision
+  for key, (g1s, g2s, _, _, npts) in m.stat.pairs.groups.items():
+    name = pair_name(key)
+    if name not in PILE_GROUPS:
+      continue
+    fn = collision.group_collider(m, key, g1s, g2s)
+    fn(d)  # the hull tables' first upload
+    ms, host = [], []
+    for _ in range(3):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      start.record()
+      fn(d)
+      end.record()
+      host.append((time.perf_counter() - t0) * 1e3)
+      end.synchronize()
+      ms.append(start.elapsed_time(end))
+    ms, host = statistics.median(ms), statistics.median(host)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      fn(d)
+      torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith('CUDA')]
+    launches = sum(e.count for e in kernels)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f'pile group {name}: {len(g1s)} pairs x {npts} points, {ms:.3f} '
+          f'ms between events, {host:.3f} ms host issue (medians of 3), '
+          f'{launches} kernel launches a call busy on the device for '
+          f'{busy_ms:.3f} ms (torch.profiler); '
+          f'{d.qpos.shape[0]} envs; card {card}', flush=True)
+
+
+def pile_path(torch, card: str, busy) -> 'tuple[dict, list]':
+  """Phase 15: the convex pile (asset_zoo/oracle_models.py: a plane and
+  nine free solids, every collider group of ellipsoids, cylinders and
+  meshes) through put_model, make_batched_data and step at 4096 envs.
+  Returns (the kernels' launches over the counted run, K1-K3's rows at
+  the pile's shapes)."""
+  import mjlab_torch.physics as phys
+  from mjlab_torch.asset_zoo import oracle_models as om
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  from mjlab_torch.physics import smooth_fused
+
+  arrays = om.oracle_arrays('convex_pile')
+  m = phys.put_model(arrays)
+  s = m.stat
+  dev = m.qpos0.device
+  groups = {pair_name(k): v for k, v in s.pairs.groups.items()}
+  check(set(PILE_GROUPS) <= set(groups) and len(groups) == 24,
+        f'the convex pile\'s groups are {sorted(groups)}')
+  qpos, qvel = pile_states(torch, m, B, seed=15)
+  d = phys.make_batched_data(m, B).replace(qpos=qpos, qvel=qvel)
+  ncon = s.pairs.ncon_max
+  t_phase = time.perf_counter()
+  count = torch.zeros(ncon, dtype=torch.long, device=dev)
+  deepest = torch.full((), float('inf'), device=dev)
+  # every env's state before each substep (the last after the run) and
+  # its active contacts in each substep, for the bounds and the windows
+  states = {'qpos': [d.qpos], 'qvel': [d.qvel],
+            'qacc_warmstart': [d.qacc_warmstart]}
+  active = []
+  kern = ('smooth', 'newton', 'pd_solve')
+  # ---- 15a: PILE_SUBSTEPS substeps, launches counted ----------------------
+  torch.cuda.synchronize()
+  reset_launches()
+  t0 = time.perf_counter()
+  for t in range(PILE_SUBSTEPS):
+    d = phys.step(m, d)
+    c = d.contact
+    act = c.dist < c.includemargin
+    count += act.sum(0)
+    if t >= PILE_SUBSTEPS - PILE_LAST:
+      deepest = torch.minimum(deepest, torch.where(
+          act, c.dist, float('inf')).min())
+    for f, hist in states.items():
+      hist.append(getattr(d, f))
+    active.append(act)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = dict(LAUNCHES)
+  got = tuple(launches.get(k, 0) for k in kern)
+  want = tuple(PILE_SUBSTEPS * k for k in PILE_LAUNCHES)
+  finite = all(bool(torch.isfinite(getattr(d, f)).all())
+               for f in ('qpos', 'qvel', 'qacc', 'efc_force'))
+  deep = -float(deepest)
+  states = {f: torch.stack(v) for f, v in states.items()}  # (T + 1, B, .)
+  active = torch.stack(active)  # (T, B, ncon)
+  fast = float(states['qvel'].abs().max())
+  centre = torch.tensor([0.0, 0.0, PILE_BASE + PILE_SPACING], device=dev)
+  far = float((states['qpos'].reshape(PILE_SUBSTEPS + 1, B, 9, 7)[..., :3]
+               - centre).norm(dim=-1).max())
+  print(f'pile: nv {s.nv}, {ncon} contact slots in 24 groups, K3 '
+        f'{smooth_fused.enabled(s)}; {PILE_SUBSTEPS} substeps x {B} envs '
+        f'in {wall:.3f} s = {PILE_SUBSTEPS / wall:.2f} substeps/s, '
+        f'{PILE_SUBSTEPS * B / wall:.1f} env-substeps/s; launches (K3, K2, '
+        f'K1) {got}, predicted {want}; deepest active contact over the last '
+        f'{PILE_LAST} substeps {deep:.5f} m (gate {PILE_PEN_GATE}); over '
+        f'every env and substep max |qvel| {fast:.4f} (gate '
+        f'{PILE_QVEL_GATE}), a body at most {far:.4f} m from the grid\'s '
+        f'centre (gate {PILE_FAR_GATE}); card {card}', flush=True)
+  ever, hits = active.any(0), active.any(1)  # (B, ncon), (T, ncon)
+  first = torch.where(hits.any(0), hits.float().argmax(0), PILE_SUBSTEPS)
+  counts = {}
+  for name, (g1s, _, _, base, npts) in groups.items():
+    sl = slice(base, base + len(g1s) * npts)
+    counts[name] = (int(ever[:, sl].any(-1).sum()), int(count[sl].sum()),
+                    int(first[sl].min()))
+  print('pile active contacts by group over the run, (envs with one, '
+        'env-substep contacts, the first substep with one): ' + ', '.join(
+            f'{k} {v}' for k, v in counts.items()), flush=True)
+  check(finite, 'non-finite state after the convex pile')
+  check(got == want, f'the convex pile launched (K3, K2, K1) {got} in '
+        f'{PILE_SUBSTEPS} substeps, not {want}')
+  idle = [k for k in PILE_GROUPS if counts[k][0] == 0]
+  check(not idle, f'no active contact of the groups {idle} in the pile')
+  check(deep <= PILE_PEN_GATE, f'an active pile contact {deep:.4f} m deep '
+        f'in the last {PILE_LAST} substeps')
+  check(fast <= PILE_QVEL_GATE and far <= PILE_FAR_GATE, f'a pile env '
+        f'left the bounds: |qvel| {fast:.4g}, a body {far:.4g} m from the '
+        'centre')
+
+  # the card against the CPU around each group's first contact
+  t_cpu = time.perf_counter()
+  windows, picks = pile_windows(torch, groups, active)
+  width = sum(PILE_WINDOW)
+  env = torch.tensor([e for e, _ in windows], device=dev)
+  start = torch.tensor([w for _, w in windows], device=dev)
+  steps = start[:, None] + torch.arange(width, device=dev)  # (W, width)
+  card_states = [{'qpos': states['qpos'][steps[:, k] + 1, env],
+                  'qvel': states['qvel'][steps[:, k] + 1, env],
+                  'active': active[steps[:, k], env]} for k in range(width)]
+  cpu_states = pile_cpu_rollout(*(states[f][start, env].double().cpu().numpy()
+                                  for f in ('qpos', 'qvel',
+                                            'qacc_warmstart')), width)
+  err, flips, upto = pile_card_vs_cpu(torch, card_states, cpu_states)
+  t_cpu = time.perf_counter() - t_cpu
+  # a group's first contact is compared when its window's comparison runs
+  # through that substep, or its flip (near the threshold) comes there
+  seen = {n: upto[windows.index((e, w))] > t - w
+          for n, (e, t, w) in picks.items()}
+  print(f'pile: {len(windows)} windows of {width} substeps (card f32 '
+        f'against the CPU f64 from the card\'s state), worst '
+        f'err/(1+max|cpu|) {err:.3e} (tolerance 1e-3); (env, first '
+        f'contact, window start) by group: ' + ', '.join(
+            f'{n} {v}' for n, v in picks.items())
+        + f'; flips (window: substep, |dist - margin| on the CPU) {flips} '
+        f'(gate {PILE_FLIP_GAP} m); groups whose first contact was '
+        f'compared {sum(seen.values())} of {len(seen)}; {t_cpu:.1f} s; '
+        f'card {card}', flush=True)
+  check(err <= 1e-3, f'the convex pile on the card disagrees with the CPU: '
+        f'{err:.3e}')
+  check(all(g <= PILE_FLIP_GAP for _, g in flips.values()), f'a pile '
+        f'contact active on one side only lies farther than {PILE_FLIP_GAP} '
+        f'm from its threshold: {flips}')
+  del states, active, card_states
+
+  # ---- 15b: each new group timed; one substep by stage; K1-K3 -------------
+  stamps = [('15a', time.perf_counter())]
+  pile_group_numbers(torch, m, d, card)
+  stamps.append(('the groups', time.perf_counter()))
+  substep_stages(torch, m, d, card, 'pile')
+  stamps.append(('the stages', time.perf_counter()))
+  k = shape_kernels(torch, card, busy, 'convex pile', m, d, PILE_WIDTHS)
+  stamps.append(('K1-K3', time.perf_counter()))
+  print('phase 15, s: ' + ', '.join(
+      f'{name} {t - prev:.1f}' for (name, t), prev in zip(
+          stamps, [t_phase] + [t for _, t in stamps[:-1]])), flush=True)
+  rows = []
+  for kernel, (name, source, replaces) in KERNEL_ROWS.items():
+    rows.append(dict(name=f'{name}, convex pile', route='cuda',
+                     source=source, replaces=replaces,
+                     launches=launches.get(kernel, 0),
+                     **{f: k[kernel][f] for f in ROW_NUMBERS}))
+  return launches, rows
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -4314,8 +4682,7 @@ def main() -> None:
   d = g1_states(torch, phys, mj, m, B, 0.0, gen)
   kern = k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
   plain = smooth_fused.plain_all(m, d)
-  err3 = max(max_err(kern[key], getattr(plain, key))
-             for key in k_smooth.OUT_KEYS)
+  err3 = k3_max_err(kern, plain, s.nsite)
   worst = k3_rel_err(torch, kern, plain, s.nsite)
   tol3 = 1e-4
   print(f'K3 smooth: max abs err {err3:.3e}, max err/(1+max|plain|) '
@@ -4379,8 +4746,7 @@ def main() -> None:
         'not every segment of K3\'s float table is per env')
   kern_env = k_smooth.smooth_fused_cuda(m_env, d.qpos, d.qvel)
   plain_env = smooth_fused.plain_all(m_env, d)
-  err3e = max(max_err(kern_env[key], getattr(plain_env, key))
-              for key in k_smooth.OUT_KEYS)
+  err3e = k3_max_err(kern_env, plain_env, s.nsite)
   worst_e = k3_rel_err(torch, kern_env, plain_env, s.nsite)
   spread = float((plain_env.qM[1:] - plain_env.qM[:1]).abs().max())
   print(f'K3 per env, every segment: max abs err {err3e:.3e}, max '
@@ -4826,6 +5192,17 @@ def main() -> None:
           'the oracle path')
 
   stamp('phase 14')
+
+  # ---- phase 15: the convex pile, every collider of the convex solids ------
+  pile_launches, pile_rows = pile_path(torch, card, busy)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['pile_path_launches'] = int(pile_launches.get(kern, 0))
+    check((r['pile_path_launches'] > 0) == (kern != 'smooth_env'),
+          f'{r["name"]} was launched {r["pile_path_launches"]} times on '
+          'the pile path')
+
+  stamp('phase 15')
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -4841,7 +5218,14 @@ def main() -> None:
           f'{r["tiny_path_launches"]}, the elliptic path '
           f'{r["elliptic_path_launches"]}, the shard path '
           f'{r["shard_path_launches"]}, the oracle path '
-          f'{r["oracle_path_launches"]}; card {card}', flush=True)
+          f'{r["oracle_path_launches"]}, the pile path '
+          f'{r["pile_path_launches"]}; card {card}', flush=True)
+  for r in pile_rows:
+    print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
+          f'busy card (plain {r["plain_ms"]:.4f} ms, bound '
+          f'{r["bound_ms"]:.5f} ms by {r["bound_by"]}), launches on the pile '
+          f'path {r["launches"]}; card {card}', flush=True)
+  rows.extend(pile_rows)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """The engine's oracle models of equality constraints, tendons, mocap
-bodies and sensors, as MJCF and as committed snapshots.
+bodies, sensors and the convex and mesh colliders, as MJCF and as
+committed snapshots.
 
 The JAX package holds its engine to MuJoCo on these models
-(tests/test_equality.py, tests/test_tendon.py, tests/test_physics_step.py);
+(tests/test_equality.py, tests/test_tendon.py, tests/test_physics_step.py,
+tests/test_collision_pairs.py, tests/test_mesh_collision.py);
 the port keeps its own copies of their MJCF here:
 
 - `connect`, `weld`, `joint`: two bodies joined by one equality of that
@@ -13,7 +15,14 @@ the port keeps its own copies of their MJCF here:
   motor on the cable, a free box on the floor; Euler;
 - `robot`: a floating base with a two-joint leg on the floor under
   implicitfast, with its 11 sensors of the JAX test and one contact sensor
-  of the foot (data found, force and torque, reduce netforce).
+  of the foot (data found, force and torque, reduce netforce);
+- `convex_pile`: nine free solids over a plane, the geoms of the JAX
+  collider tests (tests/test_collision_pairs.py, tests/test_mesh_collision
+  .py): a sphere, a capsule, two ellipsoids, two cylinders, a box, the
+  octahedron mesh and the asymmetric gem mesh, so that its pair table holds
+  every collider group of ellipsoids, cylinders and meshes;
+- `mesh_drop`: the octahedron dropped on a plane
+  (test_mesh_plane_rollout_oracle).
 
 Every model solves with Newton at 30 iterations and 50 linesearch
 iterations, as the JAX tests set them (`compile_model`). A host without
@@ -214,6 +223,63 @@ FOOT_CONTACT = """
              reduce="netforce"/>"""
 
 
+# the meshes of tests/test_mesh_collision.py: an octahedron and an
+# asymmetric 7-vertex convex solid
+OCTA = '0.1 0 0  -0.1 0 0  0 0.12 0  0 -0.12 0  0 0 0.08  0 0 -0.08'
+GEM = ('0.09 0.02 0  -0.07 0.05 0.01  0.01 -0.08 0.02  -0.02 0.07 -0.03  '
+       '0.03 0.01 0.08  -0.01 -0.02 -0.09  0.08 -0.06 0.03')
+
+# the pile's solids, in body order: (name, geom attributes)
+PILE_GEOMS = (
+    ('sphere', 'type="sphere" size="0.08"'),
+    ('capsule', 'type="capsule" size="0.05 0.12"'),
+    ('ellipsoid_a', 'type="ellipsoid" size="0.1 0.07 0.05"'),
+    ('ellipsoid_b', 'type="ellipsoid" size="0.1 0.07 0.05"'),
+    ('cylinder_a', 'type="cylinder" size="0.07 0.1"'),
+    ('cylinder_b', 'type="cylinder" size="0.07 0.1"'),
+    ('box', 'type="box" size="0.08 0.06 0.05"'),
+    ('octa', 'type="mesh" mesh="octa"'),
+    ('gem', 'type="mesh" mesh="gem"'),
+)
+
+
+def _pile_xml() -> str:
+  bodies = '\n'.join(
+      f'    <body name="{name}" pos="{0.3 * (i % 3 - 1):g} '
+      f'{0.3 * (i // 3 - 1):g} 0.3">\n'
+      f'      <freejoint/>\n      <geom {geom} mass="0.2"/>\n    </body>'
+      for i, (name, geom) in enumerate(PILE_GEOMS))
+  return f"""
+<mujoco>
+  <option timestep="0.002"/>
+  <asset>
+    <mesh name="octa" vertex="{OCTA}"/>
+    <mesh name="gem" vertex="{GEM}"/>
+  </asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+{bodies}
+  </worldbody>
+</mujoco>"""
+
+
+CONVEX_PILE_XML = _pile_xml()
+
+MESH_DROP_XML = f"""
+<mujoco>
+  <option timestep="0.002" iterations="30" ls_iterations="50">
+    <flag eulerdamp="disable"/>
+  </option>
+  <asset><mesh name="octa" vertex="{OCTA}"/></asset>
+  <worldbody>
+    <geom type="plane" size="5 5 0.1"/>
+    <body pos="0 0 0.25"><freejoint/>
+      <geom type="mesh" mesh="octa" mass="0.5"/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+
 def robot_xml(integrator: str = 'implicitfast',
               contact_sensor: bool = True) -> str:
   return ROBOT_XML.format(integrator=integrator,
@@ -224,6 +290,7 @@ XML = {
     'connect': CONNECT_XML, 'weld': WELD_XML, 'joint': JOINT_XML,
     'fourbar': FOURBAR_XML, 'mocap_weld': MOCAP_WELD_XML,
     'tendon': TENDON_XML, 'robot': robot_xml(),
+    'convex_pile': CONVEX_PILE_XML, 'mesh_drop': MESH_DROP_XML,
 }
 NAMES = tuple(XML)
 ITERATIONS, LS_ITERATIONS = 30, 50

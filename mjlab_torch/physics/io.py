@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from mjlab_torch.physics import mesh as _mesh
 from mjlab_torch.physics.constraint import efc_layout
 from mjlab_torch.physics.tables import ix as _ix
 from mjlab_torch.physics.types import (
@@ -39,9 +40,10 @@ _TRN_JOINT = 0  # mjtTrn.mjTRN_JOINT
 _DYN_NONE, _DYN_INTEGRATOR, _DYN_FILTER, _DYN_FILTEREXACT = 0, 1, 2, 3
 
 # Narrowphase collider keys (types sorted a <= b) -> contact points per
-# pair. The table is the full one of the engine's design so the static
-# pair layout is the same for every model; the colliders implemented in
-# physics/collision.py are a subset and the others raise there.
+# pair, the JAX engine's table; physics/collision.py has a collider for
+# every key. Mesh pairs collide against the precomputed convex hulls
+# (physics/mesh.py): plane-mesh keeps the 4 deepest hull vertices, the
+# others one point.
 _COLLIDER_POINTS = {
     (GeomType.PLANE, GeomType.SPHERE): 1,
     (GeomType.PLANE, GeomType.CAPSULE): 2,
@@ -401,6 +403,19 @@ def _hfield(m) -> dict:
               hfield_size=size, hfield_geomid=geomid, data=data)
 
 
+def _mesh_tables(m) -> dict:
+  """The static mesh tables: each mesh geom's mesh id (-1 for the other
+  geoms) and the hulls, kept only when a collidable geom carries a mesh,
+  so a model compiled and its snapshot (which then has no mesh arrays)
+  build the same tables. The JAX engine also keeps an hfield geom's hfield
+  id in geom_dataid, which neither engine reads."""
+  hulls = _mesh.build_hulls(m)
+  mesh = np.asarray(m.geom_type) == int(GeomType.MESH)
+  dataid = np.where(mesh, np.asarray(m.geom_dataid), -1) if hulls is not None \
+      else np.full(int(m.ngeom), -1)
+  return dict(geom_dataid=dataid.astype(np.int32), mesh_hulls=hulls)
+
+
 def model_static(m, ncon_cap: 'int | None' = None
                  ) -> ModelStatic:
   """The host-side static tables of a compiled model."""
@@ -486,6 +501,7 @@ def model_static(m, ncon_cap: 'int | None' = None
       newton_tolerance=float(m.opt.tolerance),
       meaninertia=float(m.stat.meaninertia),
       **{k: v for k, v in hf.items() if k != 'data'},
+      **_mesh_tables(m),
   )
 
 
@@ -682,6 +698,16 @@ HFIELD_ARRAYS = {
     'hfield_data': np.zeros(0, np.float32),
 }
 
+# the mesh arrays the hulls are built from (physics/mesh.py), in a snapshot
+# only when a collidable geom carries a mesh (_mesh_tables); nmesh is
+# len(mesh_vertadr)
+MESH_ARRAYS = {
+    'geom_dataid': np.asarray(-1, np.int32),  # no geom has a mesh
+    'mesh_vertadr': np.zeros(0, np.int32),
+    'mesh_vertnum': np.zeros(0, np.int32),
+    'mesh_vert': np.zeros((0, 3), np.float32),
+}
+
 # the arrays of equality constraints and tendons, in a snapshot only when
 # the model has either, each with its value in a model that has none (a
 # snapshot written before they were ported lacks them too)
@@ -713,8 +739,10 @@ class ModelArrays:
     self.stat = _Namespace({'meaninertia': self._arrays['stat.meaninertia']})
     for k in SNAPSHOT_ARRAYS:
       setattr(self, k, self._arrays[k])
-    for k, empty in {**HFIELD_ARRAYS, **EQ_TENDON_ARRAYS}.items():
+    for k, empty in {**HFIELD_ARRAYS, **EQ_TENDON_ARRAYS,
+                     **MESH_ARRAYS}.items():
       setattr(self, k, self._arrays.get(k, empty))
+    self.nmesh = len(self.mesh_vertadr)
 
   @classmethod
   def of(cls, m) -> 'ModelArrays':
@@ -729,6 +757,8 @@ class ModelArrays:
       arrays.update({k: np.asarray(getattr(m, k)) for k in EQ_TENDON_ARRAYS})
     if m.nhfield:
       arrays.update({k: np.asarray(getattr(m, k)) for k in HFIELD_ARRAYS})
+    if _mesh.collidable_meshes(m):
+      arrays.update({k: np.asarray(getattr(m, k)) for k in MESH_ARRAYS})
     return cls(arrays)
 
   def save(self, path) -> None:

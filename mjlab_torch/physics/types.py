@@ -252,6 +252,12 @@ class ModelStatic(StaticBase):
   hfield_size: np.ndarray = None  # (4,) radius_x, radius_y, elevation, base
   hfield_geomid: int = -1
 
+  # mesh geoms collide as their convex hulls, padded and precomputed when
+  # the model is built (physics/mesh.py; a visual-only mesh's rows stay
+  # empty); a model without a collidable mesh has none
+  geom_dataid: np.ndarray = None  # (ngeom,) mesh id, -1 for other geoms
+  mesh_hulls: Any = None  # mesh.MeshHulls | None
+
   # Newton early exit: stop once |grad| < tolerance*meaninertia*max(1,nv)
   newton_tolerance: float = 1e-8
   meaninertia: float = 1.0

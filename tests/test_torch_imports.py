@@ -1,8 +1,9 @@
 """The port stands alone: no module of mjlab_torch, and not chip_smoke.py,
 imports JAX, flax, optax, orbax or the JAX package; the G1 and Go1 flat
 environments and the G1 tracking environment are made and stepped, and the
-engine's oracle models of equality constraints, tendons and sensors
-stepped, without the mujoco package; its entry
+engine's oracle models of equality constraints, tendons, sensors and the
+convex and mesh colliders stepped (the mesh hulls built from a snapshot),
+without the mujoco package; its entry
 points default to the GPU and refuse to fall back to the CPU silently; its
 kernel wrappers refuse CPU tensors."""
 
@@ -57,7 +58,8 @@ def test_the_walk_reaches_every_subpackage():
                'tasks.tracking.config.g1.flat_env_cfg',
                'asset_zoo.tiny_bot', 'asset_zoo.tiny_scene',
                'tasks.velocity.config.tiny', 'tasks.tracking.config.tiny',
-               'parallel.sharding', 'asset_zoo.oracle_models'):
+               'parallel.sharding', 'asset_zoo.oracle_models',
+               'physics.mesh'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
@@ -128,9 +130,10 @@ print('ok')
 
 
 def test_oracle_models_step_without_jax_or_mujoco():
-  """The equality, tendon, mocap and sensor oracle models load from their
-  committed snapshots and step on the CPU with jax, the JAX package and
-  mujoco all unimportable."""
+  """The equality, tendon, mocap, sensor and collider oracle models (the
+  convex pile and the mesh drop among them, their hulls built from the
+  snapshots) load from their committed snapshots and step on the CPU with
+  jax, the JAX package and mujoco all unimportable."""
   block = '; '.join(f'sys.modules[{b!r}] = None'
                     for b in BANNED + ('mujoco',))
   code = f"""
@@ -150,6 +153,28 @@ print('ok')
 """
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
+  assert out.returncode == 0, out.stderr
+  assert out.stdout.strip() == 'ok'
+
+
+def test_mesh_hulls_build_without_jax_or_mujoco():
+  """mjlab_torch.physics.mesh imports neither jax nor mujoco nor the JAX
+  package, and builds the convex pile's hulls from its snapshot with all
+  three unimportable (scipy's qhull is the one dependency)."""
+  block = '; '.join(f'sys.modules[{b!r}] = None'
+                    for b in BANNED + ('mujoco',))
+  code = f"""
+import sys; {block}
+from mjlab_torch.physics import mesh
+from mjlab_torch.asset_zoo import oracle_models as om
+h = mesh.build_hulls(om.oracle_arrays('convex_pile'))
+assert h.vert.shape == (2, mesh.MAX_HULL_VERT, 3) and (h.rin > 0).all()
+loaded = [m for m in {BANNED + ('mujoco',)!r} if sys.modules.get(m)]
+assert not loaded, loaded
+print('ok')
+"""
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == 'ok'
 

@@ -17,6 +17,7 @@ import mjlab_torch.physics as tphys
 from mjlab_torch.asset_zoo import g1_flat_arrays
 from mjlab_torch.asset_zoo.g1_flat_scene import g1_flat_model
 from mjlab_torch.physics import io as tio
+from mjlab_torch.physics import mesh as tmesh
 from torch_parity import g1_flat_mjmodel, model_leaves, tiny_bot_mjmodel
 
 MODELS = {'g1_flat': g1_flat_mjmodel, 'tiny_bot': tiny_bot_mjmodel}
@@ -50,12 +51,19 @@ def test_put_model_matches_jax(name):
   for f, v in leaves['opt'].items():
     np.testing.assert_allclose(getattr(tm.opt, f).numpy(), v, rtol=0,
                                atol=1e-12, err_msg=f'opt.{f}')
+  mesh = ('geom_dataid', 'mesh_hulls')
   shared = [f.name for f in dataclasses.fields(tm.stat)
-            if hasattr(jm.stat, f.name) and f.name != 'pairs']
+            if hasattr(jm.stat, f.name) and f.name not in ('pairs',) + mesh]
   for f in shared:
     _same(getattr(tm.stat, f), getattr(jm.stat, f), f)
   _same(tm.stat.pairs.groups, jm.stat.pairs.groups, 'pairs')
   assert tm.stat.pairs.ncon_max == jm.stat.pairs.ncon_max
+  # the mesh tables: the JAX engine's where a collidable geom carries a
+  # mesh, else none at all (physics/io.py _mesh_tables)
+  if tmesh.collidable_meshes(mj):
+    _same(tm.stat.mesh_hulls, jm.stat.mesh_hulls, 'mesh_hulls')
+  else:
+    assert tm.stat.mesh_hulls is None and (tm.stat.geom_dataid == -1).all()
 
 
 @pytest.mark.parametrize('name', sorted(MODELS))

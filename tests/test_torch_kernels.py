@@ -2,24 +2,31 @@
 small batch of G1 flat envs, K3 also with per-env model constants (its
 per-env form, with every segment per env, with config 5's and with the
 tracking task's), at the Go1's shapes (n 18, 228 uncompacted contact
-rows, trunks lying on the floor), and on the G1 tracking env. They need an NVIDIA GPU and the CUDA toolkit and skip
-elsewhere; `python3 chip_smoke.py` holds the kernels at the main
-path's full shapes."""
+rows, trunks lying on the floor), on the G1 tracking env, and on the
+convex pile (its ported collider groups card against CPU, K1-K3 at its
+shapes, its launches a substep). They need an NVIDIA GPU and the CUDA
+toolkit and skip elsewhere; `python3 chip_smoke.py` holds the kernels at
+the main path's full shapes."""
 
 import pytest
 import torch
 
 import mjlab_torch.physics as tphys
 from chip_smoke import (
+    PILE_GROUPS,
+    PILE_LAUNCHES,
     g1_states,
     go1_card_vs_cpu,
     go1_floor_states,
     k3_rel_err,
     k3_variants,
+    pair_name,
     per_env_k3_model,
+    pile_states,
     random_newton_args,
     tracking_card_vs_cpu,
 )
+from mjlab_torch.asset_zoo import oracle_models as om
 from mjlab_torch.asset_zoo import (
     g1_flat_arrays,
     go1_flat_arrays,
@@ -29,7 +36,9 @@ from mjlab_torch.ops import LAUNCHES
 from mjlab_torch.ops import newton as tnewton
 from mjlab_torch.ops import pd_solve as tpd
 from mjlab_torch.ops import smooth_kernel as tsk
+from mjlab_torch.physics import collision as tcol
 from mjlab_torch.physics import constraint, linalg, pipeline, smooth
+from mjlab_torch.physics import kinematics as tkin
 from mjlab_torch.physics import smooth_fused, solver
 from mjlab_torch.sim.sim import expand_model_fields
 
@@ -492,3 +501,83 @@ def test_tracking_env_on_the_card_matches_the_cpu(g1):
   e_obs, e_rew, same, flips, kept = tracking_card_vs_cpu(torch)
   assert e_obs <= 1e-3 and e_rew <= 1e-3 and same
   assert all(g <= 1e-6 for _, g in flips.values()) and kept >= 6
+
+
+# ---- the convex pile --------------------------------------------------------
+
+
+@pytest.fixture(scope='module')
+def pile():
+  """The convex pile's Model on the card (float32) and B of chip_smoke's
+  seeded start states stepped 20 substeps into their first contacts, and
+  the same Model on the CPU in float64."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs an NVIDIA GPU')
+  arrays = om.oracle_arrays('convex_pile')
+  m = tphys.put_model(arrays)
+  qpos, qvel = pile_states(torch, m, B, seed=15)
+  d = tphys.make_batched_data(m, B).replace(qpos=qpos, qvel=qvel)
+  for _ in range(20):
+    d = tphys.step(m, d)
+  return m, d, tphys.put_model(arrays, device='cpu', dtype=torch.float64)
+
+
+@pytest.mark.parametrize('name', PILE_GROUPS)
+def test_pile_group_on_the_card_matches_the_cpu(pile, name):
+  """Each collider group this slice ported, card float32 against CPU
+  float64 on the same poses: finite, and dist within 1e-4 m and the
+  normal within 1e-3 on all but 2 % of the (env, pair, point) slots (a
+  convex core's deep/shallow branch turns on a sliver of overlap that
+  float32 may read on the other side)."""
+  m, d, mc = pile
+  key = next(k for k in m.stat.pairs.groups if pair_name(k) == name)
+  g1s, g2s = m.stat.pairs.groups[key][:2]
+  dc = tkin.kinematics(mc, tphys.make_batched_data(mc, B, device='cpu')
+                       .replace(qpos=d.qpos.cpu().double()))
+  got = tcol.group_collider(m, key, g1s, g2s)(tkin.kinematics(m, d))
+  want = tcol.group_collider(mc, key, g1s, g2s)(dc)
+  assert all(bool(torch.isfinite(x).all()) for x in got)
+  bad = ((got[0].cpu().double() - want[0]).abs() > 1e-4) | (
+      (got[2].cpu().double() - want[2]).abs().amax(-1) > 1e-3)
+  assert float(bad.double().mean()) <= 0.02, float(bad.double().mean())
+
+
+def test_kernels_at_pile_shapes(pile):
+  """K3 (ten bodies, nine free joints on the world), K2 (n 54, 248
+  contact rows) and K1 (n 54) against their plain versions on the pile's
+  states."""
+  m, d, _ = pile
+  s = m.stat
+  assert smooth_fused.enabled(s)
+  got = tsk.smooth_fused_cuda(m, d.qpos, d.qvel)
+  assert k3_rel_err(torch, got, smooth_fused.plain_all(m, d), s.nsite) < TOL
+  df = pipeline.fwd_velocity(m, pipeline.fwd_position(m, d))
+  df = smooth.fwd_smooth(m, smooth.actuation(m, df))
+  efc = constraint.make_efc(m, df)
+  assert tuple(efc['c_J'].shape[1:]) == (248, 54)
+  assert bool(efc['c_active'].any())
+  args = solver.newton_args(df, efc)
+  iters, polish, ldof, grad_th = solver.solver_params(s)
+  assert tnewton.fits(54, 248, len(ldof))
+  out = tnewton.newton_solve_cuda(*args, iterations=iters, ls_polish=polish,
+                                  ldof=ldof, grad_th=grad_th)
+  want = solver.newton_plain(*args, iters, polish, ldof, grad_th)
+  for g, w in zip(out, want):
+    assert _rel(g, w) < 1e-3
+  dfw = pipeline.forward(m, d)
+  H = (dfw.qM + m.opt.timestep * torch.diag_embed(
+      m.dof_damping.expand_as(dfw.qvel))).contiguous()
+  g = (dfw.qfrc_smooth + dfw.qfrc_constraint).contiguous()
+  assert _rel(tpd.solve_pd_cuda(H, g), linalg.solve_pd(H, g)) < TOL
+
+
+def test_pile_launches_each_kernel_a_substep(pile):
+  """A substep of the pile launches (K3, K2, K1) as chip_smoke's
+  PILE_LAUNCHES: K3 and K2 once, K1 in fwd_smooth and in the Euler
+  step's implicit damping."""
+  m, d, _ = pile
+  kernels = ('smooth', 'newton', 'pd_solve')
+  before = [LAUNCHES[k] for k in kernels]
+  tphys.step(m, d)
+  assert tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)) \
+      == PILE_LAUNCHES
