@@ -166,11 +166,26 @@ Phases, each of which exits non-zero on failure:
      of its earliest first contact over a window around that contact
      (PILE_WINDOW), the card (float32) against the CPU in float64 from
      the card's state, contact-activation flips allowed within
-     PILE_FLIP_GAP of the threshold; 15b: each of those groups timed, with its host issue, its
-     kernel launches a call and its device time, one substep stage by
-     stage, and K1-K3
+     PILE_FLIP_GAP of the threshold; 15b: each of those groups timed, with
+     its host issue, one substep stage by stage, and K1-K3
      at the pile's shapes against their plain versions, each a row of the
-     kernels line).
+     kernels line);
+ 16. the spec path's model on the card (16a: the JAX package's round-4
+     blowup ring, artifacts/blowups_r4/blowup_ring.npz, replayed through
+     scripts/blowup_replay.py on the G1 flat task, its 40 rows tiled over
+     4096 envs for RING_SUBSTEPS substeps: env-f32 and eng-f32 on the
+     card, eng-f64 on the CPU at the ring's 40 envs; every state finite,
+     launches (K3, K2, K1) a substep equal to RING_LAUNCHES, every copy of
+     a ring row the same trajectory to the bit, not reproduced, each
+     substep's max |qvel| (largest and median over the ring) within
+     RING_TOL relative of replay_fixed.txt's and the largest within
+     RING_TOL of (1 + max) of the CPU float64 replay, then K1-K3 at the
+     ring's state against their plain versions; 16b: each of the 15
+     registered tasks' scenes takes its committed snapshot by digest with
+     no mujoco loaded, and a G1 flat cfg with the knee ActuatorCfg's
+     stiffness doubled is refused, naming both digests; 16c: the G1 flat
+     env-step at 4096 envs on the 69-geom snapshot, RING_STEP_RUNS timed
+     runs of RING_STEP_STEPS env-steps).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -191,8 +206,9 @@ as `oracle_tendon` and `oracle_robot`, each row its phase-12a
 numbers at the TinyBot's shapes as `tiny`, K1's its numbers on the
 elliptic Hessians as `elliptic_hessians` and on the four-bar's as
 `oracle_fourbar_hessians`; each row's `pile_path_launches` its
-launches in phase 15a, and K1-K3's rows at the pile's shapes follow the
-others); the last
+launches in phase 15a, `replay_path_launches` those of phase 16a's env-f32
+replay, K1-K3's numbers at the ring's state its `ring`, and K1-K3's rows
+at the pile's shapes follow the others); the last
 line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
 `python3 chip_smoke.py --shard-rank ROOT TRAIN_ARGS...` is one rank of
@@ -1508,11 +1524,11 @@ def go1_kernels(torch, card: str, busy) -> dict:
 
 
 def shape_kernels(torch, card: str, busy, what: str, m, d,
-                  widths: tuple) -> dict:
-  """K1-K3 at the shapes of the model `m` on the float32 batch `d` (its
-  plane-box pair active in some envs), each against its plain version with
-  the tolerances of phase 2 and timed as there; `widths` the (n, ncr, nl)
-  K2 must take. Returns {kernel: its numbers}."""
+                  widths: tuple, box: bool = True) -> dict:
+  """K1-K3 at the shapes of the model `m` on the float32 batch `d` (with
+  `box`, its plane-box pair active in some envs), each against its plain
+  version with the tolerances of phase 2 and timed as there; `widths` the
+  (n, ncr, nl) K2 must take. Returns {kernel: its numbers}."""
   from mjlab_torch.ops import newton as k_newton
   from mjlab_torch.ops import smooth_kernel as k_smooth
   from mjlab_torch.physics import constraint, pipeline, smooth
@@ -1547,15 +1563,18 @@ def shape_kernels(torch, card: str, busy, what: str, m, d,
   df = smooth.fwd_smooth(m, smooth.actuation(m, df))
   efc = constraint.make_efc(m, df)
   n, ncr, nl = s.nv, efc['c_J'].shape[1], efc['l_sign'].shape[1]
-  box = s.pairs.groups[(int(GeomType.PLANE), int(GeomType.BOX))][3]
-  box_envs = int(efc['c_active'][:, 4 * box:4 * box + 16].any(-1).sum())
+  box_envs = 0
+  if box:
+    at = s.pairs.groups[(int(GeomType.PLANE), int(GeomType.BOX))][3]
+    box_envs = int(efc['c_active'][:, 4 * at:4 * at + 16].any(-1).sum())
   print(f'{what} K2 input: n {n}, ncr {ncr}, nl {nl}; {box_envs} of {nb} '
         f'envs with active plane-box rows, {int(efc["c_active"].sum())} '
         f'active contact rows in all; K2 needs '
         f'{k_newton.newton_smem_bytes(n, ncr, nl)} B of shared memory a '
         f'block', flush=True)
   check((n, ncr, nl) == widths, f'the {what} rows are not {widths}')
-  check(box_envs > 0, f'no active plane-box rows in the {what} K2 input')
+  check(box_envs > 0 or not box,
+        f'no active plane-box rows in the {what} K2 input')
   out['newton'] = k2_numbers(torch, busy, m, solver.newton_args(df, efc),
                              f'the {what}')
 
@@ -4009,9 +4028,12 @@ def _shard_path(torch, card: str, root: str) -> dict:
 
 ORACLE_SUBSTEPS = 200  # substeps of each oracle model in phase 14 ...
 # ... but of one whose equality rows the plain Newton solves: its substep
-# takes ~250 ms of host issue at 4096 envs on an H100 (PERF.md §5), and
-# 200 of them each put the script at ~840 s of its 1200
-ORACLE_PLAIN_SUBSTEPS = 100
+# takes 250-380 ms of host issue at 4096 envs on an H100 (PERF.md §5). 60
+# keeps every end-of-run gate: on the CPU at these states the largest
+# residual is 6.2e-3 (joint) and the welded box 0.0705 m off
+# (tools/oracle_residual_depth.py; at 100 the CPU gives the card's
+# numbers to four digits)
+ORACLE_PLAIN_SUBSTEPS = 60
 # phase 14's launches a substep of each oracle model, (K3, K2, K1), written
 # into PERF.md before the first call on the card: K3 on every tree but the
 # mocap one (its gate); K2 only without equality rows (its gate: the
@@ -4454,10 +4476,8 @@ def pile_card_vs_cpu(torch, card_states, cpu_states):
 def pile_group_numbers(torch, m, d, card: str) -> None:
   """Prints each ported collider group of the pile at the batch `d`: its
   time between CUDA events and its host issue, the card idle before each
-  call (medians of 3), and the kernels one call launches with their
-  device time (torch.profiler, device events)."""
-  from torch.profiler import ProfilerActivity, profile
-
+  call (medians of 3). No torch.profiler pass: over the groups' ~110,000
+  launches one takes 30-45 s of the script on the H100."""
   from mjlab_torch.physics import collision
   for key, (g1s, g2s, _, _, npts) in m.stat.pairs.groups.items():
     name = pair_name(key)
@@ -4478,17 +4498,8 @@ def pile_group_numbers(torch, m, d, card: str) -> None:
       end.synchronize()
       ms.append(start.elapsed_time(end))
     ms, host = statistics.median(ms), statistics.median(host)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-      fn(d)
-      torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith('CUDA')]
-    launches = sum(e.count for e in kernels)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f'pile group {name}: {len(g1s)} pairs x {npts} points, {ms:.3f} '
-          f'ms between events, {host:.3f} ms host issue (medians of 3), '
-          f'{launches} kernel launches a call busy on the device for '
-          f'{busy_ms:.3f} ms (torch.profiler); '
+          f'ms between events, {host:.3f} ms host issue (medians of 3); '
           f'{d.qpos.shape[0]} envs; card {card}', flush=True)
 
 
@@ -4636,6 +4647,207 @@ def pile_path(torch, card: str, busy) -> 'tuple[dict, list]':
   return launches, rows
 
 
+RING = 'artifacts/blowups_r4/blowup_ring.npz'  # the JAX package's ring
+RING_RECORD = 'artifacts/blowups_r4/replay_fixed.txt'  # ... and its replay
+RING_SUBSTEPS = 8  # substeps of phase 16a's replay, as the record's
+# phase 16a's launches a substep (K3, K2, K1) of the ring's replay, written
+# into PERF.md before the first call on the card: the G1 flat substep's
+RING_LAUNCHES = (1, 1, 2)
+# phase 16a's tolerance, relative, on each substep's max |qvel|: against
+# the record, and against the CPU float64 replay over (1 + its max)
+RING_TOL = 1e-3
+RING_WIDTHS = (35, 144, 29)  # (n, ncr, limit-row width) of K2 on the G1
+RING_STEP_RUNS, RING_STEP_STEPS = 5, 10  # phase 16c's timed runs
+# K3's envs a block on the G1 scenes: with the 35 visual mesh geoms (69
+# geoms), one env's slice of shared memory is 15,280 B, so 14 envs and the
+# tables fit the 227 KB a block may use (16 envs with 34 geoms before);
+# predicted from csrc/smooth.cu's Layout before the first call on the card
+K3_G1_ENVS_PER_BLOCK = 14
+
+
+def ring_record(path: str) -> dict:
+  """{substep: (median, largest) max |qvel| over the ring} of the record's
+  env-f32 replay."""
+  with open(path) as f:
+    for line in f:
+      if line.startswith('{') and '"env-f32"' in line:
+        return {r['substep']: (r['qvel_max_p50'], r['qvel_max_max'])
+                for r in json.loads(line)['substeps']}
+  fail(f'no env-f32 replay in {path}')
+
+
+def ring_state(torch, batch: dict, num_envs: int):
+  """The G1 flat task's model (its options, its per-env geom_friction the
+  ring's) and a batch of `num_envs` envs holding the ring's rows tiled, on
+  the card, float32."""
+  import mjlab_torch.physics as phys
+  from mjlab_torch.asset_zoo import g1_flat_arrays
+  from mjlab_torch.scripts.blowup_replay import STATE_KEYS
+  from mjlab_torch.tasks import registry
+  cfg = registry.load_cfg(ENV_TASK)
+  m = phys.put_model(cfg.sim.mujoco.apply(g1_flat_arrays()),
+                     ncon_cap=cfg.sim.nconmax)
+  rows = torch.arange(num_envs) % len(batch['qpos'])
+  t = lambda x: torch.as_tensor(x)[rows].to(m.qpos0.device)
+  d = phys.make_batched_data(m, num_envs).replace(
+      **{k: t(batch[k]) for k in STATE_KEYS})
+  return m.replace(geom_friction=t(batch['model_geom_friction'])), d
+
+
+def ring_path(torch, card: str, busy) -> 'tuple[dict, dict]':
+  """Phase 16a: the JAX package's round-4 ring on the port's G1 flat task
+  at 4096 envs. Returns (the kernels' launches over the env-f32 replay,
+  K1-K3's numbers at the ring's state)."""
+  import os
+
+  from mjlab_torch.scripts import blowup_replay
+  root = os.path.dirname(os.path.abspath(__file__))
+  t0 = time.perf_counter()
+  batch, reports = blowup_replay.replay(
+      os.path.join(root, RING), task=ENV_TASK, substeps=RING_SUBSTEPS,
+      variants=('env-f32', 'eng-f32', 'eng-f64'), device='cuda',
+      num_envs=B, tile=True)
+  t_replay = time.perf_counter() - t0
+  by = {r['variant']: r for r in reports}
+  n = len(batch['qpos'])
+  want = tuple(RING_SUBSTEPS * k for k in RING_LAUNCHES)
+  for tag, r in by.items():
+    per = tuple(r['launches'].get(k, 0) for k in ('smooth', 'newton',
+                                                  'pd_solve'))
+    print(f'ring {tag}: {r["envs"]} envs, launches (K3, K2, K1) {per}, '
+          f'finite {r["finite"]}, copies_err {r.get("copies_err")}, '
+          f'reproduced {r["reproduced"]}', flush=True)
+    check(r['finite'], f'the ring\'s {tag} replay went non-finite')
+    check(not r['reproduced'], f'the ring\'s {tag} replay blew up')
+    if tag == 'eng-f64':
+      check(r['envs'] == n and per == (0, 0, 0),
+            f'the float64 replay is not the ring\'s {n} envs on the CPU')
+      continue
+    check(r['envs'] == B, f'the {tag} replay ran {r["envs"]} envs')
+    check(per == want, f'the {tag} replay launched (K3, K2, K1) {per}, '
+          f'not {want}')
+    check(r['copies_err'] == 0.0, f'the copies of a ring row part in the '
+          f'{tag} replay: {r["copies_err"]:.3e}')
+  rec = ring_record(os.path.join(root, RING_RECORD))
+  f32, f64 = by['env-f32']['substeps'], by['eng-f64']['substeps']
+  worst_rec = worst_f64 = 0.0
+  for a, c in zip(f32, f64):
+    p50, top = rec[a['substep']]
+    e_rec = max(abs(a['qvel_max_max'] - top) / top,
+                abs(a['qvel_max_p50'] - p50) / p50)
+    e_f64 = abs(a['qvel_max_max'] - c['qvel_max_max']) / (
+        1.0 + c['qvel_max_max'])
+    worst_rec, worst_f64 = max(worst_rec, e_rec), max(worst_f64, e_f64)
+    print(f'ring substep {a["substep"]}: max |qvel| card {a["qvel_max_max"]}'
+          f' (median {a["qvel_max_p50"]}), record {top} ({p50}), CPU f64 '
+          f'{c["qvel_max_max"]}; err vs record {e_rec:.3e}, vs f64 '
+          f'{e_f64:.3e}', flush=True)
+  print(f'ring: worst err vs the record {worst_rec:.3e}, vs the CPU f64 '
+        f'{worst_f64:.3e} (tolerance {RING_TOL:g}); eng-f32 peaks '
+        f'{[r_["qvel_max_max"] for r_ in by["eng-f32"]["substeps"]]}; replay '
+        f'{t_replay:.1f} s; card {card}', flush=True)
+  check(worst_rec <= RING_TOL, f'the ring\'s replay on the card is '
+        f'{worst_rec:.3e} from the record')
+  check(worst_f64 <= RING_TOL, f'the ring\'s replay on the card is '
+        f'{worst_f64:.3e} from the CPU float64 replay')
+  m, d = ring_state(torch, batch, B)
+  k = shape_kernels(torch, card, busy, 'round-4 ring', m, d, RING_WIDTHS,
+                    box=False)
+  check(k['smooth']['envs_per_block'] == K3_G1_ENVS_PER_BLOCK,
+        f'K3 takes {k["smooth"]["envs_per_block"]} G1 envs a block')
+  return by['env-f32']['launches'], k
+
+
+def knees_doubled(cfg):
+  """The G1 cfg with the stiffness of the knees' ActuatorCfg (which also
+  drives the hip roll joints) doubled."""
+  import dataclasses
+  robot = cfg.scene.entities['robot']
+  robot.actuators = tuple(
+      dataclasses.replace(a, stiffness=2 * a.stiffness)
+      if '.*_knee_joint' in a.joint_names_expr else a
+      for a in robot.actuators)
+  return cfg
+
+
+@contextlib.contextmanager
+def without_mujoco():
+  """mujoco unimportable inside (as on a GPU host without it)."""
+  saved = sys.modules.get('mujoco', 0)
+  sys.modules['mujoco'] = None
+  try:
+    yield
+  finally:
+    if saved == 0:
+      del sys.modules['mujoco']
+    else:
+      sys.modules['mujoco'] = saved
+
+
+def route_path(torch) -> None:
+  """Phase 16b: every registered task's scene takes its snapshot by digest,
+  and an edited cfg is refused before it steps, with mujoco
+  unimportable."""
+  import os
+
+  from mjlab_torch.asset_zoo import g1_flat_arrays
+  from mjlab_torch.scene.scene import Scene, spec_digest, spec_inputs
+  from mjlab_torch.tasks import registry
+  os.environ['MJLAB_TASKS_MODULES'] = TINY_MODULES
+  t0 = time.perf_counter()
+  with without_mujoco():
+    tasks = sorted(registry.registered_tasks())
+    check(len(tasks) == 15, f'{len(tasks)} registered tasks, not 15')
+    digests = {}
+    for task in tasks:
+      cfg = registry.load_cfg(task)
+      scene = Scene(cfg.scene, device='cuda')
+      check(not scene.composed and scene.mj_model.spec_digest == scene.digest,
+            f'{task} did not take its snapshot by digest')
+      digests[task] = scene.digest
+    cfg = knees_doubled(registry.load_cfg(ENV_TASK))
+    try:
+      registry.make(ENV_TASK, cfg=cfg, **{'scene.num_envs': 8})
+      fail('the edited G1 cfg was made into an env without mujoco')
+    except RuntimeError as e:
+      msg = str(e)
+    edited = spec_digest(spec_inputs(cfg.scene))
+    snap = g1_flat_arrays().spec_digest
+    check(edited != snap and edited in msg and snap in msg,
+          f'the refusal does not name both digests: {msg}')
+  print(f'route: {len(tasks)} tasks took their snapshots by digest ('
+        + ', '.join(f'{t} {d}' for t, d in digests.items()) + f'); the '
+        f'edited cfg refused: {msg}; {time.perf_counter() - t0:.1f} s',
+        flush=True)
+
+
+def step_time(torch, card: str) -> dict:
+  """Phase 16c: the G1 flat env-step at 4096 envs on the 69-geom snapshot
+  under zero actions, RING_STEP_RUNS runs of RING_STEP_STEPS env-steps
+  each: ms an env-step, each run's mean."""
+  from mjlab_torch.tasks import registry
+  env = registry.make(ENV_TASK, **{'scene.num_envs': B})
+  check(env.model.stat.ngeom == 69, f'the G1 has {env.model.stat.ngeom} '
+        'geoms')
+  env.reset()
+  act = torch.zeros(B, env.action_dim, device=env.device)
+  for _ in range(3):
+    env.step(act)
+  runs = []
+  for _ in range(RING_STEP_RUNS):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RING_STEP_STEPS):
+      env.step(act)
+    torch.cuda.synchronize()
+    runs.append(1e3 * (time.perf_counter() - t0) / RING_STEP_STEPS)
+  print(f'G1 flat env-step, 4096 envs, 69 geoms, zero actions: ms an '
+        f'env-step by run {[round(r, 3) for r in runs]}, median '
+        f'{statistics.median(runs):.3f} ({B / statistics.median(runs) * 1e3:.1f}'
+        f' env-steps/s); card {card}', flush=True)
+  return dict(runs_ms=runs, median_ms=statistics.median(runs))
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -4670,7 +4882,7 @@ def main() -> None:
         f'{ {k: round(v, 1) for k, v in built.items()} }', flush=True)
 
   dev = torch.device('cuda')
-  mj = g1_flat_arrays()  # the compiled scene of asset_zoo/g1_flat_scene.py
+  mj = g1_flat_arrays()  # the committed G1 flat scene
   m = phys.put_model(mj)  # cuda, float32
   s = m.stat
   dt = m.opt.timestep
@@ -4811,7 +5023,7 @@ def main() -> None:
         f'(phase 2a {dev_ms3:.4f} ms; before the per-env form, PERF.md: '
         f'0.0872 ms); card {card}',
         flush=True)
-  check(epb_shared == k_smooth.ENVS_PER_BLOCK,
+  check(epb_shared == K3_G1_ENVS_PER_BLOCK,
         f'the shared-table form takes {epb_shared} envs a block')
   row_env = dict(name='smooth_fused per-env (K3)', route='cuda',
                  source='mjlab_torch/csrc/smooth.cu',
@@ -5203,6 +5415,27 @@ def main() -> None:
           'the pile path')
 
   stamp('phase 15')
+
+  # ---- phase 16: the spec path's model: the round-4 ring, the route rule ---
+  t16 = time.perf_counter()
+  ring_launches, ring_k = ring_path(torch, card, busy)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['replay_path_launches'] = int(ring_launches.get(kern, 0))
+    check((r['replay_path_launches'] > 0) == (kern != 'smooth_env'),
+          f'{r["name"]} was launched {r["replay_path_launches"]} times on '
+          'the replay path')
+    if kern in ring_k:
+      r['ring'] = ring_k[kern]
+  route_path(torch)
+  step = step_time(torch, card)
+  print(f'K3 on the 69-geom G1: {rows[0]["ms"]:.4f} ms, '
+        f'{rows[0]["device_ms"]:.4f} ms behind a busy card (on 34 geoms '
+        f'0.1661, 0.0873 ms, PERF.md section 6); env-step median '
+        f'{step["median_ms"]:.3f} ms; phase 16 '
+        f'{time.perf_counter() - t16:.1f} s; card {card}', flush=True)
+
+  stamp('phase 16')
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -5219,7 +5452,8 @@ def main() -> None:
           f'{r["elliptic_path_launches"]}, the shard path '
           f'{r["shard_path_launches"]}, the oracle path '
           f'{r["oracle_path_launches"]}, the pile path '
-          f'{r["pile_path_launches"]}; card {card}', flush=True)
+          f'{r["pile_path_launches"]}, the replay path '
+          f'{r["replay_path_launches"]}; card {card}', flush=True)
   for r in pile_rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, bound '

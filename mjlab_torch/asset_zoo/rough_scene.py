@@ -3,16 +3,19 @@
 Builds the physics models the tasks `Mjlab-Velocity-Rough-Unitree-G1`,
 `-Go1` and `Mjlab-Velocity-Rough-Tiny` build (mjlab_tpu/tasks/velocity/
 config/{g1,go1}/rough_env_cfg.py, .../config/tiny.py): each robot's flat
-scene (g1_flat_scene.py, go1_flat_scene.py, tiny_scene.py) with the
-terrain generator's heightfield geom, named `terrain`, in place of the
-plane. The foot ground-contact sensors filter on that name, so they see the
+scene (the committed snapshots of asset_zoo.SNAPSHOTS) with the terrain
+generator's heightfield geom, named `terrain`, in place of the plane. The
+foot ground-contact sensors filter on that name, so they see the
 heightfield.
 
 The heightfield is no committed file (the registered grid is 1200 x 2000
 samples): `rough_scene_arrays` regenerates it from the generator's seed and
 puts it into a flat scene's snapshot, so a host without mujoco builds the
-scene; `g1_rough_model` and `go1_rough_model` compile the same scene from
-the spec on a host with mujoco, and tests hold the two equal.
+scene (the snapshot then records the generator's terrain among its spec
+inputs, so the rough cfg's inputs agree with it where its robot's agree
+with the flat scene's); `g1_rough_model` and `go1_rough_model` compose
+and compile the same scene through scene/scene.py on a host with mujoco,
+and tests hold the two equal.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import numpy as np
 
 from mjlab_torch.physics.io import ModelArrays, names_of
 from mjlab_torch.physics.types import GeomType
+from mjlab_torch.scene.scene import recording, with_terrain
 from mjlab_torch.terrains.generator import TerrainGenerator, hfield_geom_size
+from mjlab_torch.terrains.importer import TerrainImporterCfg
 
 
 def rough_scene_arrays(flat: ModelArrays,
@@ -46,7 +51,12 @@ def rough_scene_arrays(flat: ModelArrays,
   a['hfield_ncol'] = np.array([hf.ncol], np.int32)
   a['hfield_size'] = hf.size[None].copy()
   a['hfield_data'] = hf.data.reshape(-1)
-  return ModelArrays(a)
+  out = ModelArrays(a)
+  if flat.spec_inputs is not None:
+    terrain = TerrainImporterCfg(terrain_type='generator',
+                                 terrain_generator=generator.cfg)
+    out = recording(out, with_terrain(flat.spec_inputs, terrain))
+  return out
 
 
 def g1_rough_arrays(generator: TerrainGenerator) -> ModelArrays:
@@ -56,10 +66,20 @@ def g1_rough_arrays(generator: TerrainGenerator) -> ModelArrays:
   return rough_scene_arrays(g1_flat_arrays(), generator)
 
 
+def _rough_model(env_cfg, generator: TerrainGenerator):
+  """The rough scene of a task cfg on the generator's terrain, composed
+  and compiled (needs mujoco)."""
+  from mjlab_torch.scene.scene import compile_scene
+  env_cfg.scene.terrain.terrain_generator = generator.cfg
+  return compile_scene(env_cfg.scene, env_cfg.sim.mujoco)
+
+
 def g1_rough_model(generator: TerrainGenerator):
-  """The G1 rough scene compiled from the spec (needs mujoco)."""
-  from mjlab_torch.asset_zoo.g1_flat_scene import flat_scene_spec, robot_spec
-  return flat_scene_spec(robot_spec(), generator).compile()
+  """The G1 rough scene composed and compiled (needs mujoco)."""
+  from mjlab_torch.tasks.velocity.config.g1.rough_env_cfg import (
+      UnitreeG1RoughEnvCfg,
+  )
+  return _rough_model(UnitreeG1RoughEnvCfg(), generator)
 
 
 def go1_rough_arrays(generator: TerrainGenerator) -> ModelArrays:
@@ -70,10 +90,11 @@ def go1_rough_arrays(generator: TerrainGenerator) -> ModelArrays:
 
 
 def go1_rough_model(generator: TerrainGenerator):
-  """The Go1 rough scene compiled from the spec (needs mujoco)."""
-  from mjlab_torch.asset_zoo.g1_flat_scene import flat_scene_spec
-  from mjlab_torch.asset_zoo.go1_flat_scene import robot_spec
-  return flat_scene_spec(robot_spec(), generator).compile()
+  """The Go1 rough scene composed and compiled (needs mujoco)."""
+  from mjlab_torch.tasks.velocity.config.go1.rough_env_cfg import (
+      UnitreeGo1RoughEnvCfg,
+  )
+  return _rough_model(UnitreeGo1RoughEnvCfg(), generator)
 
 
 def tiny_rough_arrays(generator: TerrainGenerator) -> ModelArrays:

@@ -3,11 +3,14 @@
 The port's own copy of mjlab_tpu/asset_zoo/spec_builder.py: reconstructs a
 robot (body tree, explicit inertials, joints, primitive collision geoms,
 sites, cameras, contact excludes) from the data modules in
-mjlab_torch/asset_zoo/data/. The visual mesh layer (massless, non-colliding)
-is not built: it changes no physics.
+mjlab_torch/asset_zoo/data/. The visual mesh layer (massless, non-colliding
+group-2 mesh geoms over the robot's meshes in asset_zoo/robots/) is
+attached when visuals=True; physics is the same either way.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import mujoco
 
@@ -33,7 +36,8 @@ _CAM_MODE = {
 }
 
 
-def build_robot_spec(data: dict) -> mujoco.MjSpec:
+def build_robot_spec(data: dict, visuals: bool = True,
+                     assets_dir=None) -> mujoco.MjSpec:
   spec = mujoco.MjSpec()
   spec.modelname = data['modelname']
   spec.compiler.degree = False
@@ -80,4 +84,40 @@ def build_robot_spec(data: dict) -> mujoco.MjSpec:
     exc = spec.add_exclude()
     exc.bodyname1 = b1
     exc.bodyname2 = b2
+
+  vis = data.get('visuals')
+  if vis and visuals and assets_dir is not None:
+    _add_visuals(spec, parents, vis, Path(assets_dir))
   return spec
+
+
+def _mesh_reader(assets_dir: Path):
+  """file name -> (verts, faces): from the directory's mesh pack where it
+  has one (the shipped robots), else from the STL file itself."""
+  from mjlab_torch.asset_zoo.stl import MESH_PACK, load_pack, load_stl
+  pack = assets_dir / MESH_PACK
+  if pack.exists():
+    return load_pack(str(pack)).__getitem__
+  return lambda name: load_stl(str(assets_dir / name))
+
+
+def _add_visuals(spec: mujoco.MjSpec, bodies: dict, vis: dict,
+                 assets_dir: Path) -> None:
+  """Attach the visual mesh layer: the meshes embedded as uservert and
+  userface (so MjSpec.attach during scene composition never resolves a
+  mesh directory) and massless contype = conaffinity = 0 group-2 mesh
+  geoms, as mjlab_tpu/asset_zoo/spec_builder.py attaches them."""
+  read = _mesh_reader(assets_dir)
+  for md in vis['meshes']:
+    verts, faces = read(md['file'])
+    mesh = spec.add_mesh()
+    mesh.name = md['name']
+    mesh.uservert = verts.ravel().tolist()
+    mesh.userface = faces.ravel().tolist()
+  for i, gd in enumerate(vis['geoms']):
+    g = bodies[gd['body']].add_geom(
+        name=f"{gd['mesh']}_visual_{i}",
+        type=mujoco.mjtGeom.mjGEOM_MESH, meshname=gd['mesh'],
+        pos=list(gd['pos']), quat=list(gd['quat']),
+        contype=0, conaffinity=0, group=2, rgba=list(gd['rgba']))
+    g.density = 0.0

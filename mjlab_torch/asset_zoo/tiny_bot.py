@@ -8,15 +8,16 @@ scalar joints, PD actuation, floor contacts, foot-friction randomization)
 at a fraction of the G1's cost.
 
 This module holds the robot's description tables, its actuator and
-collision settings, the entity cfg and the action scale, none of which
-needs the mujoco package; `robot_spec` builds the MjSpec from them (it
-imports mujoco, which a GPU host may lack). The compiled scene comes from
-asset_zoo/tiny_scene.py or from its committed snapshot.
+collision cfgs, the entity cfg and the action scale, none of which needs
+the mujoco package; `get_spec` builds the MjSpec from the tables (it
+imports mujoco, which a GPU host may lack). The compiled scene is the one
+composed from these cfgs (scene/scene.py) or its committed snapshot.
 """
 
 from __future__ import annotations
 
 from mjlab_torch.entity.entity import EntityCfg, EntityInitStateCfg
+from mjlab_torch.entity.spec_config import ActuatorCfg, CollisionCfg
 
 _G = dict(contype=1, conaffinity=1, condim=3, group=3,
           friction=(1.0, 0.005, 0.0001), rgba=(0.6, 0.6, 0.6, 1.0))
@@ -87,49 +88,33 @@ SPEC_DATA = {
     'excludes': [],
 }
 
-# one PD position servo per arm joint: kp 20, kd 1, +/-10 N m, armature
-TINY_JOINTS = ('shoulder', 'elbow')
-TINY_STIFFNESS = 20.0
-TINY_DAMPING = 1.0
-TINY_EFFORT_LIMIT = 10.0
-TINY_ARMATURE = 0.001
+TINY_ACTUATOR_CFG = ActuatorCfg(
+    joint_names_expr=['shoulder', 'elbow'],
+    effort_limit=10.0, stiffness=20.0, damping=1.0, armature=0.001)
+
+# every '.*_collision' geom contype 1, conaffinity 0, condim 3, the feet
+# priority 1; every other geom non-colliding
+TINY_COLLISION = CollisionCfg(
+    geom_names_expr=['.*_collision'],
+    contype=1, conaffinity=0, condim={'.*_collision': 3},
+    priority={'foot.*_collision': 1})
 
 INIT_STATE = EntityInitStateCfg(
     pos=(0.0, 0.0, 0.075),
     joint_pos={'shoulder': 0.0, 'elbow': 0.0})
 
-TINY_ROBOT_CFG = EntityCfg(init_state=INIT_STATE,
-                           soft_joint_pos_limit_factor=0.9)
+
+def get_spec():
+  """The TinyBot's MjSpec from its tables (needs mujoco)."""
+  from mjlab_torch.asset_zoo.spec_builder import build_robot_spec
+  return build_robot_spec(SPEC_DATA)
+
+
+TINY_ROBOT_CFG = EntityCfg(
+    spec_fn=get_spec,
+    init_state=INIT_STATE,
+    actuators=(TINY_ACTUATOR_CFG,),
+    spec_editors=(TINY_COLLISION,),
+    soft_joint_pos_limit_factor=0.9)
 
 TINY_ACTION_SCALE = 0.5
-
-
-def robot_spec():
-  """The TinyBot's MjSpec: the tables, one PD servo per arm joint, the
-  collision settings (every '.*_collision' geom contype 1, conaffinity 0,
-  condim 3, the feet priority 1; every other geom non-colliding) and the
-  'init_state' keyframe."""
-  import mujoco
-
-  from mjlab_torch.asset_zoo.g1_flat_scene import add_keyframe
-  from mjlab_torch.asset_zoo.spec_builder import build_robot_spec
-  spec = build_robot_spec(SPEC_DATA)
-  for name in TINY_JOINTS:
-    spec.joint(name).armature = TINY_ARMATURE
-    spec.joint(name).frictionloss = 0.0
-    a = spec.add_actuator(
-        name=name, target=name, trntype=mujoco.mjtTrn.mjTRN_JOINT,
-        gaintype=mujoco.mjtGain.mjGAIN_FIXED,
-        biastype=mujoco.mjtBias.mjBIAS_AFFINE, inheritrange=1.0,
-        forcerange=(-TINY_EFFORT_LIMIT, TINY_EFFORT_LIMIT))
-    a.gainprm[0] = TINY_STIFFNESS
-    a.biasprm[1] = -TINY_STIFFNESS
-    a.biasprm[2] = -TINY_DAMPING
-  for g in spec.geoms:
-    if g.name.endswith('_collision'):
-      g.contype, g.conaffinity, g.condim = 1, 0, 3
-      g.priority = 1 if g.name.startswith('foot') else 0
-    else:
-      g.contype, g.conaffinity = 0, 0
-  add_keyframe(spec, INIT_STATE)
-  return spec

@@ -1,13 +1,16 @@
-"""Entity: one physical object (robot, prop) of the compiled scene.
+"""Entity: one physical object (robot, prop) of the scene.
 
-Counterpart of mjlab_tpu/entity/entity.py. There an entity is built from an
-MjSpec and its ids come from `mujoco.mj_name2id`; the port is handed the
-compiled scene (a `mujoco.MjModel` or its `ModelArrays` snapshot, on a host
-that may lack the mujoco package) and reads the compiled name table: an
-entity is everything named under its prefix (`robot/...`), in compiled
-order, with the prefix cut off.
+Counterpart of mjlab_tpu/entity/entity.py.
 
-  * `EntityIndexing` is the static index metadata (numpy).
+  * `Entity` is the build-time object (on a host with mujoco): the MjSpec of
+    its cfg's `spec_fn`, the cfg's actuators and spec editors applied to
+    it, and the `init_state` keyframe added (scene/scene.py attaches it to
+    the scene's spec under the prefix `<name>/`).
+  * `EntityIndexing` is the static index metadata (numpy), read from the
+    compiled scene's name table (a `mujoco.MjModel`, or its `ModelArrays`
+    snapshot on a host that may lack the mujoco package): an entity is
+    everything named under its prefix (`robot/...`), in compiled order,
+    with the prefix cut off.
   * `EntityView` is the runtime facade over the batched `physics.Data`:
     reads are gathers, writes return a new Data and never write into the
     tensors of the Data they were given.
@@ -16,10 +19,16 @@ order, with the prefix cut off.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
+from mjlab_torch.entity.spec_config import (
+    ActuatorCfg,
+    ActuatorSetCfg,
+    SpecCfg,
+)
 from mjlab_torch.physics.io import names_of
 from mjlab_torch.physics.tables import ix, table
 from mjlab_torch.physics.types import Data, JointType, StaticBase
@@ -45,9 +54,65 @@ class EntityInitStateCfg:
 
 @dataclasses.dataclass
 class EntityCfg:
+  """`spec_fn` builds the entity's MjSpec (None: the entity comes only from
+  a compiled scene, as a snapshot holds it); `actuators` and then each of
+  `spec_editors` edit that spec; `init_state` is also its keyframe."""
+  spec_fn: 'Callable | None' = None
   init_state: EntityInitStateCfg = dataclasses.field(
       default_factory=EntityInitStateCfg)
+  actuators: 'tuple[ActuatorCfg, ...]' = ()
+  spec_editors: 'tuple[SpecCfg, ...]' = ()
   soft_joint_pos_limit_factor: float = 1.0
+
+
+class Entity:
+  """Build-time entity: the MjSpec of `cfg.spec_fn()` with the actuators
+  (ActuatorSetCfg) and then each spec editor applied, and an 'init_state'
+  keyframe: qpos = [pos, rot, joint_pos], and ctrl = the joint targets when
+  every scalar joint is actuated."""
+
+  def __init__(self, cfg: EntityCfg):
+    import mujoco
+    self.cfg = cfg
+    if cfg.spec_fn is None:
+      raise ValueError('EntityCfg.spec_fn is required to build an entity')
+    self.spec = cfg.spec_fn()
+    if cfg.actuators:
+      ActuatorSetCfg(cfgs=tuple(cfg.actuators)).edit_spec(self.spec)
+    for editor in cfg.spec_editors:
+      editor.edit_spec(self.spec)
+    free = mujoco.mjtJoint.mjJNT_FREE
+    joints = list(self.spec.joints)
+    self._free_joints = [j.name for j in joints if j.type == free]
+    if len(self._free_joints) > 1:
+      raise ValueError('entity can have at most one free joint')
+    self._joints = [j for j in joints if j.type != free]
+    self.joint_names = [j.name for j in self._joints]
+    self.actuator_names = [a.name for a in self.spec.actuators]
+    self._add_initial_state_keyframe()
+
+  def _add_initial_state_keyframe(self) -> None:
+    import mujoco
+    init = self.cfg.init_state
+    qpos_parts = []
+    if self._free_joints:
+      qpos_parts.extend([list(init.pos), list(init.rot)])
+    joint_pos = None
+    if self.joint_names:
+      jp = np.zeros(len(self.joint_names))
+      ids, _, vals = resolve_matching_names_values(
+          init.joint_pos, self.joint_names)
+      jp[ids] = vals
+      joint_pos = jp
+      # a hinge or slide joint holds one qpos, a ball joint four
+      for i, j in enumerate(self._joints):
+        qpos_parts.append([1.0, 0.0, 0.0, 0.0]
+                          if j.type == mujoco.mjtJoint.mjJNT_BALL
+                          else [jp[i]])
+    key_qpos = np.hstack(qpos_parts) if qpos_parts else np.array([])
+    key = self.spec.add_key(name='init_state', qpos=key_qpos)
+    if joint_pos is not None and len(self.actuator_names) == len(joint_pos):
+      key.ctrl = joint_pos
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

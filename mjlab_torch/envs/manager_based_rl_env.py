@@ -115,7 +115,9 @@ class ManagerBasedRlEnv:
 
   device: 'cuda' unless the caller asks for 'cpu'; asking for CUDA on a
   host without a GPU raises. mj_model: the compiled scene (a
-  mujoco.MjModel or a ModelArrays); None takes `cfg.scene.model_fn()`.
+  mujoco.MjModel or a ModelArrays); None takes it by the scene's route
+  rule (scene/scene.py: the snapshot of `cfg.scene.model_fn` when it
+  records the cfg's spec inputs, else the scene composed from the cfgs).
   world: this rank's parallel.sharding.World (its device is the env's);
   None is one process holding every env."""
 
@@ -135,9 +137,9 @@ class ManagerBasedRlEnv:
     self.world = world or World(num_envs=cfg.scene.num_envs,
                                 device=self.device)
     self.num_envs = self.world.n_local
-    # the solver and integrator options of the cfg, written into the
-    # compiled model as the reference writes them into the spec
-    self.scene.mj_model = cfg.sim.mujoco.apply(self.scene.mj_model)
+    # the solver and integrator options of the cfg: into the spec of a
+    # scene composed from its cfgs, into the compiled model of a snapshot
+    self.scene.apply_options(cfg.sim.mujoco)
     base_model = self.scene.initialize(ncon_cap=cfg.sim.nconmax)
     self.physics_dt = cfg.sim.mujoco.timestep
     self.step_dt = cfg.decimation * self.physics_dt

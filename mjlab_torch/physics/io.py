@@ -728,7 +728,12 @@ EQ_TENDON_ARRAYS = {
 
 class ModelArrays:
   """Read-only snapshot of the compiled-model fields the engine reads,
-  with the attribute names of mujoco.MjModel (`opt` and `stat` nested)."""
+  with the attribute names of mujoco.MjModel (`opt` and `stat` nested).
+
+  A snapshot of a task's scene also records the spec inputs it was
+  composed from and their digest (`spec_inputs`, `spec_digest`; both
+  made by scene/scene.py, which holds the cfg's inputs to them before it
+  takes the snapshot)."""
 
   def __init__(self, arrays: dict):
     self._arrays = dict(arrays)
@@ -743,6 +748,18 @@ class ModelArrays:
                      **MESH_ARRAYS}.items():
       setattr(self, k, self._arrays.get(k, empty))
     self.nmesh = len(self.mesh_vertadr)
+    inputs = self._arrays.get('spec_inputs')
+    self.spec_inputs = None if inputs is None else tuple(
+        str(x) for x in inputs)
+    self.spec_digest = (None if inputs is None
+                        else str(self._arrays['spec_digest']))
+
+  def with_spec_inputs(self, inputs, digest: str) -> 'ModelArrays':
+    """A copy that records the spec inputs `inputs` and their digest."""
+    a = self.arrays()
+    a['spec_inputs'] = np.asarray(list(inputs), dtype=str)
+    a['spec_digest'] = np.asarray(digest)
+    return ModelArrays(a)
 
   @classmethod
   def of(cls, m) -> 'ModelArrays':

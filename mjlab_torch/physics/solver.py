@@ -161,6 +161,16 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
   masks are bool. xargs = (xJ (B,NX,DM,n), x_aref, xD, x_mu, x_fr, x_act)
   adds the elliptic-cone block (`elliptic_args`). The first `ne` rows of
   the dense block are bilateral (equality rows): no one-sided clamp."""
+  return _newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref,
+                       lD, l_act, f_aref, fD, floss, f_act, iterations,
+                       ls_polish, ldof, grad_th, xargs, ne)[0]
+
+
+def _newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
+                  l_act, f_aref, fD, floss, f_act, iterations, ls_polish,
+                  ldof, grad_th, xargs, ne):
+  """(newton_plain's result, (B,) the iterations each env stepped before
+  the freeze rule stopped it)."""
   ldof_ix = _ix(ldof, M.device)
   c_act, l_act, f_act = c_act.bool(), l_act.bool(), f_act.bool()
   bilat = (table(np.arange(cJ.shape[1]) < ne, torch.bool, M.device)
@@ -204,6 +214,7 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
   scales = table(np.asarray(_SCALES), M.dtype, M.device)
   eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
   zero = M.new_zeros(())
+  need = torch.zeros(M.shape[0], dtype=torch.long, device=M.device)
 
   for _ in range(iterations):
     jars = jars_of(x)
@@ -213,6 +224,7 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
                                             xJ if elliptic else None)
     # converged envs freeze (MuJoCo mj_solNewton termination)
     live = (grad * grad).sum(-1) > grad_th * grad_th
+    need += live.long()
 
     # Hessian: M + diagonal (friction + limit) + dense contact part
     # (+ the elliptic blocks J_c^T B_c J_c)
@@ -311,7 +323,7 @@ def newton_plain(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
     x = x + alpha[:, None] * dx
 
   forces, _ = forces_of(jars_of(x))
-  return (x,) + forces
+  return (x,) + forces, need
 
 
 def solver_params(stat):
@@ -332,16 +344,8 @@ def newton_steps(args: tuple, iterations: int, ls_polish: int,
   (||grad||^2 <= grad_th^2) stops it, counted on the plain solver: the
   gradient after k plain iterations decides iteration k + 1. `args` are
   newton_args', `xargs` elliptic_args'."""
-  M, a0 = args[0], args[1]
-  need = torch.zeros(M.shape[0], dtype=torch.long, device=M.device)
-  for k in range(iterations):
-    x, *forces = newton_plain(*args, k, ls_polish, ldof, grad_th, xargs,
-                              ne)
-    grad = (torch.einsum('bij,bj->bi', M, x - a0)
-            - constraint_force(args[3], args[7], ldof, forces,
-                               None if xargs is None else xargs[0]))
-    need += ((grad * grad).sum(-1) > grad_th * grad_th).long()
-  return need
+  return _newton_plain(*args, iterations, ls_polish, ldof, grad_th, xargs,
+                       ne)[1]
 
 
 def constraint_force(cJ, l_sign, ldof: tuple, forces, xJ=None):

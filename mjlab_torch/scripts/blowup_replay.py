@@ -24,10 +24,19 @@ first `decimation` substeps are from the captured `qvel_peaks`.
 
     python -m mjlab_torch.scripts.blowup_replay <dump dir or .npz> \\
         [--task Mjlab-Velocity-Flat-Unitree-G1] [--substeps 8] \\
-        [--max-dumps 10] [--variants env-f32,eng-f32,...] [--device cuda]
+        [--max-dumps 10] [--variants env-f32,eng-f32,...] [--device cuda] \\
+        [--num-envs N [--tile]]
 
 Runs on the GPU unless `--device cpu` is given. The model comes from the
-task's compiled scene (the committed snapshot): no `mujoco` is needed.
+task's compiled scene (the committed snapshot): no `mujoco` is needed. A
+ring of the JAX package replays as one of the port's (the two envs hold
+the same model, visual geoms and all): each key of the ring is checked
+against the shape the env reads, and a captured model field that the
+engine lacks is skipped with a warning. `--tile` fills every env of the
+`--num-envs` batch with copies of the captured rows (env e holds row
+e mod n) and reports `copies_err`, the largest difference of a copy's
+qpos or qvel from its row's first copy over the replay: 0 where every
+stage computes an env alike wherever it sits in the batch.
 """
 
 from __future__ import annotations
@@ -74,6 +83,38 @@ def _stack_dumps(dumps) -> dict:
   out['qvel_peaks'] = np.concatenate([d['qvel_peaks'] for d in dumps],
                                      axis=1)
   return out
+
+
+# the ring's keys that hold no state the env reads
+_RING_META = ('processed_action', 'episode_length', 'env_ids', 'qvel_peaks',
+              'n_bad_total', 'model_field_names')
+
+
+def check_ring(batch: dict, data, model) -> None:
+  """Each state key and each captured model field the engine has must be
+  of the shape the env reads (env axis first); a key the env does not read
+  raises too. A captured model field the engine lacks is left for the
+  replay's warning."""
+  bad = []
+  for k, v in batch.items():
+    if k in _RING_META:
+      continue
+    if k in STATE_KEYS:
+      want = tuple(getattr(data, k).shape[1:])
+    elif k.startswith('model_'):
+      leaf = getattr(model, k[len('model_'):], None)
+      if leaf is None:
+        continue
+      want = tuple(leaf.shape[-(np.ndim(v) - 1):]) if np.ndim(v) > 1 else ()
+    else:
+      bad.append(f'{k}: not a key the env reads')
+      continue
+    if tuple(np.shape(v)[1:]) != want:
+      bad.append(f'{k}: captured {tuple(np.shape(v)[1:])} a row, the env '
+                 f'reads {want}')
+  if bad:
+    raise SystemExit('the ring does not fit this task\'s env: '
+                     + '; '.join(bad))
 
 
 def _model_fields(batch: dict) -> dict:
@@ -200,31 +241,52 @@ def _engine_replay(env, batch, ctrl, n_sub, dtype, device,
   return model_b, _run(pipeline.step, model_b, data, n_sub)
 
 
-def _placement(batch: dict, num_envs: int) -> np.ndarray:
-  """The rows of a `num_envs` batch the captured envs take: each at its
-  own env id where the ids are distinct and fit, else the first rows."""
+def _placement(batch: dict, num_envs: int, tile: bool = False
+               ) -> np.ndarray:
+  """The rows of a `num_envs` batch the captured envs take: the first rows
+  when tiled, else each at its own env id where the ids are distinct and
+  fit, else the first rows."""
   ids = batch['env_ids']
   n = len(ids)
-  if num_envs > n and len(set(ids.tolist())) == n and ids.max() < num_envs:
+  if (not tile and num_envs > n and len(set(ids.tolist())) == n
+      and ids.max() < num_envs):
     return ids.astype(np.int64)
   return np.arange(n)
 
 
-def _padded(batch: dict, place: np.ndarray, base: dict) -> dict:
+def _padded(batch: dict, place: np.ndarray, base: dict,
+            tile: bool = False) -> dict:
   """`base` (num_envs rows of each key) with the captured rows at
-  `place`."""
+  `place`; tiled, every row e holds captured row e mod n."""
   out = dict(batch)
+  n = len(place)
   for k, v in base.items():
+    if tile:
+      out[k] = np.asarray(batch[k])[np.arange(len(v)) % n]
+      continue
     full = np.array(v, copy=True)
     full[place] = batch[k]
     out[k] = full
   return out
 
 
+def copies_error(traj: list, n: int) -> float:
+  """The largest |difference| of a tiled copy's qpos or qvel from its
+  row's first copy (rows e and e mod n) over a trajectory; a NaN counts
+  as infinite."""
+  err = 0.0
+  for d in traj:
+    for x in (d.qpos, d.qvel):
+      first = x[torch.arange(x.shape[0], device=x.device) % n]
+      diff = torch.nan_to_num((x - first).abs(), nan=float('inf'))
+      err = max(err, float(diff.max()))
+  return err
+
+
 def replay(path: str, task: str = 'Mjlab-Velocity-Flat-Unitree-G1',
            substeps: int = 8, max_dumps: int = 10, variants=VARIANTS,
-           device: str = 'cuda', num_envs: 'int | None' = None
-           ) -> 'tuple[dict, list]':
+           device: str = 'cuda', num_envs: 'int | None' = None,
+           tile: bool = False) -> 'tuple[dict, list]':
   """(the captured batch, one report per variant). The float32 variants
   run `num_envs` envs (default: the captured ones alone), the captured
   envs at their ids (_placement) and the others as the env resets them:
@@ -232,8 +294,10 @@ def replay(path: str, task: str = 'Mjlab-Velocity-Flat-Unitree-G1',
   it picks), so at the training's env count the replay repeats training
   bit for bit. eng-f64 runs the captured envs alone on the CPU. Each
   report holds its per-substep rows of the captured envs, its launches,
+  `finite` (every env's qpos and qvel finite at every substep),
   `qvel_peaks` (n, substeps) and `peaks_err` (peaks_error against the
-  captured peaks)."""
+  captured peaks). `tile`: the batch holds copies of the captured rows
+  (the float32 variants then report `copies_err`)."""
   want = list(variants)
   unknown = sorted(set(want) - set(VARIANTS))
   if unknown:
@@ -242,7 +306,7 @@ def replay(path: str, task: str = 'Mjlab-Velocity-Flat-Unitree-G1',
   batch = _stack_dumps(dumps)
   n = batch['qpos'].shape[0]
   N = max(num_envs or n, n)
-  place = _placement(batch, N)
+  place = _placement(batch, N, tile)
   print(f'# {len(dumps)} dumps, {n} exploding envs (env ids '
         f'{batch["env_ids"].tolist()}) in rows {place.tolist()} of {N}; '
         f'files: {[os.path.basename(f) for f in files]}', flush=True)
@@ -255,11 +319,13 @@ def replay(path: str, task: str = 'Mjlab-Velocity-Flat-Unitree-G1',
   # the ctrl of the step the env's action manager makes from the captured
   # processed action
   state, _ = env.init_state(0)
+  check_ring(batch, state.data, state.model)
   base = {k: getattr(state.data, k) for k in STATE_KEYS}
   base['processed_action'] = torch.zeros_like(state.actions)
   base.update({'model_' + k: getattr(state.model, k)
                for k in _model_fields(batch) if hasattr(state.model, k)})
-  full = _padded(batch, place, {k: v.cpu().numpy() for k, v in base.items()})
+  full = _padded(batch, place, {k: v.cpu().numpy() for k, v in base.items()},
+                 tile)
   state = state.replace(data=state.data.replace(
       **{k: t(full[k]) for k in STATE_KEYS}))
   fields = {k: t(v) for k, v in _model_fields(full).items()
@@ -289,6 +355,10 @@ def replay(path: str, task: str = 'Mjlab-Velocity-Flat-Unitree-G1',
       m, (traj, launches) = _engine_replay(env, *args, **kw)
     per_env = [k for k in _model_fields(batch) if hasattr(m, k)]
     r = _report(tag, m, per_env, traj, at, qvel_limit, launches)
+    r['finite'] = all(bool(torch.isfinite(x).all())
+                      for d in traj for x in (d.qpos, d.qvel))
+    if tile and tag != 'eng-f64':
+      r['copies_err'] = copies_error(traj, n)
     r['peaks_err'] = peaks_error(batch['qvel_peaks'], r['qvel_peaks'])
     results.append(r)
   return batch, results
@@ -308,10 +378,13 @@ def main(argv=None):
                  help='run the float32 variants at this many envs, each '
                  'captured env at its id (the training\'s count repeats '
                  'training bit for bit)')
+  p.add_argument('--tile', action='store_true',
+                 help='fill the --num-envs batch with copies of the '
+                 'captured rows instead')
   args = p.parse_args(argv)
   batch, results = replay(args.dump, args.task, args.substeps,
                           args.max_dumps, args.variants.split(','),
-                          args.device, args.num_envs)
+                          args.device, args.num_envs, args.tile)
   for r in results:
     print(json.dumps({k: v for k, v in r.items() if k != 'qvel_peaks'}),
           flush=True)
@@ -322,7 +395,9 @@ def main(argv=None):
     print(f'  {r["variant"]:10s} reproduced={r["reproduced"]} '
           f'peaks_err={r["peaks_err"]:.3e} max|qvel| by substep [{peaks}] '
           f'({r["envs"]} envs, caps {r["ncon_cap"]} + {r["ncon_cap1"]}, '
-          f'launches {r["launches"]})', flush=True)
+          f'launches {r["launches"]}'
+          + (f', copies_err {r["copies_err"]:.3e}' if 'copies_err' in r
+             else '') + ')', flush=True)
   return batch, results
 
 

@@ -1,15 +1,15 @@
 """Simulation configuration.
 
-Counterpart of mjlab_tpu/sim/sim.py. There the solver and integrator options
-are written into the MjSpec before it is compiled; the port is handed a
-compiled model (an MjModel or its ModelArrays snapshot, on a host that may
-lack the mujoco package), so `MujocoCfg.apply` writes them into the
-compiled model's `opt` instead, which the env does before `put_model`. No
-option of MujocoCfg changes another compiled field (the compile of a scene
-with each option changed differs from the snapshot with it written in by
-that `opt` field alone; tests/test_torch_elliptic.py holds the cone), so
-every option can be taken this way. `MujocoCfg.check_model` holds a model
-compiled elsewhere to the configuration and raises on a mismatch.
+Counterpart of mjlab_tpu/sim/sim.py. `MujocoCfg` holds the solver and
+integrator options. A scene composed from its cfgs takes them into its
+MjSpec before the one compile (`MujocoCfg.edit_spec`, as the JAX package
+does); a scene loaded as a compiled model (an MjModel or its ModelArrays
+snapshot, on a host that may lack the mujoco package) takes them into the
+compiled model's `opt` (`MujocoCfg.apply`). No option of MujocoCfg changes
+another compiled field, so both routes give the same model
+(tests/test_torch_spec_path.py holds `apply(compile(spec))` equal to
+`compile(edit_spec(spec))` field by field). `MujocoCfg.check_model` holds a
+model compiled elsewhere to the configuration and raises on a mismatch.
 `expand_model_fields` gives selected model fields a leading env axis for
 per-env domain randomization. `make_batched_data` is physics.io's.
 """
@@ -66,6 +66,23 @@ class MujocoCfg:
         iterations=self.iterations, tolerance=self.tolerance,
         ls_iterations=self.ls_iterations, ls_tolerance=self.ls_tolerance,
         gravity=self.gravity)
+
+  def edit_spec(self, spec) -> None:
+    """Write the options into an MjSpec's `option` (needs mujoco)."""
+    import mujoco
+    opt = spec.option
+    opt.timestep = self.timestep
+    opt.integrator = {'euler': mujoco.mjtIntegrator.mjINT_EULER,
+                      'implicitfast': mujoco.mjtIntegrator.mjINT_IMPLICITFAST
+                      }[self.integrator]
+    opt.cone = {'pyramidal': mujoco.mjtCone.mjCONE_PYRAMIDAL,
+                'elliptic': mujoco.mjtCone.mjCONE_ELLIPTIC}[self.cone]
+    opt.impratio = self.impratio
+    opt.iterations = self.iterations
+    opt.tolerance = self.tolerance
+    opt.ls_iterations = self.ls_iterations
+    opt.ls_tolerance = self.ls_tolerance
+    opt.gravity = self.gravity
 
   def apply(self, mj_model):
     """A copy of the compiled model (a ModelArrays snapshot or an MjModel)

@@ -1,9 +1,11 @@
 """Unitree G1 motion-tracking task on flat terrain.
 
 Counterpart of mjlab_tpu/tasks/tracking/config/g1/flat_env_cfg.py. The
-compiled scene (plane, G1 with full collision and the `self_collision`
-contact sensor) is asset_zoo/g1_tracking_scene.py's, loaded from its
-committed snapshot. The default motion is a synthetic squat written on
+scene is a plane and the G1 with full collision and the `self_collision`
+contact sensor (the pelvis subtree against itself, found-only, 10
+contacts); its compiled model is the committed snapshot
+asset_zoo/data/g1_tracking_model.npz while the cfg's spec inputs are the
+snapshot's (scene/scene.py, scene/snapshot.py). The default motion is a synthetic squat written on
 first use by the port's scripts/motion.py into the port's motion cache
 (`$MJLAB_TORCH_CACHE`, else build/motions/ at the repository root); real
 motions come from its csv_to_npz, and the shipped policy's walk clip ships
@@ -19,9 +21,11 @@ from pathlib import Path
 from mjlab_torch.asset_zoo import tracking_arrays
 from mjlab_torch.asset_zoo.unitree_g1 import (
     FOOT_REGEX,
+    FULL_COLLISION_WITH_SELF,
     G1_ACTION_SCALE,
     G1_ROBOT_CFG,
 )
+from mjlab_torch.entity.spec_config import ContactSensorCfg
 from mjlab_torch.managers.term_cfg import SceneEntityCfg
 from mjlab_torch.scene.scene import SceneCfg
 from mjlab_torch.tasks.tracking.tracking_env_cfg import TrackingEnvCfg
@@ -61,6 +65,15 @@ def default_motion_file() -> str:
   return str(path)
 
 
+def g1_tracking_robot():
+  """The G1 entity with full collision and the `self_collision` sensor."""
+  cfg = dataclasses.replace(G1_ROBOT_CFG)
+  cfg.spec_editors = (FULL_COLLISION_WITH_SELF, ContactSensorCfg(
+      name='self_collision', subtree1='pelvis', subtree2='pelvis', num=10,
+      data=('found',), reduce='netforce'))
+  return cfg
+
+
 @dataclasses.dataclass
 class G1FlatEnvCfg(TrackingEnvCfg):
 
@@ -68,7 +81,7 @@ class G1FlatEnvCfg(TrackingEnvCfg):
     self.scene = SceneCfg(
         num_envs=self.scene.num_envs if self.scene else 1024,
         terrain=TerrainImporterCfg(terrain_type='plane'),
-        entities={'robot': dataclasses.replace(G1_ROBOT_CFG)},
+        entities={'robot': g1_tracking_robot()},
         model_fn=tracking_arrays)
     self.actions.joint_pos.scale = G1_ACTION_SCALE
     cmd = self.commands.motion

@@ -1,9 +1,12 @@
 """Unitree G1 flat-terrain velocity task.
 
 Counterpart of mjlab_tpu/tasks/velocity/config/g1/flat_env_cfg.py. The
-compiled scene (plane, G1 with full collision and the two found-only foot
-ground-contact sensors) is asset_zoo/g1_flat_scene.py's, loaded from its
-committed snapshot.
+scene is a plane and the G1 with full collision and two found-only foot
+ground-contact sensors (ground contact only: under full collision a foot
+can also touch the other leg, which must not read as touchdown). Its
+compiled model is the committed snapshot asset_zoo/data/g1_flat_model.npz
+while the cfg's spec inputs are the snapshot's (scene/scene.py;
+`python -m mjlab_torch.scene.snapshot` rewrites it).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from mjlab_torch.asset_zoo.unitree_g1 import (
     G1_ACTION_SCALE,
     G1_ROBOT_CFG,
 )
+from mjlab_torch.entity.spec_config import ContactSensorCfg
 from mjlab_torch.managers.term_cfg import SceneEntityCfg
 from mjlab_torch.scene.scene import SceneCfg
 from mjlab_torch.tasks.velocity.velocity_env_cfg import (
@@ -33,6 +37,18 @@ G1_POSE_STD = {
 }
 
 
+def g1_with_sensors():
+  """The G1 entity with the velocity tasks' two foot ground-contact
+  sensors (found-only: no term reads the force channel)."""
+  cfg = dataclasses.replace(G1_ROBOT_CFG)
+  cfg.spec_editors = cfg.spec_editors + tuple(
+      ContactSensorCfg(name=f'{side}_foot_ground_contact',
+                       subtree1=f'{side}_ankle_roll_link', geom2='terrain',
+                       data=('found',), reduce='netforce')
+      for side in ('left', 'right'))
+  return cfg
+
+
 @dataclasses.dataclass
 class UnitreeG1FlatEnvCfg(LocomotionVelocityEnvCfg):
 
@@ -40,7 +56,7 @@ class UnitreeG1FlatEnvCfg(LocomotionVelocityEnvCfg):
     self.scene = SceneCfg(
         num_envs=self.scene.num_envs if self.scene else 1024,
         terrain=TerrainImporterCfg(terrain_type='plane'),
-        entities={'robot': dataclasses.replace(G1_ROBOT_CFG)},
+        entities={'robot': g1_with_sensors()},
         model_fn=g1_flat_arrays)
     self.actions.joint_pos.scale = G1_ACTION_SCALE
     self.events.foot_friction.params['asset_cfg'] = SceneEntityCfg(

@@ -1,9 +1,10 @@
 """Unitree G1 rough-terrain velocity task.
 
 Counterpart of mjlab_tpu/tasks/velocity/config/g1/rough_env_cfg.py. The
-compiled scene is asset_zoo/rough_scene.py's: the G1 flat scene with the
-terrain generator's heightfield in place of the plane, regenerated from the
-generator's seed.
+scene is the G1 flat task's robot on the terrain generator's heightfield;
+its compiled model is asset_zoo/rough_scene.py's (the G1 flat snapshot
+with the heightfield, regenerated from the generator's seed, in place of
+the plane) while the robot's spec inputs are the snapshot's.
 """
 
 from __future__ import annotations
@@ -11,14 +12,13 @@ from __future__ import annotations
 import dataclasses
 
 from mjlab_torch.asset_zoo.rough_scene import g1_rough_arrays
-from mjlab_torch.asset_zoo.unitree_g1 import (
-    FOOT_REGEX,
-    G1_ACTION_SCALE,
-    G1_ROBOT_CFG,
-)
+from mjlab_torch.asset_zoo.unitree_g1 import FOOT_REGEX, G1_ACTION_SCALE
 from mjlab_torch.managers.term_cfg import SceneEntityCfg
 from mjlab_torch.scene.scene import SceneCfg
-from mjlab_torch.tasks.velocity.config.g1.flat_env_cfg import G1_POSE_STD
+from mjlab_torch.tasks.velocity.config.g1.flat_env_cfg import (
+    G1_POSE_STD,
+    g1_with_sensors,
+)
 from mjlab_torch.tasks.velocity.velocity_env_cfg import (
     LocomotionVelocityRoughEnvCfg,
     make_rough_terrain_cfg,
@@ -32,7 +32,7 @@ class UnitreeG1RoughEnvCfg(LocomotionVelocityRoughEnvCfg):
     self.scene = SceneCfg(
         num_envs=self.scene.num_envs if self.scene else 1024,
         terrain=make_rough_terrain_cfg(),
-        entities={'robot': dataclasses.replace(G1_ROBOT_CFG)},
+        entities={'robot': g1_with_sensors()},
         model_fn=g1_rough_arrays)
     super().__post_init__()
     self.actions.joint_pos.scale = G1_ACTION_SCALE

@@ -1,8 +1,10 @@
 """Unitree Go1 rough-terrain velocity task.
 
 Counterpart of mjlab_tpu/tasks/velocity/config/go1/rough_env_cfg.py. The
-compiled scene is asset_zoo/rough_scene.py's: the Go1 flat scene with
-the terrain generator's heightfield in place of the plane.
+scene is the Go1 flat task's robot on the terrain generator's heightfield;
+its compiled model is asset_zoo/rough_scene.py's (the Go1 flat snapshot
+with the heightfield in place of the plane) while the robot's spec inputs
+are the snapshot's.
 """
 
 from __future__ import annotations
@@ -10,14 +12,14 @@ from __future__ import annotations
 import dataclasses
 
 from mjlab_torch.asset_zoo.rough_scene import go1_rough_arrays
-from mjlab_torch.asset_zoo.unitree_go1 import (
-    FOOT_REGEX,
-    GO1_ACTION_SCALE,
-    GO1_ROBOT_CFG,
-)
+from mjlab_torch.asset_zoo.unitree_go1 import FOOT_REGEX, GO1_ACTION_SCALE
 from mjlab_torch.managers.term_cfg import SceneEntityCfg
 from mjlab_torch.scene.scene import SceneCfg
-from mjlab_torch.tasks.velocity.config.go1.flat_env_cfg import GO1_POSE_STD
+from mjlab_torch.tasks.velocity.config.go1.flat_env_cfg import (
+    GO1_FEET,
+    GO1_POSE_STD,
+    go1_with_sensors,
+)
 from mjlab_torch.tasks.velocity.velocity_env_cfg import (
     LocomotionVelocityRoughEnvCfg,
     make_rough_terrain_cfg,
@@ -31,7 +33,7 @@ class UnitreeGo1RoughEnvCfg(LocomotionVelocityRoughEnvCfg):
     self.scene = SceneCfg(
         num_envs=self.scene.num_envs if self.scene else 1024,
         terrain=make_rough_terrain_cfg(),
-        entities={'robot': dataclasses.replace(GO1_ROBOT_CFG)},
+        entities={'robot': go1_with_sensors()},
         model_fn=go1_rough_arrays)
     super().__post_init__()
     self.actions.joint_pos.scale = GO1_ACTION_SCALE
@@ -40,7 +42,7 @@ class UnitreeGo1RoughEnvCfg(LocomotionVelocityRoughEnvCfg):
     self.rewards.pose.params['std'] = GO1_POSE_STD
     self.rewards.flat_orientation_l2.weight = 0.0
     self.rewards.air_time.params['sensor_names'] = tuple(
-        f'{p}_foot_ground_contact' for p in ('FL', 'FR', 'RL', 'RR'))
+        f'{p}_foot_ground_contact' for p in GO1_FEET)
 
 
 @dataclasses.dataclass

@@ -4,9 +4,10 @@ Counterpart of mjlab_tpu/tasks/velocity/config/tiny.py. Not part of the
 reference task surface, so the registry does not import this module; opt
 in with MJLAB_TASKS_MODULES=mjlab_torch.tasks.velocity.config.tiny. The
 full manager stack of the velocity task on a 2-DoF robot with five
-floor-contact geoms: the compiled scene is asset_zoo/tiny_scene.py's,
-loaded from its committed snapshot (the rough task's heightfield comes
-from asset_zoo/rough_scene.py).
+floor-contact geoms: the compiled scene is the committed snapshot
+asset_zoo/data/tiny_flat_model.npz while the cfg's spec inputs are the
+snapshot's (scene/scene.py, scene/snapshot.py; the rough task's
+heightfield comes from asset_zoo/rough_scene.py).
 """
 
 from __future__ import annotations

@@ -1,12 +1,16 @@
 """Terrain importer: the plane terrain or a generated sub-terrain grid, and
 the env origins laid over it.
 
-Counterpart of mjlab_tpu/terrains/importer.py. There the importer adds the
-terrain to the scene's MjSpec; the port is handed the compiled scene, so it
-checks that the scene holds the terrain's geom, named `terrain` (the name
-ground-contact sensors filter on): a plane, or the heightfield of the
-generator this importer builds from `terrain_generator` (the scene builders
-of asset_zoo take the compiled heightfield from the same generator).
+Counterpart of mjlab_tpu/terrains/importer.py. A scene composed from its
+cfgs hands the importer its MjSpec (`spec=`), and the importer builds the
+terrain into it: a plane or the generator's heightfield, the geom named
+`terrain` either way. Built in place, not attached, the terrain's names
+stay global, so the entities' contact sensors resolve `geom2='terrain'`
+across the attach boundary (MjSpec.attach prefixes every attached name).
+A scene loaded as a compiled model is checked instead (`check_scene`): it
+must hold the terrain's geom `terrain`, a plane or a heightfield of the
+generator's raster size (asset_zoo/rough_scene.py puts the same
+generator's heightfield into a flat snapshot).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ class TerrainImporterCfg:
   terrain_type: str = 'plane'  # 'plane' | 'generator'
   terrain_generator: 'object | None' = None  # TerrainGeneratorCfg
   env_spacing: float = 2.0
+  color: tuple = (0.2, 0.3, 0.4)  # the plane's
 
 
 def grid_origins(num_envs: int, spacing: float) -> np.ndarray:
@@ -48,9 +53,11 @@ class TerrainImporter:
   the global env's."""
 
   def __init__(self, cfg: TerrainImporterCfg, num_envs: int,
-               rows: 'slice | None' = None):
+               rows: 'slice | None' = None, spec=None):
     self.cfg = cfg
     self._lay_out(num_envs)
+    if spec is not None:
+      self.build(spec)
     rows = slice(None) if rows is None else rows
     self.env_origins = self.env_origins[rows]
     self.terrain_levels = self.terrain_levels[rows]
@@ -80,6 +87,16 @@ class TerrainImporter:
       self.env_origins = gen.origins[self.terrain_levels, self.terrain_types]
     else:
       raise ValueError(f'unknown terrain_type {cfg.terrain_type!r}')
+
+  def build(self, spec) -> None:
+    """Build the terrain into the scene's MjSpec (needs mujoco)."""
+    if self.generator is not None:
+      self.generator.build(spec)
+      return
+    import mujoco
+    spec.worldbody.add_geom(
+        name='terrain', type=mujoco.mjtGeom.mjGEOM_PLANE,
+        size=[0.0, 0.0, 0.05], rgba=list(self.cfg.color) + [1.0])
 
   def check_scene(self, mj_model) -> None:
     """The compiled scene holds this terrain's geom named `terrain`: a

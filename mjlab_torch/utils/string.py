@@ -89,3 +89,24 @@ def resolve_expr(expr: str | Sequence[str], names: Sequence[str]) -> list[str]:
   """Expand regex expression(s) to the list of matching names (name order)."""
   _, matched = resolve_matching_names(expr, names)
   return matched
+
+
+def filter_exp(exprs: Sequence[str], names: Sequence[str]) -> list[str]:
+  """Prefix-match filter: names matched by any expression, in name order.
+
+  The spec editors' rule: `re.match` (anchored at the start only), unlike
+  resolve_matching_names, which wants a full match. So '.*_collision' also
+  selects 'FR_thigh_collision1'."""
+  compiled = [re.compile(e) for e in exprs]
+  return [n for n in names if any(p.match(n) for p in compiled)]
+
+
+def resolve_prefix_value(field, name: str, default=None):
+  """A scalar field, or the value of a {regex: value} field for one name:
+  prefix match, the first matching pattern wins."""
+  if isinstance(field, dict):
+    for pat, val in field.items():
+      if re.match(pat, name):
+        return val
+    return default
+  return field

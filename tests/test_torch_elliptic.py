@@ -25,7 +25,6 @@ import torch
 
 import mjlab_torch.physics as tphys
 from mjlab_torch.asset_zoo import g1_flat_arrays
-from mjlab_torch.asset_zoo.g1_flat_scene import flat_scene_spec, robot_spec
 from mjlab_torch.physics import constraint as tcon
 from mjlab_torch.physics import io as tio
 from mjlab_torch.physics import pipeline as tpipe
@@ -250,13 +249,16 @@ def test_snapshot_takes_the_cone_as_the_compile_does():
   snapshot with the velocity cfg's options (the cone elliptic) written in
   by MujocoCfg.apply, field by field; the engine's Models equal."""
   from mjlab_torch.tasks import registry as treg
-  cfg = treg.load_cfg('Mjlab-Velocity-Flat-Unitree-G1').sim.mujoco
+  from mjlab_torch.scene.scene import compile_scene, recording, spec_inputs
+  env_cfg = treg.load_cfg('Mjlab-Velocity-Flat-Unitree-G1')
+  cfg = env_cfg.sim.mujoco
   cfg.cone = 'elliptic'
   got = cfg.apply(g1_flat_arrays())
-  spec = flat_scene_spec(robot_spec())
-  spec.option.cone = mujoco.mjtCone.mjCONE_ELLIPTIC
-  mj = spec.compile()
-  a, b = got.arrays(), tio.ModelArrays.of(mj).arrays()
+  mj = compile_scene(env_cfg.scene, cfg)
+  assert mj.opt.cone == mujoco.mjtCone.mjCONE_ELLIPTIC
+  a = got.arrays()
+  b = recording(tio.ModelArrays.of(mj),
+                spec_inputs(env_cfg.scene)).arrays()
   assert sorted(a) == sorted(b)
   for k in a:
     assert np.asarray(a[k]).dtype == np.asarray(b[k]).dtype, k

@@ -23,14 +23,14 @@ from mjlab_tpu.physics import collision as jcol
 from mjlab_tpu.physics import io as jio
 from mjlab_tpu.physics import pipeline as jpipe
 import mjlab_torch.physics as tphys
-from mjlab_torch.asset_zoo import go1_flat_arrays
-from mjlab_torch.asset_zoo.go1_flat_scene import go1_flat_model
+from mjlab_torch.asset_zoo import GO1_FLAT, go1_flat_arrays
 from mjlab_torch.envs.io import env_state_to_numpy
 from mjlab_torch.physics import collision as tcol
 from mjlab_torch.physics import constraint as tcon
 from mjlab_torch.physics import io as tio
 from mjlab_torch.physics.types import GeomType
 from mjlab_torch.rl import onnx_writer
+from mjlab_torch.scene import snapshot as tsnap
 from torch_parity import env_state_leaves, g1_env_pair, go1_flat_mjmodel
 from torch_parity import jax_batch, to_port
 
@@ -43,14 +43,15 @@ def _names(m, objtype, ids):
 
 
 def test_snapshot_matches_fresh_compile():
-  """The committed Go1 flat snapshot is the scene builder's output."""
-  fresh = tio.ModelArrays.of(go1_flat_model()).arrays()
+  """The committed Go1 flat snapshot is the scene builder's output, the
+  spec inputs it records included."""
+  fresh = tsnap.snapshot(GO1_FLAT).arrays()
   saved = go1_flat_arrays().arrays()
   assert sorted(fresh) == sorted(saved)
   for k in fresh:
     np.testing.assert_array_equal(saved[k], fresh[k], err_msg=k)
   a = tphys.put_model(go1_flat_arrays(), device='cpu')
-  b = tphys.put_model(go1_flat_model(), device='cpu')
+  b = tphys.put_model(tsnap.model(GO1_FLAT), device='cpu')
   assert a.stat == b.stat
   for f in tio.MODEL_FIELDS:
     assert torch.equal(getattr(a, f), getattr(b, f)), f
@@ -58,19 +59,18 @@ def test_snapshot_matches_fresh_compile():
 
 def test_go1_flat_scene_matches_jax_env():
   """Every physics field of the port's scene equals the velocity env's,
-  the env's visual mesh geoms left out (geom ids, and a sensor's geom id,
-  compared through their names), and the same static pair table: 57
+  all 43 geoms (the 12 visual mesh geoms among them) compared by id, and
+  the same static pair table: 57
   uncompacted slots, all condim 3, plane-sphere, plane-capsule and one
   plane-box pair."""
-  port, env = go1_flat_model(), go1_flat_mjmodel()
+  port, env = tsnap.model(GO1_FLAT), go1_flat_mjmodel()
   for f in ('nq', 'nv', 'nu', 'nbody', 'njnt', 'nsensor', 'nsensordata',
             'nkey'):
     assert getattr(port, f) == getattr(env, f), f
   assert (port.nq, port.nv, port.nu, port.nbody) == (19, 18, 12, 14)
   prefixes = ('body_', 'jnt_', 'dof_', 'actuator_', 'sensor_')
   for f in tio.SNAPSHOT_ARRAYS:  # the fields the engine reads
-    if f.startswith(prefixes) and f not in ('body_geomadr', 'body_geomnum',
-                                            'sensor_objid'):
+    if f.startswith(prefixes):
       np.testing.assert_allclose(getattr(port, f), getattr(env, f),
                                  rtol=1e-12, atol=1e-12, err_msg=f)
   geom = mujoco.mjtObj.mjOBJ_GEOM
@@ -78,15 +78,17 @@ def test_go1_flat_scene_matches_jax_env():
   assert _names(port, geom, port.sensor_objid) == _names(
       env, geom, env.sensor_objid) == [
           f'robot/{p}_foot_collision' for p in ('FL', 'FR', 'RL', 'RR')]
-  keep = np.nonzero(env.geom_group != 2)[0]
-  assert len(keep) == port.ngeom == 31
+  assert port.ngeom == env.ngeom == 43
+  assert (port.geom_group == 2).sum() == 12
   for f in ('geom_type', 'geom_bodyid', 'geom_size', 'geom_pos',
             'geom_quat', 'geom_friction', 'geom_condim', 'geom_priority',
             'geom_contype', 'geom_conaffinity', 'geom_solref',
-            'geom_solimp', 'geom_solmix', 'geom_margin', 'geom_gap'):
-    np.testing.assert_array_equal(getattr(port, f), getattr(env, f)[keep],
+            'geom_solimp', 'geom_solmix', 'geom_margin', 'geom_gap',
+            'geom_group', 'geom_dataid'):
+    np.testing.assert_array_equal(getattr(port, f), getattr(env, f),
                                   err_msg=f)
-  assert _names(port, geom, range(port.ngeom)) == _names(env, geom, keep)
+  assert _names(port, geom, range(port.ngeom)) == _names(
+      env, geom, range(env.ngeom))
   for f in ('timestep', 'integrator', 'cone', 'iterations', 'ls_iterations',
             'tolerance', 'ls_tolerance', 'impratio', 'gravity'):
     np.testing.assert_array_equal(getattr(port.opt, f), getattr(env.opt, f),
@@ -107,8 +109,8 @@ def test_go1_flat_scene_matches_jax_env():
     p1, p2, ppid, pbase, pnpts = tp.pairs.groups[key]
     assert (base, npts) == (pbase, pnpts)
     np.testing.assert_array_equal(pid, ppid)
-    assert _names(env, geom, g1) == _names(port, geom, p1)
-    assert _names(env, geom, g2) == _names(port, geom, p2)
+    np.testing.assert_array_equal(g1, p1)
+    np.testing.assert_array_equal(g2, p2)
   np.testing.assert_array_equal(tp.con_dim, te.con_dim)
   assert (np.asarray(tp.con_dim) == 3).all()
   lay = tcon.efc_layout(tp)

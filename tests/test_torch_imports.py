@@ -32,6 +32,13 @@ SUBPACKAGES = ('utils', 'sim', 'entity', 'scene', 'terrains', 'managers',
                'parallel')
 
 
+def one_thread(**extra) -> dict:
+  """The environment of a subprocess: its tiny ops run fastest, and slow
+  the other test workers least, on one intra-op thread
+  (tests/torch_parity.py)."""
+  return {**os.environ, 'OMP_NUM_THREADS': '1', **extra}
+
+
 def _modules():
   return sorted(m.name for m in pkgutil.walk_packages(
       mjlab_torch.__path__, prefix='mjlab_torch.'))
@@ -48,15 +55,15 @@ def test_the_walk_reaches_every_subpackage():
                'utils.tables', 'scripts.train', 'rl.onnx_writer',
                'rl.exporter', 'scripts.demo', 'scripts.list_envs',
                'tasks.velocity.config.go1.flat_env_cfg',
-               'asset_zoo.unitree_go1', 'asset_zoo.go1_flat_scene',
-               'utils.actuator', 'asset_zoo.g1_tracking_scene',
+               'asset_zoo.unitree_go1', 'scene.snapshot',
+               'utils.actuator',
                'scripts.motion', 'tasks.tracking.tracking_env_cfg',
                'tasks.tracking.mdp.commands',
                'tasks.tracking.mdp.observations',
                'tasks.tracking.mdp.rewards',
                'tasks.tracking.mdp.terminations',
                'tasks.tracking.config.g1.flat_env_cfg',
-               'asset_zoo.tiny_bot', 'asset_zoo.tiny_scene',
+               'asset_zoo.tiny_bot',
                'tasks.velocity.config.tiny', 'tasks.tracking.config.tiny',
                'parallel.sharding', 'asset_zoo.oracle_models',
                'physics.mesh'):
@@ -124,7 +131,7 @@ print('ok')
 """
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300,
-                       env={**os.environ, 'MJLAB_TORCH_CACHE': str(tmp_path)})
+                       env=one_thread(MJLAB_TORCH_CACHE=str(tmp_path)))
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == 'ok'
 
@@ -152,7 +159,8 @@ assert not loaded, loaded
 print('ok')
 """
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
+                       capture_output=True, text=True, env=one_thread(),
+                       timeout=300)
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == 'ok'
 
@@ -174,7 +182,8 @@ assert not loaded, loaded
 print('ok')
 """
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, env=one_thread(),
+                       timeout=120)
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == 'ok'
 
@@ -184,7 +193,8 @@ def test_every_module_imports_without_jax():
   imports = '; '.join(f'importlib.import_module({m!r})' for m in _modules())
   code = f'import importlib, sys; {block}; {imports}; print("ok")'
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, env=one_thread(),
+                       timeout=120)
   assert out.returncode == 0, out.stderr
   assert out.stdout.strip() == 'ok'
 
@@ -198,7 +208,8 @@ def test_train_help_imports_no_jax():
           "sys.argv = ['train', '--help']; "
           "runpy.run_module('mjlab_torch.scripts.train', run_name='__main__')")
   out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, env=one_thread(),
+                       timeout=120)
   assert out.returncode == 0, out.stderr
   assert '--shard' in out.stdout
 

@@ -1,8 +1,8 @@
 """Parity of the port's model conversion and data allocation with the JAX
 package (mjlab_torch/physics/io.py vs mjlab_tpu/physics/io.py) on the G1
-flat model and TinyBot, and of the port's own G1 flat scene builder
-(mjlab_torch/asset_zoo/g1_flat_scene.py) with the model the JAX velocity
-env compiles."""
+flat model and TinyBot, and of the port's G1 flat scene (composed from the
+task's cfgs, mjlab_torch/scene/snapshot.py) with the model the
+JAX velocity env compiles."""
 
 import dataclasses
 
@@ -14,10 +14,10 @@ import torch
 
 from mjlab_tpu.physics import io as jio
 import mjlab_torch.physics as tphys
-from mjlab_torch.asset_zoo import g1_flat_arrays
-from mjlab_torch.asset_zoo.g1_flat_scene import g1_flat_model
+from mjlab_torch.asset_zoo import G1_FLAT, g1_flat_arrays
 from mjlab_torch.physics import io as tio
 from mjlab_torch.physics import mesh as tmesh
+from mjlab_torch.scene import snapshot as tsnap
 from torch_parity import g1_flat_mjmodel, model_leaves, tiny_bot_mjmodel
 
 MODELS = {'g1_flat': g1_flat_mjmodel, 'tiny_bot': tiny_bot_mjmodel}
@@ -88,14 +88,15 @@ def test_make_data_matches_jax(name):
 
 
 def test_snapshot_matches_fresh_compile():
-  """The committed G1 flat snapshot is the scene builder's output."""
-  fresh = tio.ModelArrays.of(g1_flat_model()).arrays()
+  """The committed G1 flat snapshot is the scene builder's output, the
+  spec inputs it records included."""
+  fresh = tsnap.snapshot(G1_FLAT).arrays()
   saved = g1_flat_arrays().arrays()
   assert sorted(fresh) == sorted(saved)
   for k in fresh:
     np.testing.assert_array_equal(saved[k], fresh[k], err_msg=k)
   a = tphys.put_model(g1_flat_arrays(), device='cpu')
-  b = tphys.put_model(g1_flat_model(), device='cpu')
+  b = tphys.put_model(tsnap.model(G1_FLAT), device='cpu')
   assert a.stat == b.stat
   for f in tio.MODEL_FIELDS:
     assert torch.equal(getattr(a, f), getattr(b, f)), f
@@ -103,29 +104,29 @@ def test_snapshot_matches_fresh_compile():
 
 def test_g1_flat_scene_matches_jax_env():
   """Every physics field of the port's scene equals the velocity env's,
-  with the env's group-2 visual mesh geoms left out."""
-  port, env = g1_flat_model(), g1_flat_mjmodel()
+  all 69 geoms (the 35 visual mesh geoms among them) compared by id."""
+  port, env = tsnap.model(G1_FLAT), g1_flat_mjmodel()
   for f in ('nq', 'nv', 'nu', 'nbody', 'njnt', 'nsensor', 'nsensordata',
             'nkey'):
     assert getattr(port, f) == getattr(env, f), f
   prefixes = ('body_', 'jnt_', 'dof_', 'actuator_', 'sensor_')
   for f in tio.SNAPSHOT_ARRAYS:  # the fields the engine reads
-    if f.startswith(prefixes) and f not in ('body_geomadr', 'body_geomnum'):
+    if f.startswith(prefixes):
       np.testing.assert_allclose(getattr(port, f), getattr(env, f),
                                  rtol=1e-12, atol=1e-12, err_msg=f)
-  keep = np.nonzero(env.geom_group != 2)[0]
-  assert len(keep) == port.ngeom == 34
+  assert port.ngeom == env.ngeom == 69
+  assert (port.geom_group == 2).sum() == 35
   geom_fields = ('geom_type', 'geom_bodyid', 'geom_size', 'geom_pos',
                  'geom_quat', 'geom_friction', 'geom_condim',
                  'geom_priority', 'geom_contype', 'geom_conaffinity',
                  'geom_solref', 'geom_solimp', 'geom_solmix', 'geom_margin',
-                 'geom_gap')
+                 'geom_gap', 'geom_group', 'geom_dataid', 'geom_rgba')
   for f in geom_fields:
-    np.testing.assert_array_equal(getattr(port, f), getattr(env, f)[keep],
+    np.testing.assert_array_equal(getattr(port, f), getattr(env, f),
                                   err_msg=f)
   names = lambda m, ids: [mujoco.mj_id2name(m, mujoco.mjtObj.mjOBJ_GEOM, i)
                           for i in ids]
-  assert names(port, range(port.ngeom)) == names(env, keep)
+  assert names(port, range(port.ngeom)) == names(env, range(env.ngeom))
   for f in ('timestep', 'integrator', 'cone', 'iterations', 'ls_iterations',
             'tolerance', 'ls_tolerance', 'impratio', 'gravity'):
     np.testing.assert_array_equal(getattr(port.opt, f), getattr(env.opt, f),
@@ -134,7 +135,7 @@ def test_g1_flat_scene_matches_jax_env():
   np.testing.assert_array_equal(port.key_ctrl, env.key_ctrl)
   np.testing.assert_allclose(port.stat.meaninertia, env.stat.meaninertia,
                              rtol=1e-12)
-  # the same static pair table, geom ids mapped through the names
+  # the same static pair table, geom for geom
   tp = tphys.put_model(port, device='cpu').stat
   te = tphys.put_model(env, device='cpu').stat
   assert (tp.pairs.ncon_max, tp.ncon_cap, tp.ncon_cap1) == (
@@ -143,8 +144,8 @@ def test_g1_flat_scene_matches_jax_env():
     p1, p2, ppid, pbase, pnpts = tp.pairs.groups[key]
     assert (base, npts) == (pbase, pnpts)
     np.testing.assert_array_equal(pid, ppid)
-    assert names(env, g1) == names(port, p1)
-    assert names(env, g2) == names(port, p2)
+    np.testing.assert_array_equal(g1, p1)
+    np.testing.assert_array_equal(g2, p2)
   np.testing.assert_array_equal(tp.con_dim, te.con_dim)
 
 

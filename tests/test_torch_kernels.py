@@ -221,23 +221,27 @@ def test_smooth_kernel_per_env_plan_once_and_after_randomize(g1,
 
 
 def test_smooth_kernel_forms_take_16_envs_a_block(g1):
-  """The shared-table form keeps its 16 envs a block; the per-env form
-  takes as many, with less shared memory (its per-env segments are read
-  from global memory)."""
+  """The module asks for 16 envs a block. On the G1 with its 35 visual
+  mesh geoms (69 geoms: one env's frame staging grows by 35 geom frames)
+  the shared-table form fits 14; the per-env form at least as many, with
+  less shared memory (its per-env segments are read from global
+  memory)."""
   m, d = g1
   lib = tsk._build.library(tsk.NAME)
   me = per_env_k3_model(torch, m, B, torch.Generator().manual_seed(1))
   epb = tsk.ENVS_PER_BLOCK
-  assert tsk._fit(lib, tsk.plan_of(m), epb) == epb == 16
-  assert tsk._fit(lib, tsk.plan_of(me), epb) == epb
-  shared = tsk.smooth_smem_bytes(m, epb)
-  per_env = tsk.smooth_smem_bytes(me, epb)
+  assert epb == 16 and m.stat.ngeom == 69
+  fit = tsk._fit(lib, tsk.plan_of(m), epb)
+  assert fit == 14
+  assert tsk._fit(lib, tsk.plan_of(me), epb) >= fit
+  shared = tsk.smooth_smem_bytes(m, fit)
+  per_env = tsk.smooth_smem_bytes(me, fit)
   assert shared <= tsk.SMEM_LIMIT
   # the per-env segments leave the shared table (gravity stays)
   gone = tsk.plan_of(m).ftab.numel() - tsk.plan_of(me).ftab.numel()
   assert gone == tsk.plan_of(me).etab.shape[1] and 0 < shared - per_env <= \
       4 * gone
-  assert _smooth_both(me, d, envs_per_block=epb) < TOL
+  assert _smooth_both(me, d, envs_per_block=fit) < TOL
   assert tsk.smooth_num_regs(False) > 0 and tsk.smooth_num_regs(True) > 0
 
 

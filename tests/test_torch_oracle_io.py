@@ -19,10 +19,10 @@ from mjlab_torch.envs.manager_based_rl_env import sanitize
 from mjlab_torch.parallel import sharding as tsh
 from mjlab_torch.physics import io as tio
 
-SCENES = {'g1_flat': asset_zoo.G1_FLAT_SNAPSHOT,
-          'go1_flat': asset_zoo.GO1_FLAT_SNAPSHOT,
-          'g1_tracking': asset_zoo.G1_TRACKING_SNAPSHOT,
-          'tiny_flat': asset_zoo.TINY_FLAT_SNAPSHOT}
+SCENES = {'g1_flat': asset_zoo.SNAPSHOTS[asset_zoo.G1_FLAT],
+          'go1_flat': asset_zoo.SNAPSHOTS[asset_zoo.GO1_FLAT],
+          'g1_tracking': asset_zoo.SNAPSHOTS[asset_zoo.G1_TRACKING],
+          'tiny_flat': asset_zoo.SNAPSHOTS[asset_zoo.TINY_FLAT]}
 NEW_LEAVES = ('mocap_pos', 'mocap_quat', 'ten_length', 'ten_velocity',
               'ten_J')
 

@@ -69,15 +69,20 @@ STEP_TERRAIN = tgen.TerrainGeneratorCfg(
 @pytest.mark.parametrize('robot', sorted(SCENES))
 def test_rough_scene_matches_its_spec_compile(robot):
   """A flat snapshot with the generator's heightfield put in is the scene
-  MuJoCo compiles from the spec: every snapshot field equal, but the name
+  MuJoCo compiles from the spec: every snapshot field equal, the spec
+  inputs it records those of the rough cfg on that terrain, but the name
   buffer, into which the compile inserts the heightfield's own name ahead
   of the actuators' and sensors' (every name the engine reads, compared by
   kind, is equal); the engine's Models equal."""
+  from mjlab_torch.scene.scene import recording, spec_inputs
+  from mjlab_torch.tasks import registry as treg
   flat, compile_spec = SCENES[robot]
   gen = tgen.TerrainGenerator(copy.deepcopy(STEP_TERRAIN))
   got = rough_scene_arrays(flat(), gen)
   mj = compile_spec(gen)
-  want = tio.ModelArrays.of(mj)
+  cfg = treg.load_cfg(TASKS[robot]).scene
+  cfg.terrain.terrain_generator = gen.cfg
+  want = recording(tio.ModelArrays.of(mj), spec_inputs(cfg))
   a, b = got.arrays(), want.arrays()
   assert sorted(a) == sorted(b)
   names = ('names', 'name_actuatoradr', 'name_sensoradr')

@@ -19,11 +19,11 @@ import pytest
 import torch
 
 import mjlab_torch.physics as tphys
-from mjlab_torch.asset_zoo import tracking_arrays
-from mjlab_torch.asset_zoo.g1_tracking_scene import g1_tracking_model
+from mjlab_torch.asset_zoo import G1_TRACKING, tracking_arrays
 from mjlab_torch.asset_zoo.pretrained import G1_TRACKING_MOTION
 from mjlab_torch.physics import io as tio
 from mjlab_torch.physics import sensor as tsensor
+from mjlab_torch.scene import snapshot as tsnap
 from mjlab_torch.scripts import motion as tmotion
 from mjlab_torch.utils import math as tmath
 from mjlab_tpu.scripts import motion as jmotion
@@ -187,7 +187,7 @@ def test_motion_cli_writes_the_squat(tmp_path):
 
 
 def test_tracking_snapshot_matches_fresh_compile():
-  fresh = tio.ModelArrays.of(g1_tracking_model()).arrays()
+  fresh = tsnap.snapshot(G1_TRACKING).arrays()
   saved = tracking_arrays().arrays()
   assert sorted(fresh) == sorted(saved)
   for k in fresh:
@@ -200,30 +200,30 @@ def _names(m, objtype, ids):
 
 def test_tracking_scene_matches_jax_env():
   """Every physics field of the port's tracking scene equals the JAX
-  tracking env's, the env's visual mesh geoms left out (geom ids, and a
-  sensor's body ids, compared through their names); one contact sensor,
+  tracking env's, all 69 geoms (the 35 visual mesh geoms among them)
+  compared by id; one contact sensor,
   `self_collision`, the subtree of the pelvis against itself (found,
   netforce, 10), matching the same 469 robot-robot slots."""
-  port, env = g1_tracking_model(), g1_tracking_mjmodel()
+  port, env = tsnap.model(G1_TRACKING), g1_tracking_mjmodel()
   for f in ('nq', 'nv', 'nu', 'nbody', 'njnt', 'nsensor', 'nsensordata',
             'nkey'):
     assert getattr(port, f) == getattr(env, f), f
   prefixes = ('body_', 'jnt_', 'dof_', 'actuator_', 'sensor_')
   for f in tio.SNAPSHOT_ARRAYS:
-    if f.startswith(prefixes) and f not in ('body_geomadr', 'body_geomnum'):
+    if f.startswith(prefixes):
       np.testing.assert_allclose(getattr(port, f), getattr(env, f),
                                  rtol=1e-12, atol=1e-12, err_msg=f)
   body = mujoco.mjtObj.mjOBJ_BODY
   assert _names(port, mujoco.mjtObj.mjOBJ_SENSOR, [0]) == ['robot/self_collision']
   assert _names(port, body, port.sensor_objid) == ['robot/pelvis']
   assert list(port.sensor_intprm[0, :3]) == [1, 3, 10]
-  keep = np.nonzero(env.geom_group != 2)[0]
-  assert len(keep) == port.ngeom
+  assert port.ngeom == env.ngeom == 69
   for f in ('geom_type', 'geom_bodyid', 'geom_size', 'geom_pos',
             'geom_quat', 'geom_friction', 'geom_condim', 'geom_priority',
             'geom_contype', 'geom_conaffinity', 'geom_solref',
-            'geom_solimp', 'geom_solmix', 'geom_margin', 'geom_gap'):
-    np.testing.assert_array_equal(getattr(port, f), getattr(env, f)[keep],
+            'geom_solimp', 'geom_solmix', 'geom_margin', 'geom_gap',
+            'geom_group', 'geom_dataid'):
+    np.testing.assert_array_equal(getattr(port, f), getattr(env, f),
                                   err_msg=f)
   np.testing.assert_array_equal(port.key_qpos, env.key_qpos)
   geom = mujoco.mjtObj.mjOBJ_GEOM
