@@ -185,7 +185,24 @@ Phases, each of which exits non-zero on failure:
      no mujoco loaded, and a G1 flat cfg with the knee ActuatorCfg's
      stiffness doubled is refused, naming both digests; 16c: the G1 flat
      env-step at 4096 envs on the 69-geom snapshot, RING_STEP_RUNS timed
-     runs of RING_STEP_STEPS env-steps).
+     runs of RING_STEP_STEPS env-steps);
+ 17. the viewer stack's device side on G1 flat at 4096 envs (17a:
+     `train.main` for TRAIN_ITERS iterations with `--agent.video True`,
+     a video every iteration of VIDEO_LENGTH frames: launches 4/4/8 or
+     5/5/9 an env-step, each iteration's `rl-video-iter-{k}.mp4.qpos.npy`
+     (no mujoco on the card) of (min(VIDEO_LENGTH, 24 k), nq) and finite,
+     the last frame env 0's final qpos bit for bit, the render branch
+     naming the missing mujoco, the checkpoint phase 6a's (the same run
+     without video) bit for bit, 24 waits in a recording rollout; the
+     collection ms with and without video, and rollouts without and with
+     the record in turns; 17b: `scripts.play` of the
+     shipped policy on the Play cfg for RENDER_STEPS env-steps with
+     `--render --tile RENDER_TILE`, its statistics those of the same play
+     without `--render`, the same waits an env-step as that play, the
+     trajectory (RENDER_STEPS, RENDER_TILE, nq), finite, its last frame
+     the final qpos of envs 0-3 bit for bit; 17c: `utils.hbm`'s report of
+     one env-step, its peak bytes, bytes an env and the card's capacity,
+     `assert_fits` passing, and refusing at half the peak).
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -207,7 +224,8 @@ numbers at the TinyBot's shapes as `tiny`, K1's its numbers on the
 elliptic Hessians as `elliptic_hessians` and on the four-bar's as
 `oracle_fourbar_hessians`; each row's `pile_path_launches` its
 launches in phase 15a, `replay_path_launches` those of phase 16a's env-f32
-replay, K1-K3's numbers at the ring's state its `ring`, and K1-K3's rows
+replay, `video_path_launches` and `render_path_launches` those of phases
+17a and 17b, K1-K3's numbers at the ring's state its `ring`, and K1-K3's rows
 at the pile's shapes follow the others); the last
 line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
@@ -1026,19 +1044,22 @@ def launches_per_step(kernels):
     ManagerBasedRlEnv._step_fn = plain_step
 
 
-def train_path(torch, card: str) -> dict:
+def train_path(torch, card: str, keep: 'dict | None' = None) -> dict:
   """Phase 6: the training path at 4096 envs. Returns the kernels' launches
-  over the 3 iterations of `train.main` (env build and reset included)."""
+  over the 3 iterations of `train.main` (env build and reset included).
+  With `keep` (a dict holding 'dir', a directory the caller removes), 6a's
+  checkpoint is copied there as keep['ckpt'] and its collection times an
+  iteration go to keep['collection_ms'], for phase 17a."""
   import shutil
   import tempfile
   root = tempfile.mkdtemp(prefix='chip_smoke_train_')
   try:
-    return _train_path(torch, card, root)
+    return _train_path(torch, card, root, keep)
   finally:
     shutil.rmtree(root, ignore_errors=True)
 
 
-def _train_path(torch, card: str, root: str) -> dict:
+def _train_path(torch, card: str, root: str, keep=None) -> dict:
   import math
   import os
 
@@ -1104,6 +1125,10 @@ def _train_path(torch, card: str, root: str) -> dict:
 
   ckpt = os.path.join(run, f'model_{TRAIN_ITERS}.pt')
   check(os.path.exists(ckpt), f'{ckpt} was not written')
+  if keep is not None:
+    import shutil
+    keep['ckpt'] = shutil.copy(ckpt, keep['dir'])
+    keep['collection_ms'] = [l_['collection_ms'] for l_ in lines]
   onnx_check(torch, runner, ckpt, 'train path')
   net0 = runner.alg.init_net(torch.Generator(device=env.device).manual_seed(
       cfg.seed + 1))
@@ -4848,6 +4873,246 @@ def step_time(torch, card: str) -> dict:
   return dict(runs_ms=runs, median_ms=statistics.median(runs))
 
 
+VIDEO_LENGTH = 48  # frames of phase 17a's training videos
+RENDER_STEPS = 100  # env-steps of phase 17b's play
+RENDER_TILE = 4  # envs phase 17b draws side by side
+
+
+class _Tee:
+  """A stdout that also keeps what is printed (`text`)."""
+
+  def __init__(self, out):
+    self.out, self.parts = out, []
+
+  def write(self, x):
+    self.parts.append(x)
+    return self.out.write(x)
+
+  def flush(self):
+    self.out.flush()
+
+  @property
+  def text(self) -> str:
+    return ''.join(self.parts)
+
+
+def syncs_per_step(torch, fn):
+  """(fn(), the synchronizing CUDA calls from each ManagerBasedRlEnv.step's
+  start to the next one's: a step's own and what its caller does with the
+  step's output). Counted by torch.cuda.set_sync_debug_mode."""
+  import warnings
+
+  from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
+  marks, plain = [], ManagerBasedRlEnv.step
+
+  def step(self, *a, **kw):
+    marks.append(sum('synchroniz' in str(w.message) for w in caught))
+    return plain(self, *a, **kw)
+
+  torch.cuda.set_sync_debug_mode('warn')
+  ManagerBasedRlEnv.step = step
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter('always')
+      out = fn()
+  finally:
+    ManagerBasedRlEnv.step = plain
+    torch.cuda.set_sync_debug_mode('default')
+  return out, [b - a for a, b in zip(marks, marks[1:])]
+
+
+@contextlib.contextmanager
+def made_envs():
+  """Within the block, every env `registry.make` makes is appended to the
+  yielded list."""
+  from mjlab_torch.tasks import registry
+  envs, plain = [], registry.make
+
+  def make(*a, **kw):
+    envs.append(plain(*a, **kw))
+    return envs[-1]
+
+  registry.make = make
+  try:
+    yield envs
+  finally:
+    registry.make = plain
+
+
+def video_path(torch, card: str, keep: dict) -> 'tuple[dict, dict]':
+  """Phase 17: training videos, play's --render and the memory guard on G1
+  flat at 4096 envs. Returns the kernels' launches on the video path
+  (17a's training) and on the render path (17b's play with --render)."""
+  import shutil
+  import tempfile
+  root = tempfile.mkdtemp(prefix='chip_smoke_video_')
+  try:
+    return _video_path(torch, card, root, keep)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _video_path(torch, card: str, root: str, keep: dict):
+  import dataclasses
+  import math
+  import os
+
+  import numpy as np
+
+  from mjlab_torch.ops import LAUNCHES, reset_launches
+  from mjlab_torch.scripts import play, train
+  from mjlab_torch.tasks import registry
+  from mjlab_torch.utils import hbm
+
+  kernels = ('smooth', 'newton', 'pd_solve')
+  # ---- 17a: 3 iterations through train.main with a video every iteration --
+  argv = [ENV_TASK, '--log-root', root, '--env.scene.num_envs', str(B),
+          '--agent.max_iterations', str(TRAIN_ITERS), '--run-name', 'v',
+          '--agent.video', 'True', '--agent.video_interval', '1',
+          '--agent.video_length', str(VIDEO_LENGTH)]
+  tee = _Tee(sys.stdout)
+  with launches_per_step(kernels) as per_step, \
+      contextlib.redirect_stdout(tee):
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    runner = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    video_launches = dict(LAUNCHES)
+  cfg, env = runner.cfg, runner.env
+  T = cfg.num_steps_per_env
+  shapes = sorted(set(per_step))
+  print(f'video path: {TRAIN_ITERS} iterations of {T} env-steps x {B} envs '
+        f'through train.main with video every iteration in {wall:.2f} s; '
+        f'launches per rollout env-step (K3, K2, K1) '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }; launches '
+        f'{video_launches}', flush=True)
+  check(env.device.type == 'cuda' and env.num_envs == B,
+        'the video run is not 4096 envs on the card')
+  check(len(per_step) == TRAIN_ITERS * T and
+        set(shapes) <= {(4, 4, 8), (5, 5, 9)},
+        f'the video run stepped {len(per_step)} times, launching {shapes}')
+  run = os.path.join(root, cfg.experiment_name, 'v')
+  with open(os.path.join(run, 'metrics.jsonl')) as f:
+    lines = [json.loads(line) for line in f]
+  print(f'video path: collection ms an iteration with video '
+        f'{[round(l_["collection_ms"], 1) for l_ in lines]} (logged '
+        f'iterations), without (phase 6a) '
+        f'{[round(x, 1) for x in keep["collection_ms"]]}; card {card}',
+        flush=True)
+  nq = env.model.stat.nq
+  final = runner.ts.env_state.data.qpos[0].cpu().numpy()
+  for k in range(1, TRAIN_ITERS + 1):
+    path = os.path.join(run, 'videos', 'train',
+                        f'rl-video-iter-{k}.mp4.qpos.npy')
+    check(os.path.exists(path), f'{path} was not written')
+    frames = np.load(path)
+    want = (min(VIDEO_LENGTH, T * k), nq)
+    print(f'video path: {os.path.basename(path)} {frames.shape} '
+          f'{frames.dtype}, finite {bool(np.isfinite(frames).all())}',
+          flush=True)
+    check(frames.shape == want and bool(np.isfinite(frames).all()),
+          f'{path} holds {frames.shape}, not a finite {want}')
+  last = np.array_equal(frames[-1], final)
+  said = [l_ for l_ in tee.text.splitlines() if l_.startswith('[viewer]')]
+  print(f'video path: the last frame is env 0\'s final qpos bit for bit: '
+        f'{last}; the render branch said {said[-1:]!r}', flush=True)
+  check(last, 'the last video frame is not env 0\'s final qpos')
+  check(len(said) == TRAIN_ITERS and all('no mujoco' in l_ for l_ in said),
+        'the render branch did not name the missing mujoco')
+  a = torch.load(os.path.join(run, f'model_{TRAIN_ITERS}.pt'),
+                 weights_only=True)
+  b = torch.load(keep['ckpt'], weights_only=True)
+  same = same_payload(torch, a, b)
+  print(f'video path: model_{TRAIN_ITERS}.pt equals phase 6a\'s (the same '
+        f'run without video) key for key and bit for bit: {same}',
+        flush=True)
+  check(same, 'recording videos changed the checkpoint')
+  del a, b
+  alg, ts = runner.alg, runner.ts
+  _, roll_syncs = count_syncs(torch, lambda: alg._rollout(ts))
+  torch.cuda.synchronize()
+  print(f'video path: {len(roll_syncs)} synchronizing calls in a recording '
+        f'rollout of {T} env-steps', flush=True)
+  check(alg.record_qpos and len(roll_syncs) == T,
+        'the recording rollout synchronizes other than once an env-step')
+  # what the record costs a rollout: rollouts of the same runner without
+  # and with it, in turns
+  ms = {False: [], True: []}
+  for rec in (False, True, True, False):
+    alg.record_qpos = rec
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alg._rollout(ts)
+    torch.cuda.synchronize()
+    ms[rec].append((time.perf_counter() - t0) * 1e3)
+  print(f'video path: a rollout of {T} env-steps x {B} envs without the '
+        f'record {[round(x, 1) for x in ms[False]]} ms, with it '
+        f'{[round(x, 1) for x in ms[True]]} ms (in turns: without, with, '
+        f'with, without); card {card}', flush=True)
+  del runner, alg, ts, env
+
+  # ---- 17b: play of the shipped policy with --render ----------------------
+  play_argv = [ENV_TASK + '-Play', '--agent', 'trained', '--num-envs', str(B),
+               '--steps', str(RENDER_STEPS), '--log-root',
+               os.path.join(root, 'none')]
+  plain, plain_syncs = syncs_per_step(torch, lambda: play.main(play_argv))
+  out = os.path.join(root, 'play.mp4')
+  with made_envs() as envs:
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    stats, syncs = syncs_per_step(torch, lambda: play.main(
+        play_argv + ['--render', out, '--tile', str(RENDER_TILE)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    render_launches = dict(LAUNCHES)
+  (penv,) = envs
+  traj = np.load(out + '.qpos.npy')
+  final = penv.state.data.qpos[:RENDER_TILE].cpu().numpy()
+  print(f'render path: play of the shipped policy, {RENDER_STEPS} env-steps '
+        f'x {B} envs with --render --tile {RENDER_TILE} in {wall:.2f} s; '
+        f'launches {render_launches}; statistics equal to the play without '
+        f'--render: {stats == plain}; synchronizing calls an env-step '
+        f'{sorted(set(syncs))} with --render, {sorted(set(plain_syncs))} '
+        f'without; trajectory {traj.shape}, '
+        f'finite {bool(np.isfinite(traj).all())}, last frame rows '
+        f'0-{RENDER_TILE - 1} of the final qpos bit for bit: '
+        f'{np.array_equal(traj[-1], final)}; card {card}', flush=True)
+  check(stats == plain, 'play with --render changed the statistics')
+  check(syncs == plain_syncs and len(syncs) == RENDER_STEPS - 1,
+        'play with --render reads the device more often an env-step')
+  check(traj.shape == (RENDER_STEPS, RENDER_TILE, penv.model.stat.nq)
+        and bool(np.isfinite(traj).all())
+        and np.array_equal(traj[-1], final),
+        'the rendered trajectory is not the envs\' qpos')
+  check(math.isfinite(stats['mean_reward']), 'play gave a non-finite reward')
+  del envs, penv
+
+  # ---- 17c: the memory guard on one env-step ------------------------------
+  env = registry.make(ENV_TASK, **{'scene.num_envs': B})
+  env.reset()
+  act = torch.zeros(B, env.action_dim, device='cuda')
+  rep = hbm.memory_report(env.step, act)
+  check(rep is not None, 'the memory guard measured nothing on the card')
+  fits = hbm.assert_fits(rep, label=f'env.step @{B}')
+  small = dataclasses.replace(rep, capacity_bytes=rep.peak_bytes // 2)
+  try:
+    hbm.assert_fits(small, label=f'env.step @{B}')
+    refused = ''
+  except hbm.HbmWouldOverflowError as e:
+    refused = str(e)
+  print(f'memory guard: one G1 flat env-step at {B} envs, peak '
+        f'{rep.peak_bytes} B ({rep.peak_bytes / B:.1f} B an env; '
+        f'{rep.baseline_bytes} B held before the step), capacity '
+        f'{rep.capacity_bytes} B; fits: {fits is rep}; at half the peak '
+        f'refused: {refused[:120]!r}; card {card}', flush=True)
+  check(fits is rep and refused.startswith(f'env.step @{B}: '),
+        'the memory guard did not pass the step or refuse it at half')
+  return video_launches, render_launches
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -5287,7 +5552,12 @@ def main() -> None:
   stamp('phase 5')
 
   # ---- phase 6: the training path ------------------------------------------
-  train_launches = train_path(torch, card)
+  import atexit
+  import shutil
+  import tempfile
+  keep = {'dir': tempfile.mkdtemp(prefix='chip_smoke_keep_')}
+  atexit.register(shutil.rmtree, keep['dir'], True)
+  train_launches = train_path(torch, card, keep)
   for r in rows:
     r['train_path_launches'] = int(train_launches.get(kernel_of[r['name']],
                                                       0))
@@ -5436,6 +5706,19 @@ def main() -> None:
         f'{time.perf_counter() - t16:.1f} s; card {card}', flush=True)
 
   stamp('phase 16')
+
+  # ---- phase 17: training videos, play --render, the memory guard ----------
+  video_launches, render_launches = video_path(torch, card, keep)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['video_path_launches'] = int(video_launches.get(kern, 0))
+    r['render_path_launches'] = int(render_launches.get(kern, 0))
+    for key in ('video_path_launches', 'render_path_launches'):
+      check((r[key] > 0) == (kern != 'smooth_env'),
+            f'{r["name"]} was launched {r[key]} times on the '
+            f'{key.split("_")[0]} path')
+
+  stamp('phase 17')
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -5453,7 +5736,9 @@ def main() -> None:
           f'{r["shard_path_launches"]}, the oracle path '
           f'{r["oracle_path_launches"]}, the pile path '
           f'{r["pile_path_launches"]}, the replay path '
-          f'{r["replay_path_launches"]}; card {card}', flush=True)
+          f'{r["replay_path_launches"]}, the video path '
+          f'{r["video_path_launches"]}, the render path '
+          f'{r["render_path_launches"]}; card {card}', flush=True)
   for r in pile_rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, bound '

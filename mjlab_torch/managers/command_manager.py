@@ -80,6 +80,12 @@ class CommandTerm:
   def _update_metrics(self, state, ctx, dt):
     return state
 
+  def debug_vis(self, state: dict, env, env_index: int, vis) -> None:
+    """Viewer hook: draw env `env_index`'s command into `vis` (a
+    viewer.debug_visualizer.DebugVisualizer). It runs on the host, reads
+    only that env's rows, and only a viewer calls it, never a step. The
+    base term draws nothing."""
+
 
 class CommandManager:
 

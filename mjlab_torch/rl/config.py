@@ -55,8 +55,9 @@ class RslRlOnPolicyRunnerCfg:
   experiment_name: str = 'exp'
   run_name: str = ''
   logger: Literal['jsonl', 'tensorboard', 'wandb', 'none'] = 'jsonl'
-  # training-time rollout videos are not ported yet (ROADMAP 12.7/12.10):
-  # the runner refuses video=True
+  # training videos: env 0's qpos over the rollouts, drawn offscreen
+  # (viewer/offscreen.py) every video_interval iterations into
+  # <log_dir>/videos/train/rl-video-iter-{it}.mp4
   video: bool = False
   video_length: int = 200  # frames
   video_interval: int = 2000  # iterations

@@ -187,6 +187,11 @@ class PPO:
     self.storage: 'Transition | None' = None
     self.advantages: 'torch.Tensor | None' = None
     self.returns: 'torch.Tensor | None' = None
+    # cfg.video: env 0's qpos after each env-step of a rollout, (T, nq) on
+    # the device, handed to the runner as logs['_qpos_env0'] (sharded, by
+    # the rank that holds global env 0)
+    self.record_qpos = bool(cfg.video) and self.world.offset == 0
+    self.qpos_env0: 'torch.Tensor | None' = None
 
   # ------------------------------------------------------------------
   def _cat_obs(self, obs: dict, groups) -> torch.Tensor:
@@ -232,9 +237,12 @@ class PPO:
     mean, std, value = ts.net(a_obs_n, c_obs_n)
     return a_obs, c_obs, a_obs_n, c_obs_n, mean, std, value
 
-  def _buffers(self) -> Transition:
+  def _buffers(self, env_state=None) -> Transition:
+    """The rollout's storage; with `env_state` given and the rollout
+    recording, also the (T, nq) buffer of env 0's qpos (`qpos_env0`), of
+    the env's dtype."""
+    T, n, dev = self.cfg.num_steps_per_env, self.env.num_envs, self.device
     if self.storage is None:
-      T, n, dev = self.cfg.num_steps_per_env, self.env.num_envs, self.device
       f = lambda *s, dtype=torch.float32: torch.zeros(
           (T, n) + s, dtype=dtype, device=dev)
       self.storage = Transition(
@@ -243,6 +251,9 @@ class PPO:
           value=f(), reward=f(), done=f(dtype=torch.bool),
           time_out=f(dtype=torch.bool))
       self.advantages, self.returns = f(), f()
+    if self.record_qpos and self.qpos_env0 is None and env_state is not None:
+      self.qpos_env0 = env_state.data.qpos.new_zeros(
+          (T, env_state.data.qpos.shape[-1]))
     return self.storage
 
   @torch.no_grad()
@@ -251,10 +262,11 @@ class PPO:
     Advances ts.env_state, ts.obs and both normalizers (every step, even
     with normalization off: their state is checkpointed). The stored
     observations are normalized with the statistics before that step's
-    update; the bootstrap value with those after the last one. Returns
-    (storage, last value, env extras stacked over the steps, episode
-    stats)."""
-    traj = self._buffers()
+    update; the bootstrap value with those after the last one. With
+    `record_qpos`, env 0's qpos after each step goes into `qpos_env0` on
+    the device, which nothing here reads. Returns (storage, last value,
+    env extras stacked over the steps, episode stats)."""
+    traj = self._buffers(ts.env_state)
     n, dev, f32 = self.env.num_envs, self.device, torch.float32
     reward_acc = torch.zeros(n, dtype=f32, device=dev)
     len_acc = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -290,6 +302,8 @@ class PPO:
         getattr(traj, name)[t] = x
       step_extras.append({k: v for k, v in extras.items()
                           if k != 'time_outs'})
+      if self.record_qpos:
+        self.qpos_env0[t] = env_state.data.qpos[0]
       obs = _f32(next_obs)
     ts.env_state, ts.obs = env_state, obs
     last_value = self._policy(ts, obs)[-1]
@@ -445,6 +459,8 @@ class PPO:
       logs.update(self._rollout_logs(traj, extras, stats))
       logs['lr'] = ts.lr
       logs['std'] = ts.net.std().mean()
+    if self.record_qpos:
+      logs['_qpos_env0'] = self.qpos_env0  # (T, nq), taken by the runner
     ts.iteration += 1
     return ts, logs
 

@@ -7,6 +7,13 @@ the learning rate, the learner's generator, the iteration and, with
 `full_state`, the env's state (through envs/io.py), its observations and
 its generator.
 
+With `cfg.video` the rollout records env 0's qpos on the device; the runner
+keeps the last ceil(video_length / num_steps_per_env) rollouts' records (a
+device copy each, no host read) and, every `video_interval` iterations,
+copies them to the host once and draws the last `video_length` frames into
+`<log_dir>/videos/train/rl-video-iter-{it}.mp4` (viewer/offscreen.py). A
+failed render is printed and training goes on.
+
 Sharded (the env's `world`, parallel/sharding.py): every rank runs the same
 learn loop, and so the same collectives on the same iterations; only rank 0
 prints, writes `metrics.jsonl` and the writers, saves and exports. A
@@ -17,6 +24,7 @@ each rank its rows and every rank rank 0's learner.
 
 from __future__ import annotations
 
+import collections
 import os
 import re
 import time
@@ -65,9 +73,6 @@ class OnPolicyRunner:
     if torch.device(env.device).type != dev.type:
       raise ValueError(f'the runner is asked for {cfg.device!r} but the env '
                        f'lives on {env.device}')
-    if cfg.video:
-      raise NotImplementedError(
-          'training videos are not ported yet (ROADMAP 12.7, 12.10)')
     self.env = env
     self.cfg = cfg
     self.alg = PPO(env, cfg, step_fn=step_fn)
@@ -76,6 +81,7 @@ class OnPolicyRunner:
     broadcast_learner(self.ts, self.world)
     self.log_dir = log_dir
     self._writers = []
+    self._video_buf = None
     if log_dir and self.world.is_main:
       os.makedirs(log_dir, exist_ok=True)
       if cfg.logger != 'none':
@@ -83,6 +89,9 @@ class OnPolicyRunner:
         self._writers = make_writers(
             cfg.logger, log_dir, project=cfg.experiment_name,
             run_name=cfg.run_name or None)
+      if cfg.video:
+        keep = max(1, -(-cfg.video_length // cfg.num_steps_per_env))
+        self._video_buf = collections.deque(maxlen=keep)
 
   def learn(self, num_iterations: 'int | None' = None,
             log_every: int = 10) -> dict:
@@ -97,6 +106,12 @@ class OnPolicyRunner:
     for it in range(n_iter):
       self.ts, logs = self.alg.learn_iteration(self.ts)
       clock = logs.pop('_clock')
+      qpos_env0 = logs.pop('_qpos_env0', None)
+      if self._video_buf is not None:
+        # a device copy: the next rollout writes the same buffer
+        self._video_buf.append(qpos_env0.clone())
+        if (it + 1) % self.cfg.video_interval == 0:
+          self._emit_video(it + 1)
       if it % log_every == 0 or it == n_iter - 1:
         # one read of the device for all the iteration's logs
         keys = list(logs)
@@ -142,6 +157,22 @@ class OnPolicyRunner:
     print(msg, flush=True)
     for w in self._writers:
       w.log(logs, logs.get('iteration', 0))
+
+  def _emit_video(self, iteration: int):
+    """Draw the buffered window of env 0's qpos, its last video_length
+    frames, into the run's videos/train."""
+    from mjlab_torch.viewer.offscreen import render_trajectory
+    # one copy to the host for the whole window
+    qpos = torch.cat(list(self._video_buf)).cpu().numpy()
+    qpos = qpos[-self.cfg.video_length:]
+    vdir = os.path.join(self.log_dir, 'videos', 'train')
+    os.makedirs(vdir, exist_ok=True)
+    path = os.path.join(vdir, f'rl-video-iter-{iteration}.mp4')
+    try:
+      out = render_trajectory(self.env, qpos, path)
+      print(f'[video] wrote {out}', flush=True)
+    except Exception as e:  # a render never stops training
+      print(f'[video] rendering failed: {e!r}', flush=True)
 
   def close(self):
     for w in self._writers:

@@ -52,6 +52,12 @@ class TensorboardWriter:
       if isinstance(v, (int, float)):
         self._w.add_scalar(k, v, step)
 
+  def add_video(self, tag: str, frames, fps: int, step: int) -> None:
+    """frames: (T, H, W, 3) uint8."""
+    import numpy as np
+    vid = np.transpose(np.asarray(frames), (0, 3, 1, 2))[None]
+    self._w.add_video(tag, vid, global_step=step, fps=fps)
+
   def close(self) -> None:
     self._w.close()
 
@@ -67,9 +73,16 @@ class WandbWriter:
       print('[writers] WANDB_MODE unset; defaulting to offline '
             '(set WANDB_MODE=online for live upload)')
     self._run = wandb.init(project=project, name=run_name, dir=log_dir)
+    self._wandb = wandb
 
   def log(self, metrics: dict, step: int) -> None:
     self._run.log(metrics, step=step)
+
+  def add_video(self, tag: str, frames, fps: int, step: int) -> None:
+    """frames: (T, H, W, 3) uint8."""
+    import numpy as np
+    vid = np.transpose(np.asarray(frames), (0, 3, 1, 2))
+    self._run.log({tag: self._wandb.Video(vid, fps=fps)}, step=step)
 
   def close(self) -> None:
     self._run.finish()

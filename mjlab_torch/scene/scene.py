@@ -194,6 +194,7 @@ class Scene:
     else:
       self._check(mj_model)
     self._mj_model = mj_model
+    self._compiled = None  # the spec path's MjModel of a snapshot scene
     self.entities = dict(cfg.entities)
     self._views: 'dict[str, EntityView]' = {}
     self._model: 'Model | None' = None
@@ -237,6 +238,19 @@ class Scene:
       self._mj_model = self.spec.compile()
       self._check(self._mj_model)
     return self._mj_model
+
+  def compiled(self, mujoco_cfg=None):
+    """The scene as a compiled mujoco.MjModel, for drawing (needs mujoco:
+    raises ImportError without it). A scene that holds one returns it; a
+    snapshot scene composes its cfgs and compiles them with `mujoco_cfg`'s
+    options once (the model its snapshot caches, by the route rule), then
+    returns that model."""
+    import mujoco
+    if isinstance(self.mj_model, mujoco.MjModel):
+      return self.mj_model
+    if self._compiled is None:
+      self._compiled = compile_scene(self.cfg, mujoco_cfg)
+    return self._compiled
 
   def apply_options(self, mujoco_cfg) -> None:
     """Write the solver and integrator options in: into the spec of a

@@ -1,6 +1,6 @@
 """Demo: play a trained policy of a task, training one first if none exists.
 
-Counterpart of mjlab_tpu/scripts/demo.py without the viewer:
+Counterpart of mjlab_tpu/scripts/demo.py:
 
     python -m mjlab_torch.scripts.demo [--task Mjlab-Velocity-Flat-Unitree-Go1]
 
@@ -12,7 +12,8 @@ scripts/train.py, which also exports its ONNX on every save. Then
 scripts/play.py plays it for `--steps` env-steps at up to 16 envs; the
 shipped tracking policy plays on the clip it was trained on, which ships
 beside it, unless `--env.commands.motion.motion_file` names another. Runs on
-the GPU unless `--device cpu` is given. Other `--env.*` and `--agent.*`
+the GPU unless `--device cpu` is given. Where DISPLAY is set, play then
+opens the native viewer (`--viewer`). Other `--env.*` and `--agent.*`
 flags go to both scripts. Returns the checkpoint played, the training
 runner (None when nothing was trained) and play's statistics.
 """
@@ -63,10 +64,13 @@ def main(argv=None):
     runner = train.main(train_args + list(extra))
     ckpt = get_checkpoint_path(exp_root)
 
-  stats = play.main([args.task, '--agent', 'trained', '--checkpoint', ckpt,
-                     '--log-root', args.log_root, '--steps', str(args.steps),
-                     '--num-envs', str(min(args.num_envs or 16, 16)),
-                     '--device', args.device] + list(extra))
+  play_args = [args.task, '--agent', 'trained', '--checkpoint', ckpt,
+               '--log-root', args.log_root, '--steps', str(args.steps),
+               '--num-envs', str(min(args.num_envs or 16, 16)),
+               '--device', args.device]
+  if os.environ.get('DISPLAY'):
+    play_args.append('--viewer')
+  stats = play.main(play_args + list(extra))
   return {'checkpoint': ckpt, 'runner': runner, 'play': stats}
 
 

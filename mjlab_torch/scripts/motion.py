@@ -19,7 +19,10 @@ the robot's.
     python -m mjlab_torch.scripts.motion --synthetic-squat --output squat.npz
     python -m mjlab_torch.scripts.motion --csv walk.csv --output walk.npz
 
-Runs on the GPU unless `--device cpu` is given.
+Runs on the GPU unless `--device cpu` is given. `--render MP4` then draws
+a kinematic replay of the written clip (root pose and joint positions put
+back into qpos) in the robot's task scene through viewer/offscreen.py;
+without mujoco it writes `MP4.qpos.npy`.
 """
 
 from __future__ import annotations
@@ -306,6 +309,39 @@ def generate_g1_squat_motion(output_path: str, duration_s: float = 8.0,
   return output_path
 
 
+# the registered task whose scene each robot's clips are laid out for
+SCENE_TASKS = {'g1': 'Mjlab-Tracking-Flat-Unitree-G1',
+               'go1': 'Mjlab-Velocity-Flat-Unitree-Go1',
+               'tiny': 'Mjlab-Velocity-Flat-Tiny'}
+
+
+def render_motion(npz_path: str, robot: str, out_path: str,
+                  fps: float) -> str:
+  """Kinematic replay of a motion npz of `robot` into the video
+  `out_path` (viewer/offscreen.py:render_trajectory): each frame's root
+  pose (body 0) and joint positions reassembled into qpos of the robot's
+  task scene. Returns the path render_trajectory wrote."""
+  import types
+
+  from mjlab_torch.scene.scene import Scene
+  from mjlab_torch.tasks import registry
+  from mjlab_torch.viewer.offscreen import render_trajectory
+  if robot == 'tiny':
+    import mjlab_torch.tasks.velocity.config.tiny  # noqa: F401 (registers)
+  cfg = registry.load_cfg(SCENE_TASKS[robot])
+  cfg.scene.num_envs = 1
+  scene = Scene(cfg.scene, device='cpu')
+  idx = _robot(scene.mj_model)
+  with np.load(npz_path) as blob:
+    qpos = np.zeros((blob['joint_pos'].shape[0], scene.mj_model.nq))
+    qpos[:, idx.free_q_adr[:3]] = blob['body_pos_w'][:, 0]
+    qpos[:, idx.free_q_adr[3:]] = blob['body_quat_w'][:, 0]
+    qpos[:, idx.q_adr] = blob['joint_pos']
+  # what render_trajectory reads of an env
+  env = types.SimpleNamespace(scene=scene, cfg=cfg, step_dt=1.0 / fps)
+  return render_trajectory(env, qpos, out_path, fps=int(fps))
+
+
 def main(argv=None):
   """csv_to_npz CLI: CSV rows of [base_pos(3), base_quat(4 wxyz),
   joint_pos(nj)] -> MotionLoader npz, or a built-in synthetic G1 motion."""
@@ -327,12 +363,9 @@ def main(argv=None):
                       help='author the synthetic G1 walk-and-turn clip as '
                       'a CSV next to --output and run it through csv_to_npz')
   parser.add_argument('--render', default=None, metavar='MP4',
-                      help='not ported yet (ROADMAP 12.7, 12.10)')
+                      help='also render a kinematic replay video')
   parser.add_argument('--device', default='cuda')
   args = parser.parse_args(argv)
-  if args.render:
-    raise SystemExit('--render: rendering is not ported yet '
-                     '(ROADMAP 12.7, 12.10)')
 
   if args.robot == 'g1':
     mj = _tracking_scene()
@@ -359,6 +392,10 @@ def main(argv=None):
   else:
     parser.error('provide --csv, --synthetic-squat or --synthetic-walk')
   print(f'wrote {args.output}')
+  if args.render:
+    out = render_motion(args.output, args.robot, args.render,
+                        fps=args.output_fps)
+    print(f'rendered {out}')
   return args.output
 
 

@@ -1,14 +1,15 @@
-"""Report on a NanGuard dump.
+"""Report on a NanGuard dump and replay it in MuJoCo's viewer.
 
 Counterpart of mjlab_tpu/scripts/nan_viz.py. Loads `nan_dump_*.npz` and
 prints, step by step, how many qpos and qvel values of one dumped env are
-non-finite. The JAX script then replays the dump in MuJoCo's viewer; the
-port has no viewer yet (ROADMAP 12.10), so after the report it checks the
-compiled model beside the dump (`model.npz`, a ModelArrays snapshot) and
-stops.
+non-finite. Then it takes the compiled model beside the dump: `model.mjb`
+(the guard writes it where mujoco can be imported) is replayed in MuJoCo's
+native viewer, the dump's steps in a loop at `--fps`, where DISPLAY is
+set; otherwise, or with only `model.npz` (a ModelArrays snapshot: a GPU
+host's dump), the report is all. Returns the model file it took, or None.
 
-    python -m mjlab_torch.scripts.nan_viz <dump.npz> [--model model.npz]
-        [--env-index 0]
+    python -m mjlab_torch.scripts.nan_viz <dump.npz> [--model model.mjb]
+        [--env-index 0] [--fps 10]
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ def main(argv=None):
   p = argparse.ArgumentParser(description=__doc__)
   p.add_argument('dump', help='nan_dump_*.npz from NanGuard')
   p.add_argument('--model', default=None,
-                 help='model.npz (default: beside the dump)')
+                 help='model.mjb or model.npz (default: beside the dump, '
+                 'model.mjb where it exists)')
   p.add_argument('--env-index', type=int, default=0,
-                 help='which dumped env to report')
+                 help='which dumped env to replay')
+  p.add_argument('--fps', type=float, default=10.0)
   args = p.parse_args(argv)
 
   blob = np.load(args.dump)
@@ -44,18 +47,46 @@ def main(argv=None):
     print(f'  step {int(steps[t])}: qpos nan/inf={nq_bad} '
           f'qvel nan/inf={nv_bad}{marker}')
 
-  model_path = args.model or os.path.join(
-      os.path.dirname(os.path.abspath(args.dump)), 'model.npz')
+  model_path = args.model
+  if model_path is None:
+    here = os.path.dirname(os.path.abspath(args.dump))
+    model_path = os.path.join(here, 'model.mjb')
+    if not os.path.exists(model_path):
+      model_path = os.path.join(here, 'model.npz')
   if not os.path.exists(model_path):
     print(f'no model at {model_path}; headless report only')
-    return
-  from mjlab_torch.physics.io import ModelArrays
-  m = ModelArrays.load(model_path)
-  if m.nq != qpos.shape[-1]:
-    raise SystemExit(f'{model_path} has nq {m.nq}; the dump has '
+    return None
+  if model_path.endswith('.npz'):
+    from mjlab_torch.physics.io import ModelArrays
+    nq = ModelArrays.load(model_path).nq
+  else:
+    import mujoco
+    m = mujoco.MjModel.from_binary_path(model_path)
+    nq = m.nq
+  if nq != qpos.shape[-1]:
+    raise SystemExit(f'{model_path} has nq {nq}; the dump has '
                      f'{qpos.shape[-1]}')
-  print('no viewer in mjlab_torch yet (ROADMAP 12.10); headless report '
-        'only')
+  print(f'model {model_path} (nq {nq})')
+  if model_path.endswith('.npz'):
+    print('no model.mjb beside the dump (the guard writes it where mujoco '
+          'can be imported); headless report only')
+    return model_path
+  if not os.environ.get('DISPLAY'):
+    print('no $DISPLAY; headless report only')
+    return model_path
+  import time
+
+  import mujoco.viewer
+  d = mujoco.MjData(m)
+  with mujoco.viewer.launch_passive(m, d) as viewer:
+    t = 0
+    while viewer.is_running():
+      d.qpos[:] = np.nan_to_num(qpos[t % qpos.shape[0], e])
+      mujoco.mj_forward(m, d)
+      viewer.sync()
+      time.sleep(1.0 / args.fps)
+      t += 1
+  return model_path
 
 
 if __name__ == '__main__':

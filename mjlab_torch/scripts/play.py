@@ -1,10 +1,10 @@
 """Roll a zero, random or trained policy through a task's environment and
-report reward and reset statistics.
+report reward and reset statistics; draw it or watch it.
 
-Counterpart of mjlab_tpu/scripts/play.py without rendering and viewers:
+Counterpart of mjlab_tpu/scripts/play.py:
 
     python -m mjlab_torch.scripts.play Mjlab-Velocity-Flat-Unitree-G1-Play \\
-        --agent trained --steps 300
+        --agent trained --steps 300 [--render play.mp4 --tile 4]
 
 Runs on the GPU unless `--device cpu` is given. `--agent trained` plays a
 runner checkpoint (`model_{it}.pt`: the one `--checkpoint` names, else the
@@ -17,6 +17,13 @@ beside it, unless `--env.commands.motion.motion_file` names another.
 agent's network widths must be those of the checkpoint). The statistics
 count the resets by cause and average each command metric over the
 steps and envs.
+
+`--render PATH` keeps the qpos of envs `--render-env` .. `--render-env` +
+`--tile` - 1 after every step in a (steps, tile, nq) tensor on the device,
+copies it to the host once after the loop and draws it side by side from
+`--camera` (viewer/offscreen.py: without mujoco, a GPU host's case, it
+writes `PATH.qpos.npy`). `--viewer` then opens the native MuJoCo viewer
+where DISPLAY is set, else the viser web viewer.
 """
 
 from __future__ import annotations
@@ -36,6 +43,16 @@ def main(argv=None):
   parser.add_argument('--steps', type=int, default=300)
   parser.add_argument('--num-envs', type=int, default=None)
   parser.add_argument('--device', default='cuda')
+  parser.add_argument('--render', default=None,
+                      help='write an mp4 rollout video to this path')
+  parser.add_argument('--render-env', type=int, default=0,
+                      help='env index to render (or first tile with --tile)')
+  parser.add_argument('--tile', type=int, default=1,
+                      help='render a side-by-side tiling of this many envs')
+  parser.add_argument('--camera', default=None,
+                      help='model camera name for --render (e.g. tracking)')
+  parser.add_argument('--viewer', action='store_true',
+                      help='then open the interactive viewer')
   args, overrides = parser.parse_known_args(argv)
 
   import torch
@@ -94,8 +111,15 @@ def main(argv=None):
   resets = torch.zeros((), dtype=torch.long, device=dev)
   ep_len_sum = torch.zeros((), device=dev)
   causes, metrics = {}, {}
-  for _ in range(args.steps):
+  rendered = slice(args.render_env, args.render_env + args.tile)
+  traj = None
+  if args.render:
+    qpos = env.state.data.qpos
+    traj = qpos.new_empty((args.steps,) + qpos[rendered].shape)
+  for i in range(args.steps):
     obs, rew, term, trunc, extras = env.step(policy(obs))
+    if traj is not None:
+      traj[i] = env.state.data.qpos[rendered]
     rew_sum += rew.mean()
     resets += (term | trunc).sum()
     ep_len_sum += extras['episode_length_sum']
@@ -116,6 +140,20 @@ def main(argv=None):
   print(f'[play] {args.steps} steps, mean reward/step: '
         f'{stats["mean_reward"]:.4f}, resets: {stats["resets"]}{ep_msg}; '
         f'by cause {stats["terminations"]}')
+
+  if traj is not None:
+    from mjlab_torch.viewer.offscreen import render_trajectory
+    out = render_trajectory(env, traj.cpu().numpy(), args.render,
+                            camera=args.camera or -1)
+    print(f'[play] wrote {out}')
+  if args.viewer:
+    # the native GUI where there is a display, else the viser web viewer
+    if os.environ.get('DISPLAY'):
+      from mjlab_torch.viewer.native import run_viewer
+      run_viewer(env, policy)
+    else:
+      from mjlab_torch.viewer.viser_viewer import ViserViewer
+      ViserViewer(env, policy).run()
   return stats
 
 

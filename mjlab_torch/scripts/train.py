@@ -9,7 +9,10 @@ Runs on the GPU unless `--device cpu` is given. Each run writes
 `env_cfg.json`, `agent_cfg.json`, `metrics.jsonl` and `model_{it}.pt` to
 `<log-root>/<experiment_name>/<run-name>`; `--resume` first loads the newest
 checkpoint of the experiment's earlier runs and numbers on from it.
-`--env.*` and `--agent.*` set fields of the env and the agent cfg.
+`--env.*` and `--agent.*` set fields of the env and the agent cfg;
+`--agent.video True` (with `--agent.video_interval` and
+`--agent.video_length`) writes training videos of env 0 to
+`<run>/videos/train` (rl/runner.py).
 
 `--enable-nan-guard` wraps the env's step in a NanGuard
 (utils/nan_guard.py) that dumps the first non-finite state to
@@ -66,9 +69,6 @@ def main(argv=None):
   apply_overrides(env_cfg, env_over)
   apply_overrides(agent_cfg, agent_over)
   agent_cfg.device = args.device
-  if agent_cfg.video:
-    raise SystemExit('video=True: training videos are not ported yet '
-                     '(ROADMAP 12.7, 12.10)')
 
   world = None
   device = args.device

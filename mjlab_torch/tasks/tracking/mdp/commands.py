@@ -271,6 +271,20 @@ class MotionCommand(CommandTerm):
         self.joint_vel_target(st) - view.joint_vel(ctx.data))
     return st
 
+  def debug_vis(self, state, env, env_index: int, vis) -> None:
+    """The ghost robot at env `env_index`'s anchor-aligned motion target
+    and a marker at each target body."""
+    e = env_index
+    t = int(state['time_steps'][e])
+    # the aligned targets: body 0 of the tracked list is the robot's root
+    pos_rel = state['body_pos_relative_w'][e].cpu().numpy()
+    quat_rel = state['body_quat_relative_w'][e].cpu().numpy()
+    joint_pos = state['motion/joint_pos'][t].cpu().numpy()
+    qpos = np.concatenate([pos_rel[0], quat_rel[0], joint_pos])
+    vis.add_ghost_qpos(qpos, alpha=0.35)
+    for p in pos_rel:
+      vis.add_sphere(p, radius=0.02, color=(1.0, 0.3, 0.3, 0.8))
+
 
 def reset_to_motion(ctx, data, mask, gen, command_name: str = 'motion'):
   """Reset event, RSI: write the motion's reference state at each env's

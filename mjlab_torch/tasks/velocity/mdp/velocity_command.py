@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from mjlab_torch.managers.command_manager import CommandTerm
@@ -115,3 +116,30 @@ class UniformVelocityCommand(CommandTerm):
     state['metric/error_vel_yaw'] = state['metric/error_vel_yaw'] + \
         (cmd[:, 2] - w[:, 2]).abs() / max_t
     return state
+
+  def debug_vis(self, state, env, env_index: int, vis) -> None:
+    """Goal (green) and current (blue) velocity arrows above the robot, and
+    the commanded yaw rate (yellow), of env `env_index`."""
+    data = env.state.data
+    view = env.scene[self.cfg.asset_name]
+    row = lambda t: t[env_index].cpu().numpy()
+    base = row(view.root_pos_w(data))
+    quat = row(view.root_quat_w(data))
+    cmd = row(state['command'])
+    vel_b = row(view.root_lin_vel_b(data))
+    # yaw-only rotation of the base-frame xy command into world
+    yaw = np.arctan2(2 * (quat[0] * quat[3] + quat[1] * quat[2]),
+                     1 - 2 * (quat[2] ** 2 + quat[3] ** 2))
+    c, s = np.cos(yaw), np.sin(yaw)
+
+    def to_world(vb):
+      return np.asarray([c * vb[0] - s * vb[1], s * vb[0] + c * vb[1], 0.0])
+
+    top = base + np.asarray([0.0, 0.0, 0.6])
+    vis.add_arrow(top, top + 0.5 * to_world(cmd),
+                  color=(0.2, 0.8, 0.2, 0.9), radius=0.015)
+    vis.add_arrow(top, top + 0.5 * to_world(vel_b),
+                  color=(0.2, 0.4, 0.9, 0.9), radius=0.015)
+    # yaw-rate indicator: a short arrow along +y proportional to wz
+    vis.add_arrow(top, top + np.asarray([0.0, 0.25 * float(cmd[2]), 0.0]),
+                  color=(0.9, 0.7, 0.1, 0.7), radius=0.01)

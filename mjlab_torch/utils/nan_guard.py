@@ -5,8 +5,10 @@ Counterpart of mjlab_tpu/utils/nan_guard.py (and of the reference mjlab's
 utils/nan_guard.py). On the first step where any env's qpos, qvel or qacc
 is non-finite, the guard writes `nan_dump_<stamp>.npz` (the offending envs'
 recent state) and the scene's compiled model as `model.npz` (a
-`physics.io.ModelArrays` snapshot; the card has no `mujoco`), which
-`python -m mjlab_torch.scripts.nan_viz` reads.
+`physics.io.ModelArrays` snapshot) and, where mujoco can be imported, as
+`model.mjb` (the scene's MjModel, viewer/offscreen.py:scene_mj_model; the
+card has no mujoco and writes `model.npz` alone), which
+`python -m mjlab_torch.scripts.nan_viz` reads and replays.
 
 The guard checks the state the physics produced, before anything
 sanitizes it. Wrapping the env's own step function, the guard is attached
@@ -119,8 +121,20 @@ class NanGuard:
       snap = (mj_model if isinstance(mj_model, ModelArrays)
               else ModelArrays.of(mj_model))
       snap.save(os.path.join(self.out_dir, 'model.npz'))
+      self._save_mjb(os.path.join(self.out_dir, 'model.mjb'))
     print(f'[NanGuard] non-finite state in envs {env_ids.tolist()}; '
           f'dumped {len(hist["step"])}-step history to {path}', flush=True)
+
+  def _save_mjb(self, path: str) -> None:
+    """The scene's MjModel as `path`, where mujoco can be imported (and
+    the scene gives one)."""
+    from mjlab_torch.viewer.offscreen import scene_mj_model
+    try:
+      import mujoco
+      mj = scene_mj_model(self.env)
+    except (ImportError, TypeError):
+      return
+    mujoco.mj_saveModel(mj, path, None)
 
   # -- the wrapper ----------------------------------------------------
   def wrap(self, step_fn, record_history: bool = False):

@@ -16,7 +16,12 @@ import torch
 
 from mjlab_torch.envs.io import env_state_to_numpy
 from mjlab_torch.ops import smooth_kernel as tsk
-from torch_parity import env_state_leaves, g1_env_pair
+from torch_parity import (
+    RecordingVisualizer,
+    env_state_leaves,
+    g1_env_pair,
+    same_calls,
+)
 
 N = 2
 TOL = 1e-6  # 24 substeps of contact dynamics amplify float64 roundoff
@@ -133,3 +138,22 @@ def test_reset_and_six_steps_match_jax(pair, monkeypatch):
   assert tsk.plan_of(tenv.state.model) is plan
   assert len(plans) == 1
   assert tenv.state.model is tenv.model
+
+
+def test_debug_vis_matches_jax(pair):
+  """The velocity command's debug_vis draws, for each env, the JAX term's
+  arrows at the same state (after a reset and one env-step)."""
+  jenv, tenv = pair
+  jenv.reset()
+  tenv.reset()
+  act = 0.3 * np.random.default_rng(1).normal(size=(N, 29))
+  jenv.step(jnp.asarray(act))
+  tenv.step(torch.as_tensor(act))
+  for e in range(N):
+    got, want = RecordingVisualizer(), RecordingVisualizer()
+    tenv.command_manager.terms['twist'].debug_vis(
+        tenv.state.command['twist'], tenv, e, got)
+    jenv.command_manager.terms['twist'].debug_vis(
+        jenv.state.command['twist'], jenv, e, want)
+    assert [c[0] for c in got.calls] == ['add_arrow'] * 3
+    same_calls(got.calls, want.calls, TOL)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of mjlab_torch, and not chip_smoke.py,
-imports JAX, flax, optax, orbax or the JAX package; the G1 and Go1 flat
+imports JAX, flax, optax, orbax or the JAX package, and the viewer stack
+and the memory guard import without mujoco; the G1 and Go1 flat
 environments and the G1 tracking environment are made and stepped, and the
 engine's oracle models of equality constraints, tendons, sensors and the
 convex and mesh colliders stepped (the mesh hulls built from a snapshot),
@@ -29,7 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mjlab_tpu')
 SUBPACKAGES = ('utils', 'sim', 'entity', 'scene', 'terrains', 'managers',
                'envs', 'tasks', 'rl', 'scripts', 'physics', 'ops', 'asset_zoo',
-               'parallel')
+               'parallel', 'viewer')
 
 
 def one_thread(**extra) -> dict:
@@ -66,7 +67,10 @@ def test_the_walk_reaches_every_subpackage():
                'asset_zoo.tiny_bot',
                'tasks.velocity.config.tiny', 'tasks.tracking.config.tiny',
                'parallel.sharding', 'asset_zoo.oracle_models',
-               'physics.mesh'):
+               'physics.mesh', 'viewer.base', 'viewer.primitives',
+               'viewer.debug_visualizer', 'viewer.offscreen',
+               'viewer.native', 'viewer.viser_viewer', 'utils.hbm',
+               'scripts.nan_viz'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
@@ -178,6 +182,32 @@ from mjlab_torch.asset_zoo import oracle_models as om
 h = mesh.build_hulls(om.oracle_arrays('convex_pile'))
 assert h.vert.shape == (2, mesh.MAX_HULL_VERT, 3) and (h.rin > 0).all()
 loaded = [m for m in {BANNED + ('mujoco',)!r} if sys.modules.get(m)]
+assert not loaded, loaded
+print('ok')
+"""
+  out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, env=one_thread(),
+                       timeout=120)
+  assert out.returncode == 0, out.stderr
+  assert out.stdout.strip() == 'ok'
+
+
+def test_viewer_and_guard_import_without_mujoco():
+  """The viewer stack and the memory guard import with mujoco, viser,
+  imageio, jax and the JAX package all unimportable, and a primitive is
+  triangulated without mujoco."""
+  block = '; '.join(f'sys.modules[{b!r}] = None' for b in BANNED + (
+      'mujoco', 'mujoco.viewer', 'viser', 'imageio'))
+  code = f"""
+import sys; {block}
+import mjlab_torch.viewer
+from mjlab_torch.viewer import offscreen, primitives, viser_viewer
+from mjlab_torch.utils import hbm
+verts, faces = primitives.geom_mesh(3, [0.05, 0.2, 0])
+assert verts.shape[1] == 3 and faces.shape[1] == 3
+assert hbm.memory_report(lambda: None, device='cpu') is None
+loaded = [m for m in {BANNED + ('mujoco', 'viser', 'imageio')!r}
+          if sys.modules.get(m)]
 assert not loaded, loaded
 print('ok')
 """

@@ -475,6 +475,28 @@ def test_nan_viz_prints_the_jax_report(tmp_path, capsys):
   assert want[-1].replace('model.mjb', 'model.npz') == got[-1]
 
 
+def test_guard_writes_the_mjb_that_nan_viz_replays(g1_runs, capsys,
+                                                   monkeypatch):
+  """Where mujoco can be imported, the guard also writes the scene's
+  MjModel as model.mjb beside model.npz; nan_viz takes it (without a
+  display, the report is all) and so does the JAX script."""
+  import mujoco
+  root = g1_runs[0]
+  out = root / 'on' / 'nan_dumps'
+  (dump,) = glob.glob(str(out / 'nan_dump_*.npz'))
+  m = mujoco.MjModel.from_binary_path(str(out / 'model.mjb'))
+  assert (m.nq, m.nv, m.ngeom) == (36, 35, 69)
+  monkeypatch.delenv('DISPLAY', raising=False)
+  capsys.readouterr()
+  assert nan_viz.main([dump, '--fps', '20']) == str(out / 'model.mjb')
+  got = capsys.readouterr().out.splitlines()
+  jax_nan_viz.main([dump])
+  want = capsys.readouterr().out.splitlines()
+  assert got[-1] == want[-1] == 'no $DISPLAY; headless report only'
+  assert got[:-2] == want[:-1]
+  assert got[-2] == f'model {out / "model.mjb"} (nq 36)'
+
+
 def test_train_with_the_guard_writes_no_dump_on_a_healthy_run(tmp_path):
   runner = train.main([
       G1_FLAT_TASK, '--device', 'cpu', '--log-root', str(tmp_path),

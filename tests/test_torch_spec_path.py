@@ -325,10 +325,90 @@ def test_apply_after_compile_is_edit_spec_before(options):
                     _port_compile(tc.scene, mcfg))
 
 
+def _lockstep_rollouts(pairs, substeps: int) -> list:
+  """`substeps` physics steps of each (Model, Data) of `pairs` (two), each
+  in a thread of its own, in lockstep at the two costliest stages of a
+  substep on the CPU: the plain Newton solve and the plain SPD solve (the
+  implicit integrator's; the Newton solve's own run inside it). The two
+  threads' calls meet, and where their batched arguments have the same
+  shapes they run as one call on both batches, each thread taking its
+  rows back. Batching changes an env's rows in the last bits only
+  (test_lockstep_rollouts_are_the_rollouts). Returns each pair's last
+  Data."""
+  import threading
+
+  from mjlab_torch.ops import pd_solve
+  from mjlab_torch.physics import solver
+  meet = threading.Barrier(len(pairs), timeout=300)
+  slots, outs = [None] * len(pairs), [None] * len(pairs)
+  local = threading.local()
+
+  def paired(fn, nb):
+    """fn, whose first `nb` arguments are batched tensors, called by both
+    threads at once; the rest of its arguments must be the same."""
+    def call(*args):
+      if getattr(local, 'inside', False):  # within the paired call
+        return fn(*args)
+      i = local.index
+      slots[i] = args
+      meet.wait()
+      if i == 0:
+        local.inside = True
+        try:
+          a, b = slots
+          same = all(x.shape[1:] == y.shape[1:]
+                     for x, y in zip(a[:nb], b[:nb]))
+          rest = all(x is y or np.array_equal(x, y)
+                     for x, y in zip(a[nb:], b[nb:]))
+          if same and rest:
+            n = a[0].shape[0]
+            both = fn(*[torch.cat([x, y]) for x, y in zip(a[:nb], b[:nb])],
+                      *a[nb:])
+            cut = lambda r: ((r[:n], r[n:]) if torch.is_tensor(r)
+                             else (tuple(t[:n] for t in r),
+                                   tuple(t[n:] for t in r)))
+            outs[:] = cut(both)
+          else:
+            outs[:] = [fn(*a), fn(*b)]
+        finally:
+          local.inside = False
+      meet.wait()
+      return outs[i]
+    return call
+
+  results, errors = [None] * len(pairs), []
+
+  def roll(i):
+    local.index = i
+    m, d = pairs[i]
+    try:
+      for _ in range(substeps):
+        d = tphys.step(m, d)
+      results[i] = d
+    except BaseException as e:  # the other thread is released below
+      errors.append(e)
+      meet.abort()
+
+  with pytest.MonkeyPatch.context() as mp:
+    mp.setattr(solver, 'newton_plain', paired(solver.newton_plain, 15))
+    mp.setattr(pd_solve, 'solve_pd', paired(pd_solve.solve_pd, 2))
+    threads = [threading.Thread(target=roll, args=(i,))
+               for i in range(len(pairs))]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(timeout=600)
+  assert not any(t.is_alive() for t in threads)
+  if errors:
+    raise errors[0]
+  return results
+
+
 def test_visual_meshes_change_no_physics():
   """The G1 flat scene with its visual meshes and without them
   (`get_spec(visuals=False)`) steps 100 substeps alike in float64: qpos
-  and qvel ≤ 1e-12 apart."""
+  and qvel ≤ 1e-12 apart. The two rollouts run in lockstep, their solves
+  in one batch (`_lockstep_rollouts`)."""
   from mjlab_torch.asset_zoo.unitree_g1 import get_spec
   from torch_parity import g1_states
   tc = treg.load_cfg(G1_FLAT)
@@ -338,19 +418,42 @@ def test_visual_meshes_change_no_physics():
   without = tscene.compile_scene(tc.scene, tc.sim.mujoco)
   assert (with_vis.ngeom, without.ngeom) == (69, 34)
   qpos, qvel, ctrl = g1_states(with_vis, 1, seed=5, drop=0.02)
-  out = []
+  pairs = []
   for mj in (with_vis, without):
     m = tphys.put_model(mj, device='cpu', dtype=torch.float64)
-    d = tphys.make_batched_data(m, 1, device='cpu').replace(
+    pairs.append((m, tphys.make_batched_data(m, 1, device='cpu').replace(
         qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
-        ctrl=torch.as_tensor(ctrl))
-    for _ in range(100):
-      d = tphys.step(m, d)
-    out.append(d)
+        ctrl=torch.as_tensor(ctrl))))
+  out = _lockstep_rollouts(pairs, 100)
   assert bool((out[0].contact.dist < 0).any())  # feet on the floor
   for f in ('qpos', 'qvel'):
     diff = (getattr(out[0], f) - getattr(out[1], f)).abs().max()
     assert float(diff) <= 1e-12, (f, float(diff))
+
+
+def test_lockstep_rollouts_are_the_rollouts():
+  """_lockstep_rollouts steps each model as tphys.step does alone: the G1
+  flat snapshot from two states over 3 substeps, within 1e-12 of
+  (1 + max |alone|) (the batched solves round otherwise in the last
+  bits)."""
+  from torch_parity import g1_states
+  arrays = asset_zoo.g1_flat_arrays()
+  m = tphys.put_model(arrays, device='cpu', dtype=torch.float64)
+  pairs, alone = [], []
+  for seed in (1, 2):
+    qpos, qvel, ctrl = g1_states(arrays, 1, seed=seed, drop=0.02)
+    d = tphys.make_batched_data(m, 1, device='cpu').replace(
+        qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+        ctrl=torch.as_tensor(ctrl))
+    pairs.append((m, d))
+    for _ in range(3):
+      d = tphys.step(m, d)
+    alone.append(d)
+  for got, want in zip(_lockstep_rollouts(pairs, 3), alone):
+    for f in ('qpos', 'qvel', 'qacc', 'efc_force'):
+      g, w = getattr(got, f), getattr(want, f)
+      err = float((g - w).abs().max() / (1 + w.abs().max()))
+      assert err <= 1e-12, (f, err)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,12 @@ from chip_smoke import (
     tracking_degenerate_ranges,
 )
 from mjlab_torch.envs.io import env_state_to_numpy
-from torch_parity import env_state_leaves, jax_env_f64
+from torch_parity import (
+    RecordingVisualizer,
+    env_state_leaves,
+    jax_env_f64,
+    same_calls,
+)
 
 ROOT_CLIP = 'artifacts/motions/g1_walk_turn_50hz.npz'
 N = 3
@@ -134,3 +139,24 @@ def test_six_env_steps_match_jax(pair):
   assert time_steps[TIP_AT][1] == 1
   # env 2's folded arm is counted by the self-collision sensor
   assert self_contacts[0][FOLD] > 0 and self_contacts[0][0] == 0
+
+
+def test_debug_vis_matches_jax(pair):
+  """The motion command's debug_vis (the ghost robot and a marker a
+  tracked body) of each env, against the JAX term's at the same state."""
+  jenv, tenv = pair
+  jenv.reset()
+  tenv.reset()
+  act = 0.1 * np.random.default_rng(1).normal(size=(N, 29))
+  jenv.step(jnp.asarray(act))
+  tenv.step(torch.as_tensor(act))
+  term = tenv.command_manager.terms['motion']
+  for e in range(N):
+    got, want = RecordingVisualizer(), RecordingVisualizer()
+    term.debug_vis(tenv.state.command['motion'], tenv, e, got)
+    jenv.command_manager.terms['motion'].debug_vis(
+        jenv.state.command['motion'], jenv, e, want)
+    assert [c[0] for c in got.calls] == (['add_ghost_qpos']
+                                         + ['add_sphere'] * term.n_bodies)
+    assert got.calls[0][1][0].shape == (36,)
+    same_calls(got.calls, want.calls, TOL)

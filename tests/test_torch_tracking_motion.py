@@ -171,14 +171,27 @@ def test_csv_to_npz_reproduces_the_committed_walk_clip(tmp_path):
       np.testing.assert_array_equal(shipped[k], want[k], err_msg=k)
 
 
-def test_motion_cli_writes_the_squat(tmp_path):
+def test_motion_cli_writes_the_squat(tmp_path, monkeypatch):
+  """The squat through the CLI, with `--render`: the kinematic replay of
+  the clip written, here by a stand-in renderer without a GL context as
+  the qpos it was given, which is the JAX script's replay of the same
+  clip."""
+
+  class NoGl:
+    def __init__(self, *a, **k):
+      raise RuntimeError('no GL context (stand-in)')
+
+  monkeypatch.setattr(mujoco, 'Renderer', NoGl)
   out = tmotion.main(['--synthetic-squat', '--output',
-                      str(tmp_path / 'squat.npz'), '--device', 'cpu'])
+                      str(tmp_path / 'squat.npz'), '--device', 'cpu',
+                      '--render', str(tmp_path / 'squat.mp4')])
   with np.load(out) as z:
     assert z['joint_pos'].shape == (400, 29)
-  with pytest.raises(SystemExit):
-    tmotion.main(['--synthetic-squat', '--output', str(tmp_path / 'x.npz'),
-                  '--render', 'x.mp4', '--device', 'cpu'])
+  from mjlab_tpu.asset_zoo.unitree_g1 import G1_ROBOT_CFG
+  jmotion._render_motion(out, G1_ROBOT_CFG, str(tmp_path / 'jax.mp4'), 50.0)
+  got = np.load(tmp_path / 'squat.mp4.qpos.npy')
+  assert got.shape == (400, 1, 36)
+  np.testing.assert_array_equal(got, np.load(tmp_path / 'jax.mp4.qpos.npy'))
 
 
 # ---------------------------------------------------------------------------

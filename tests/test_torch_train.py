@@ -1,11 +1,12 @@
 """The port's training path alone, on the CPU: PPO learns a contextual toy
 task, a runner checkpoint round trip (with and without the env's state) on
-the G1 flat env, `scripts/train.py` and `scripts/play.py` end to end, the
-flags that are not ported yet, make_runner's choice of runner, and the
-rollout's reads of device values on the host. The parity with the JAX learner is in test_torch_rl.py."""
+the G1 flat env, `scripts/train.py` and `scripts/play.py` end to end,
+training videos and play's --render, make_runner's choice of runner, and
+the rollout's reads of device values on the host. The parity with the JAX learner is in test_torch_rl.py."""
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -195,15 +196,82 @@ def test_train_writes_a_run_that_resumes_and_plays(tmp_path):
     assert np.isfinite(stats['mean_reward'])
 
 
-@pytest.mark.parametrize('flags,item', [
-    (['--agent.video', 'True'], '12.7')])
-def test_unported_flags_exit_nonzero(tmp_path, flags, item):
-  with pytest.raises(SystemExit) as e:
-    train.main(['Mjlab-Velocity-Flat-Unitree-G1', '--device', 'cpu',
-                '--log-root', str(tmp_path)] + flags)
-  assert e.value.code not in (0, None)
-  assert f'ROADMAP {item}' in str(e.value.code)
-  assert not os.listdir(tmp_path)
+@pytest.fixture
+def env0_qpos(monkeypatch):
+  """Env 0's qpos after every env-step of any env in the test, in order;
+  mujoco unimportable, as on a GPU host, so that a render keeps the qpos
+  it was given."""
+  from mjlab_torch.envs.manager_based_rl_env import ManagerBasedRlEnv
+  seen = []
+  plain = ManagerBasedRlEnv._step_fn
+
+  def recorded(self, *a, **kw):
+    state, out = plain(self, *a, **kw)
+    seen.append(state.data.qpos.clone())
+    return state, out
+
+  monkeypatch.setattr(ManagerBasedRlEnv, '_step_fn', recorded)
+  monkeypatch.setitem(sys.modules, 'mujoco', None)
+  return seen
+
+
+def test_video_flag_trains(tmp_path, env0_qpos, capsys):
+  """`--agent.video True` trains: every video_interval (2) iterations the
+  last video_length (3) frames of env 0's qpos over the rollouts go to
+  videos/train/rl-video-iter-{it}.mp4, here as its .qpos.npy (no mujoco),
+  and the checkpoint is the run's without video, bit for bit."""
+  base = ['Mjlab-Velocity-Flat-Unitree-G1', '--device', 'cpu',
+          '--log-root', str(tmp_path), '--env.scene.num_envs', '2',
+          '--agent.num_steps_per_env', '2', '--agent.max_iterations', '3']
+  train.main(base + SMALL + ['--run-name', 'plain'])
+  del env0_qpos[:]
+  runner = train.main(base + SMALL + [
+      '--run-name', 'video', '--agent.video', 'True',
+      '--agent.video_interval', '2', '--agent.video_length', '3'])
+  run = tmp_path / 'g1_flat' / 'video'
+  assert sorted(os.listdir(run / 'videos' / 'train')) == [
+      'rl-video-iter-2.mp4.qpos.npy']
+  assert 'no mujoco' in capsys.readouterr().out
+  frames = np.load(run / 'videos' / 'train' / 'rl-video-iter-2.mp4.qpos.npy')
+  # steps 2-4 of the 6 (two iterations of 2 env-steps buffered)
+  assert len(env0_qpos) == 6
+  want = torch.stack([q[0] for q in env0_qpos[1:4]]).numpy()
+  np.testing.assert_array_equal(frames, want)
+  assert torch.equal(env0_qpos[-1][0], runner.ts.env_state.data.qpos[0])
+
+  def same(a, b, path=''):
+    if isinstance(a, dict):
+      assert set(a) == set(b), path
+      for k in a:
+        same(a[k], b[k], f'{path}/{k}')
+    elif torch.is_tensor(a):
+      assert torch.equal(a, b), path
+    else:
+      assert a == b, path
+
+  load = lambda name: torch.load(tmp_path / 'g1_flat' / name / 'model_3.pt',
+                                 weights_only=True)
+  same(load('video'), load('plain'))
+
+
+def test_play_renders_the_envs_it_plays(tmp_path, env0_qpos):
+  """`play --render --render-env 1 --tile 2` keeps envs 1 and 2's qpos
+  after each step and writes them once, (steps, 2, nq), with mujoco
+  unimportable as `PATH.qpos.npy`; its statistics are those of the same
+  play without --render."""
+  base = ['Mjlab-Velocity-Flat-Unitree-G1', '--device', 'cpu', '--agent',
+          'random', '--num-envs', '3', '--steps', '3', '--log-root',
+          str(tmp_path)]
+  plain = play.main(base)
+  del env0_qpos[:]
+  path = str(tmp_path / 'play.mp4')
+  stats = play.main(base + ['--render', path, '--render-env', '1',
+                            '--tile', '2'])
+  assert stats == plain
+  traj = np.load(path + '.qpos.npy')
+  assert traj.shape == (3, 2, 36)
+  np.testing.assert_array_equal(
+      traj, torch.stack([q[1:3] for q in env0_qpos]).numpy())
 
 
 def test_motion_task_gets_the_tracking_runner():
@@ -224,10 +292,15 @@ def test_motion_task_gets_the_tracking_runner():
   assert type(make_runner(env, _cfg())) is MotionTrackingOnPolicyRunner
 
 
-def test_rollout_reads_one_device_value_an_env_step(g1_env, monkeypatch):
+@pytest.mark.parametrize('video', [False, True])
+def test_rollout_reads_one_device_value_an_env_step(g1_env, monkeypatch,
+                                                    video):
   """The rollout keeps the env's one host read an env-step
-  (`bool(done.any())`) and adds none; the update reads none."""
-  ppo = PPO(g1_env, _g1_cfg())
+  (`bool(done.any())`) and adds none, also while it records env 0's qpos
+  for training videos; the update reads none."""
+  cfg = _g1_cfg()
+  cfg.video = video
+  ppo = PPO(g1_env, cfg)
   ts = ppo.init_state(0)
   calls = []
   for name in ('__bool__', 'item', 'nonzero', 'cpu', 'tolist', 'numpy',
@@ -246,3 +319,8 @@ def test_rollout_reads_one_device_value_an_env_step(g1_env, monkeypatch):
   monkeypatch.undo()
   assert rollout_calls == ['__bool__'] * ppo.cfg.num_steps_per_env
   assert calls == []
+  if video:
+    assert ppo.qpos_env0.shape == (cfg.num_steps_per_env, 36)
+    assert torch.equal(ppo.qpos_env0[-1], ts.env_state.data.qpos[0])
+  else:
+    assert ppo.qpos_env0 is None

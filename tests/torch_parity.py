@@ -302,3 +302,39 @@ def assert_close(got, want, tol, what):
   np.testing.assert_allclose(got.astype(np.float64),
                              np.asarray(want).astype(np.float64), rtol=0,
                              atol=tol, err_msg=what)
+
+
+class RecordingVisualizer:
+  """A DebugVisualizer that records each call, its arguments as float64
+  arrays."""
+
+  def __init__(self):
+    self.calls = []
+
+  def _rec(self, name, *args, **kw):
+    self.calls.append((name, [np.asarray(a, np.float64) for a in args],
+                       {k: np.asarray(v, np.float64) for k, v in kw.items()}))
+
+  def add_arrow(self, *a, **k):
+    self._rec('add_arrow', *a, **k)
+
+  def add_sphere(self, *a, **k):
+    self._rec('add_sphere', *a, **k)
+
+  def add_ghost_qpos(self, *a, **k):
+    self._rec('add_ghost_qpos', *a, **k)
+
+  def clear(self):
+    self.calls.append(('clear', [], {}))
+
+
+def same_calls(got, want, tol: float):
+  """Two RecordingVisualizers' calls: the same methods, their arguments
+  within `tol`."""
+  assert [c[0] for c in got] == [c[0] for c in want]
+  for (name, ga, gk), (_, wa, wk) in zip(got, want):
+    assert len(ga) == len(wa) and set(gk) == set(wk), name
+    for g, w in zip(ga + [gk[k] for k in sorted(gk)],
+                    wa + [wk[k] for k in sorted(wk)]):
+      np.testing.assert_allclose(g, w, rtol=0, atol=tol, err_msg=name)
+
