@@ -202,7 +202,15 @@ Phases, each of which exits non-zero on failure:
      trajectory (RENDER_STEPS, RENDER_TILE, nq), finite, its last frame
      the final qpos of envs 0-3 bit for bit; 17c: `utils.hbm`'s report of
      one env-step, its peak bytes, bytes an env and the card's capacity,
-     `assert_fits` passing, and refusing at half the peak).
+     `assert_fits` passing, and refusing at half the peak);
+ 18. the profile CLI (scripts/profile.py) through its parser on G1 flat
+     at 4096 envs, PROFILE_REPS reps: with `--trace DIR` (the stage report,
+     every label of PROFILE_LABELS in the JAX script's order with a finite
+     time above 0; the trace's device events naming K1-K3's functions;
+     whether the card's DRAM counters could be read, or why not), then
+     with `--roofline` (the FLOPs and bytes of a substep and an env-step
+     finite and above 0, each kernel charged, FLOP/s at most the f32
+     peak); launches 4/4/8 or 5/5/9 on every env-step of both runs.
 Phase 2 also holds K3's per-env form (2d: every segment of its float table
 per env at 4096 envs, then body_mass alone, small batches and the model
 variants) against its plain version and times it beside the shared-table
@@ -225,7 +233,7 @@ elliptic Hessians as `elliptic_hessians` and on the four-bar's as
 `oracle_fourbar_hessians`; each row's `pile_path_launches` its
 launches in phase 15a, `replay_path_launches` those of phase 16a's env-f32
 replay, `video_path_launches` and `render_path_launches` those of phases
-17a and 17b, K1-K3's numbers at the ring's state its `ring`, and K1-K3's rows
+17a and 17b, `profile_path_launches` those of phase 18's two runs, K1-K3's numbers at the ring's state its `ring`, and K1-K3's rows
 at the pile's shapes follow the others); the last
 line is {"ok":
 true, "device": {...}}. Needs one GPU; imports no JAX and no mujoco.
@@ -251,8 +259,6 @@ TRAIN_ITERS = 3  # PPO iterations of phases 6a and 7c
 ENV_STEPS_5 = 50  # env-steps of phase 7b
 GO1_TASK = 'Mjlab-Velocity-Flat-Unitree-Go1'
 GO1_STEPS = 100  # env-steps of phase 8b
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -302,57 +308,6 @@ def count_syncs(torch, fn):
     torch.cuda.set_sync_debug_mode('default')
   return out, [str(w.message) for w in caught
                if 'synchroniz' in str(w.message)]
-
-
-def bound_ms(nbytes: float, flops: float):
-  t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-  t_ops = flops / F32_FLOPS_PER_S * 1e3
-  return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-
-
-def chol_solve_flops(n: int) -> int:
-  """Column Cholesky plus forward and back substitution, per matrix."""
-  chol = sum((2 * j + 2) + (n - 1 - j) * (2 * j + 1) for j in range(n))
-  return chol + 2 * n * n
-
-
-def k3_work(k_smooth, s, d, kern) -> 'tuple[int, int]':
-  """(bytes, FLOPs) one K3 call needs for the batch `d` and the outputs
-  `kern`: qpos and qvel read once, every output written once."""
-  out_floats = sum(v.numel() for v in kern.values())
-  nbytes = 4 * (d.qpos.numel() + d.qvel.numel() + out_floats)
-  npairs = sum(len(p) for p in k_smooth.tree_of(s).qm_pairs)
-  # arithmetic of csrc/smooth.cu per env: per body (kinematics, frames,
-  # cinr, crb, RNE) ~572 FLOPs, per geom or site frame ~108, per dof (cdof,
-  # cdof_dot, velocity, qM row product, bias) ~150, per qM entry 12
-  flops = d.qpos.shape[0] * (572 * s.nbody + 108 * (s.ngeom + s.nsite)
-                             + 150 * s.nv + 12 * npairs)
-  return nbytes, flops
-
-
-def newton_work(torch, solver, args, iters, polish, ldof, grad_th):
-  """What one K2 call needs for these inputs: (Newton steps per env,
-  active contact rows per env, active rows per env, bytes, FLOPs). Bytes:
-  every input read and every output written once. FLOPs per step:
-  residuals and gradient (cJ x, cJ^T f, M x), the lower-triangle Hessian
-  (D cJ once, then 2 FLOPs per term and row), Cholesky and solves, the
-  search direction (M dx, cJ dx), and 10 + ls_polish linesearch sums of ~8
-  FLOPs per row; plus the two warm-start costs, the gradient that finds
-  convergence, and the final forces. Only active rows and only the steps
-  before the freeze rule count."""
-  B, n = args[1].shape
-  ncr, nl = args[3].shape[1], len(ldof)
-  nbytes = 4 * B * (n * n + ncr * n + 3 * ncr + 4 * nl + 6 * n
-                    + 2 * n + nl + ncr)
-  need = solver.newton_steps(args, iters, polish, ldof, grad_th)
-  nc = args[6].sum(-1).long()
-  rows = nc + args[10].sum(-1).long() + args[14].sum(-1).long()
-  per_step = (6 * nc * n + 4 * n * n + n * (n + 1) * nc + nc * n
-              + chol_solve_flops(n) + 8 * (10 + polish) * rows)
-  grad_flops = 2 * n * n + 4 * nc * n
-  flops = int((need * per_step + (need < iters) * grad_flops
-               + 2 * (2 * n * n + 2 * nc * n) + 2 * nc * n).sum())
-  return need, nc, rows, nbytes, flops
 
 
 def g1_states(torch, phys, mj, m, batch: int, drop: float, gen):
@@ -1556,6 +1511,7 @@ def shape_kernels(torch, card: str, busy, what: str, m, d,
   (n, ncr, nl) K2 must take. Returns {kernel: its numbers}."""
   from mjlab_torch.ops import newton as k_newton
   from mjlab_torch.ops import smooth_kernel as k_smooth
+  from mjlab_torch.ops.work import bound_ms, k3_work, pd_solve_work
   from mjlab_torch.physics import constraint, pipeline, smooth
   from mjlab_torch.physics import smooth_fused, solver
   from mjlab_torch.physics.types import GeomType
@@ -1573,8 +1529,7 @@ def shape_kernels(torch, card: str, busy, what: str, m, d,
   check(rel <= 1e-4, f'K3 disagrees with its plain version on the {what}: '
         f'{rel:.3e}')
   call = lambda: k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel)
-  nbytes, flops = k3_work(k_smooth, s, d, kern)
-  bound, by = bound_ms(nbytes, flops)
+  bound, by = bound_ms(*k3_work(m, d.qpos, d.qvel, kern))
   epb = k_smooth.plan_of(m).fits[k_smooth.ENVS_PER_BLOCK]
   out['smooth'] = dict(
       max_abs_err=err, rel_err=rel, ms=time_ms(torch, call, 20),
@@ -1626,13 +1581,14 @@ def k1_numbers(torch, busy, H, g, what: str) -> dict:
   (1 + max |plain|)), timed bare, behind a busy card, plain and as
   torch.linalg.solve; the bound of phase 2b."""
   from mjlab_torch.ops import pd_solve as k_pd
+  from mjlab_torch.ops.work import bound_ms, pd_solve_work
   from mjlab_torch.physics import linalg
   nb, n = g.shape
   x_k, x_p = k_pd.solve_pd_cuda(H, g), linalg.solve_pd(H, g)
   rel = rel_err(x_k, x_p)
   check(rel <= 1e-4, f'K1 disagrees with its plain version on {what}: '
         f'{rel:.3e}')
-  bound, by = bound_ms(4 * nb * (n * n + 2 * n), nb * chol_solve_flops(n))
+  bound, by = bound_ms(*pd_solve_work(H, g))
   return dict(
       max_abs_err=max_err(x_k, x_p), rel_err=rel,
       ms=time_ms(torch, lambda: k_pd.solve_pd_cuda(H, g), 20),
@@ -1958,6 +1914,7 @@ def _tracking_path(torch, card: str, busy, root: str):
   )
   from mjlab_torch.ops import LAUNCHES, reset_launches
   from mjlab_torch.ops import smooth_kernel as k_smooth
+  from mjlab_torch.ops.work import bound_ms, k3_work
   from mjlab_torch.physics import smooth_fused
   from mjlab_torch.physics.constraint import efc_layout
   from mjlab_torch.rl.networks import load_actor
@@ -2022,8 +1979,7 @@ def _tracking_path(torch, card: str, busy, root: str):
   dev_shared.append(time_ms(torch, k3_shared, 20, busy=busy))
   ms_env = time_ms(torch, k3_env, 20)
   plain_env = time_ms(torch, lambda: smooth_fused.plain_all(me, d), 5)
-  nbytes, flops = k3_work(k_smooth, s, d, kern)
-  b_env, by_env = bound_ms(nbytes + 4 * plan.etab.numel(), flops)
+  b_env, by_env = bound_ms(*k3_work(me, d.qpos, d.qvel, kern))
   k3_tracking = dict(max_abs_err=err3, ms=ms_env,
                      device_ms=min(dev_env), plain_ms=plain_env,
                      bound_ms=b_env, bound_by=by_env, library_ms=None,
@@ -2531,6 +2487,7 @@ def _rough_path(torch, card: str, busy, root: str):
   from mjlab_torch.asset_zoo.pretrained import G1_FLAT_POLICY
   from mjlab_torch.ops import LAUNCHES
   from mjlab_torch.ops import newton as k_newton
+  from mjlab_torch.ops.work import bound_ms, newton_work
   from mjlab_torch.physics import constraint, pipeline, smooth, solver
   from mjlab_torch.physics import smooth_fused
   from mjlab_torch.rl.networks import load_actor
@@ -2799,7 +2756,7 @@ def _rough_path(torch, card: str, busy, root: str):
   want = solver.newton_plain(*args, iters, polish, ldof, grad_th)
   rel = max(rel_err(a, b) for a, b in zip(got, want))
   call = lambda: k_newton.newton_solve_cuda(*args, **kargs)
-  need, nc, rows_b, nbytes, flops = newton_work(torch, solver, args, iters,
+  need, nc, rows_b, nbytes, flops = newton_work(args, iters,
                                                 polish, ldof, grad_th)
   bound, by = bound_ms(nbytes, flops)
   k2 = dict(max_abs_err=max_err(got[0], want[0]), rel_err=rel,
@@ -4114,6 +4071,7 @@ def k2_numbers(torch, busy, m, args, what: str) -> dict:
   version (within 1e-3 of (1 + max |plain|)), timed bare, behind a busy
   card and plain; the work its inputs need and its bound."""
   from mjlab_torch.ops import newton as k_newton
+  from mjlab_torch.ops.work import bound_ms, newton_work
   from mjlab_torch.physics import solver
   iters, polish, ldof, grad_th = solver.solver_params(m.stat)
   kargs = dict(iterations=iters, ls_polish=polish, ldof=ldof,
@@ -4128,7 +4086,7 @@ def k2_numbers(torch, busy, m, args, what: str) -> dict:
   check(rel <= 1e-3, f'K2 disagrees with its plain version on {what}: '
         f'{rel:.3e}')
   call = lambda: k_newton.newton_solve_cuda(*args, **kargs)
-  need, nc, _, nbytes, flops = newton_work(torch, solver, args, iters,
+  need, nc, _, nbytes, flops = newton_work(args, iters,
                                            polish, ldof, grad_th)
   bound, by = bound_ms(nbytes, flops)
   return dict(
@@ -5113,6 +5071,108 @@ def _video_path(torch, card: str, root: str, keep: dict):
   return video_launches, render_launches
 
 
+PROFILE_REPS = 5  # --reps of phase 18's two runs of scripts/profile.py
+# the stages of the profile's report, in the JAX script's order
+PROFILE_LABELS = ('full substep (fused)', 'kinematics', 'com_pos', 'crb',
+                  'collision narrowphase', 'transmission', 'com_vel',
+                  'passive', 'rne', 'actuation', 'fwd_smooth', 'make_efc',
+                  'make_efc + solve')
+# the kernels' function names, as the trace's device events carry them
+PROFILE_KERNELS = {'smooth': 'smooth_kernel', 'newton': 'newton_kernel',
+                   'pd_solve': 'pd_solve_kernel'}
+
+
+def profile_path(torch, card: str) -> dict:
+  """Phase 18: scripts/profile.py through its parser at the registered G1
+  flat task and 4096 envs, with --trace and then with --roofline. Returns
+  the kernels' launches over both runs."""
+  import collections
+  import math
+  import shutil
+  import tempfile
+
+  from mjlab_torch.ops.work import F32_FLOPS_PER_S
+  from mjlab_torch.scripts import profile
+
+  argv = ['--task', ENV_TASK, '--num-envs', str(B), '--reps',
+          str(PROFILE_REPS)]
+  launches = collections.Counter()
+  root = tempfile.mkdtemp(prefix='chip_smoke_profile_')
+  try:
+    with counted(launches), launches_per_step(
+        ('smooth', 'newton', 'pd_solve')) as per_step:
+      t0 = time.perf_counter()
+      traced = profile.main(argv + ['--trace', root])
+      t_trace = time.perf_counter() - t0
+      roof = profile.main(argv + ['--roofline'])
+      t_roof = time.perf_counter() - t0 - t_trace
+    trace = traced['trace']
+    with open(trace['path']) as f:
+      trace_text = f.read()
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+
+  # the stage report: every label, in order, each timed
+  phases = traced['phases']
+  print(f'profile path: stages (ms) '
+        f'{ {k: round(v * 1e3, 4) for k, v in phases.items()} }; env-step '
+        f'{traced["env_step_s"] * 1e3:.3f} ms (--trace run), '
+        f'{roof["env_step_s"] * 1e3:.3f} ms (--roofline run); card {card}',
+        flush=True)
+  check(tuple(phases) == PROFILE_LABELS,
+        f'the profile printed the stages {tuple(phases)}')
+  check(all(math.isfinite(v) and v > 0 for v in phases.values()),
+        'a stage of the profile has no finite time above 0')
+  for r in (traced, roof):
+    check(math.isfinite(r['env_step_s']) and r['env_step_s'] > 0,
+          'the profile\'s env-step has no finite time above 0')
+
+  # every env-step of both runs went through K1-K3
+  shapes = sorted(set(per_step))
+  print(f'profile path launches per env-step (K3, K2, K1): '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} } over {len(per_step)} '
+        f'env-steps; launches {dict(launches)}', flush=True)
+  check(per_step.envs == {(B, 'cuda')},
+        f'the profile stepped envs {per_step.envs}')
+  check(len(per_step) >= 2 * (PROFILE_REPS + 1),
+        f'the profile took {len(per_step)} env-steps')
+  check(set(shapes) <= {(4, 4, 8), (5, 5, 9)},
+        f'a profile env-step launched {shapes}, not 4/4/8 or 5/5/9')
+
+  # the trace names the three kernels among its device events
+  named = {k: [n for n in trace['kernels'] if fn in n]
+           for k, fn in PROFILE_KERNELS.items()}
+  print(f'profile trace: {len(trace_text)} bytes, {len(trace["kernels"])} '
+        f'device kernels, {len(trace["host"])} host ops; the kernels\' '
+        f'device ms '
+        f'{ {k: round(sum(trace["kernels"][n] for n in v), 4) for k, v in named.items()} }'
+        f'; memory counters: {trace["counters"]}', flush=True)
+  for k, fn in PROFILE_KERNELS.items():
+    check(named[k] and fn in trace_text,
+          f'the profile\'s trace has no device event of {fn}')
+
+  # the roofline: finite counts above 0, no more FLOP/s than the peak
+  for name in ('physics substep', 'full env.step'):
+    r = roof['roofline'][name]
+    rate = r['flops'] / r['seconds']
+    print(f'profile roofline, {name}: {r["flops"]} FLOPs, {r["bytes"]} '
+          f'bytes in {r["seconds"] * 1e3:.3f} ms: {rate / 1e12:.4f} TFLOP/s '
+          f'({100 * rate / F32_FLOPS_PER_S:.2f} % of the f32 peak), '
+          f'{r["bytes"] / r["seconds"] / 1e9:.1f} GB/s apparent; {r["ops"]} '
+          f'aten ops; kernels (calls, bytes, FLOPs) {r["kernels"]}; card '
+          f'{card}', flush=True)
+    check(all(math.isfinite(v) and v > 0 for v in (r['flops'], r['bytes'])),
+          f'the roofline of the {name} has no finite count above 0')
+    check(rate <= F32_FLOPS_PER_S,
+          f'the roofline of the {name} reads {rate:.4g} FLOP/s, over the '
+          'f32 peak: the counter is wrong')
+    check(set(r['kernels']) == set(PROFILE_KERNELS),
+          f'the {name} charged the kernels {sorted(r["kernels"])}')
+  print(f'phase 18: the --trace run {t_trace:.1f} s, the --roofline run '
+        f'{t_roof:.1f} s', flush=True)
+  return launches
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -5132,6 +5192,8 @@ def main() -> None:
   from mjlab_torch.ops import newton as k_newton
   from mjlab_torch.ops import pd_solve as k_pd
   from mjlab_torch.ops import smooth_kernel as k_smooth
+  from mjlab_torch.ops.work import (bound_ms, k3_work, newton_work,
+                                     pd_solve_work)
   from mjlab_torch.physics import constraint, linalg, pipeline
   from mjlab_torch.physics import smooth, smooth_fused, solver
 
@@ -5171,7 +5233,7 @@ def main() -> None:
       torch, lambda: k_smooth.smooth_fused_cuda(m, d.qpos, d.qvel), 20,
       busy=busy)
   plain_ms3 = time_ms(torch, lambda: smooth_fused.plain_all(m, d), 5)
-  bytes3, flops3 = k3_work(k_smooth, s, d, kern)
+  bytes3, flops3 = k3_work(m, d.qpos, d.qvel, kern)
   b3, by3 = bound_ms(bytes3, flops3)
   rows.append(dict(name='smooth_fused (K3)', route='cuda',
                    source='mjlab_torch/csrc/smooth.cu',
@@ -5268,9 +5330,8 @@ def main() -> None:
   ms3e = time_ms(torch, k3_env, 20)
   plain_ms3e = time_ms(torch, lambda: smooth_fused.plain_all(m_env, d), 5)
   etab_bytes = 4 * plan_env.etab.numel()
-  b3e, by3e = bound_ms(bytes3 + etab_bytes, flops3)
-  b3m, _ = bound_ms(bytes3 + 4 * k_smooth.plan_of(m_mass).etab.numel(),
-                    flops3)
+  b3e, by3e = bound_ms(*k3_work(m_env, d.qpos, d.qvel, kern_env))
+  b3m, _ = bound_ms(*k3_work(m_mass, d.qpos, d.qvel, kern))
   epb_env = plan_env.fits[k_smooth.ENVS_PER_BLOCK]
   smem_env = k_smooth.smooth_smem_bytes(m_env, epb_env)
   epb_shared = k_smooth.plan_of(m).fits[k_smooth.ENVS_PER_BLOCK]
@@ -5316,7 +5377,7 @@ def main() -> None:
   plain_ms1 = time_ms(torch, lambda: linalg.solve_pd(H, g), 5)
   lib_ms1 = time_ms(torch, lambda: torch.linalg.solve(H, g[..., None]), 20)
   n = s.nv
-  b1, by1 = bound_ms(4 * B * (n * n + 2 * n), B * chol_solve_flops(n))
+  b1, by1 = bound_ms(*pd_solve_work(H, g))
   rows.append(dict(name='pd_solve (K1)', route='cuda',
                    source='mjlab_torch/csrc/pd_solve.cu',
                    replaces='mjlab_tpu/ops/pd_solve.py:36',
@@ -5368,7 +5429,7 @@ def main() -> None:
   # the work these inputs need, per env: its active rows, and the Newton
   # steps it takes before ||grad||^2 <= grad_th^2 freezes it
   ncr = efc['c_J'].shape[1]
-  need, nc, rows_b, bytes2, flops2 = newton_work(torch, solver, args, iters,
+  need, nc, rows_b, bytes2, flops2 = newton_work(args, iters,
                                                  polish, ldof, grad_th)
   print(f'K2 work: Newton steps per env mean {float(need.double().mean()):.3f}'
         f' max {int(need.max())} of {iters}; active rows per env mean '
@@ -5498,7 +5559,7 @@ def main() -> None:
   ds = smooth.fwd_smooth(m, smooth.actuation(m, ds))
   sargs = solver.newton_args(ds, constraint.make_efc(m, ds))
   s_need, s_nc, s_rows, s_bytes, s_flops = newton_work(
-      torch, solver, sargs, iters, polish, ldof, grad_th)
+      sargs, iters, polish, ldof, grad_th)
   s_out = k_newton.newton_solve_cuda(*sargs, **kargs)
   s_ref = solver.newton_plain(*sargs, iters, polish, ldof, grad_th)
   s_rel = max(rel_err(a, b) for a, b in zip(s_out, s_ref))
@@ -5719,6 +5780,17 @@ def main() -> None:
             f'{key.split("_")[0]} path')
 
   stamp('phase 17')
+
+  # ---- phase 18: the profile CLI, stages, roofline and trace ---------------
+  prof_launches = profile_path(torch, card)
+  for r in rows:
+    kern = kernel_of.get(r['name'], 'smooth_env')
+    r['profile_path_launches'] = int(prof_launches.get(kern, 0))
+    check((r['profile_path_launches'] > 0) == (kern != 'smooth_env'),
+          f'{r["name"]} was launched {r["profile_path_launches"]} times on '
+          'the profile path')
+
+  stamp('phase 18')
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -5738,7 +5810,8 @@ def main() -> None:
           f'{r["pile_path_launches"]}, the replay path '
           f'{r["replay_path_launches"]}, the video path '
           f'{r["video_path_launches"]}, the render path '
-          f'{r["render_path_launches"]}; card {card}', flush=True)
+          f'{r["render_path_launches"]}, the profile path '
+          f'{r["profile_path_launches"]}; card {card}', flush=True)
   for r in pile_rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, bound '

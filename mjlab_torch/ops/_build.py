@@ -15,6 +15,7 @@ host without nvcc.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,12 +39,29 @@ SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 # Kernel launches by kernel name; each wrapper adds one where it launches.
 LAUNCHES: collections.Counter = collections.Counter()
 
+# The active work counter (utils/op_count.py's OpCounter), or None. While
+# one is active, each kernel wrapper charges its call's bytes and FLOPs
+# (ops/work.py) to it: a ctypes launch is invisible to a dispatch mode.
+COUNTER = None
+
 _libs: dict = {}
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
   LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def counting(counter):
+  """Within the block the kernel wrappers charge their work to `counter`
+  (it needs a `charge(name, work)` method)."""
+  global COUNTER
+  prev, COUNTER = COUNTER, counter
+  try:
+    yield counter
+  finally:
+    COUNTER = prev
 
 
 def _nvcc() -> str:

@@ -25,6 +25,7 @@ import functools
 import torch
 
 from mjlab_torch.ops import _build
+from mjlab_torch.ops import work as _work
 
 NAME = 'newton'
 SMEM_LIMIT = _build.SMEM_LIMIT
@@ -102,4 +103,7 @@ def newton_solve_cuda(M, a0, ws, cJ, c_aref, cD, c_act, l_sign, l_aref, lD,
            int(ls_polish), float(grad_th), _build.stream_ptr(M))
   _build.check(lib, NAME, err)
   _build.LAUNCHES[NAME] += 1
+  if _build.COUNTER is not None:
+    _build.COUNTER.charge(NAME, lambda: _work.newton_work(
+        args, iterations, ls_polish, ldof, grad_th)[3:])
   return x, ff, fl, fc

@@ -19,6 +19,7 @@ import functools
 import torch
 
 from mjlab_torch.ops import _build
+from mjlab_torch.ops import work as _work
 from mjlab_torch.physics import linalg as _linalg
 
 NAME = 'pd_solve'
@@ -55,6 +56,8 @@ def solve_pd_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
            _build.SMEM_LIMIT, _build.stream_ptr(H))
   _build.check(lib, NAME, err)
   _build.LAUNCHES[NAME] += 1
+  if _build.COUNTER is not None:
+    _build.COUNTER.charge(NAME, lambda: _work.pd_solve_work(H, g))
   return x
 
 

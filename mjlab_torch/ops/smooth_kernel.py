@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from mjlab_torch.ops import _build
+from mjlab_torch.ops import work as _work
 from mjlab_torch.physics.types import DisableBit, JointType
 
 NAME = 'smooth'
@@ -358,9 +359,12 @@ def smooth_fused_cuda(m, qpos: torch.Tensor, qvel: torch.Tensor, *,
                ctypes.addressof(plan.dims), ctypes.addressof(outs_c), epb,
                _build.stream_ptr(qpos))
   _build.check(lib, NAME, err)
-  _build.LAUNCHES[NAME if plan.etab is None else NAME_PER_ENV] += 1
+  name = NAME if plan.etab is None else NAME_PER_ENV
+  _build.LAUNCHES[name] += 1
   res = dict(zip(OUT_KEYS, outs))
   if not plan.ngeom:
     res['geom_xpos'] = res['geom_xpos'][:, :0]
     res['geom_xmat'] = res['geom_xmat'][:, :0]
+  if _build.COUNTER is not None:
+    _build.COUNTER.charge(name, lambda: _work.k3_work(m, qpos, qvel, res))
   return res

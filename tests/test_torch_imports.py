@@ -70,7 +70,8 @@ def test_the_walk_reaches_every_subpackage():
                'physics.mesh', 'viewer.base', 'viewer.primitives',
                'viewer.debug_visualizer', 'viewer.offscreen',
                'viewer.native', 'viewer.viser_viewer', 'utils.hbm',
-               'scripts.nan_viz'):
+               'scripts.nan_viz', 'scripts.profile', 'utils.op_count',
+               'ops.work'):
     assert f'mjlab_torch.{leaf}' in mods, leaf
 
 
@@ -268,7 +269,10 @@ def test_no_jax_import_in_the_port_sources():
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
+  from mjlab_torch.scripts import profile
   monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='CUDA is not available'):
+    profile.main(['--num-envs', '2', '--reps', '1'])
   arrays = g1_flat_arrays()
   with pytest.raises(RuntimeError, match='CUDA is not available'):
     tphys.put_model(arrays)

@@ -24,8 +24,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from mjlab_torch.ops.work import F32_FLOPS_PER_S  # noqa: E402
+
 TASK = 'Mjlab-Velocity-Flat-Unitree-G1'
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 
 def mlp_macs(dims) -> int:
