@@ -532,6 +532,27 @@ def degenerate_ranges(cfg, num_envs):
   return cfg
 
 
+WRENCH_BODY = 'torso_link'
+WRENCH_INTERVAL_S = (1.0, 3.0)  # phase 19's interval between two wrenches
+WRENCH_FORCE = (-20.0, 20.0)  # N, each component
+WRENCH_TORQUE = (-5.0, 5.0)  # N m, each component
+
+
+def external_wrench(cfg, mdp, term_cfg, interval_range_s=WRENCH_INTERVAL_S,
+                    force_range=WRENCH_FORCE, torque_range=WRENCH_TORQUE):
+  """`cfg` (a velocity env cfg of either package, with that package's
+  `mdp` and `term_cfg` modules) with one more event: a random wrench on
+  the robot's torso, drawn anew at each interval, as
+  `apply_external_force_torque`."""
+  cfg.events.torso_wrench = term_cfg.EventTermCfg(
+      func=mdp.apply_external_force_torque, mode='interval',
+      interval_range_s=interval_range_s,
+      params={'force_range': force_range, 'torque_range': torque_range,
+              'asset_cfg': term_cfg.SceneEntityCfg(
+                  'robot', body_names=[WRENCH_BODY])})
+  return cfg
+
+
 HISTORY = 5  # the policy's observation history in BASELINE config 5
 
 
@@ -5173,6 +5194,243 @@ def profile_path(torch, card: str) -> dict:
   return launches
 
 
+WRENCH_STEPS = 150  # env-steps of phase 19a
+WRENCH_TIP = 120  # the env-step before which phase 19a tips envs over
+WRENCH_TIPPED = 16  # ... the first this many
+WRENCH_CPU_ENVS = 256  # envs of phase 19c's xfrc_accumulate on the CPU
+# phase 19b's card-vs-CPU cfg: every range a point, a wrench every other
+# env-step (tests/test_torch_wrench.py runs the same against the JAX env)
+WRENCH_POINT = dict(interval_range_s=(0.04, 0.04), force_range=(6.0, 6.0),
+                    torque_range=(-1.5, -1.5))
+
+
+def wrench_card_vs_cpu(torch, num_envs: int = 8, steps: int = 5):
+  """G1 flat with the torso wrench, every range a point, on the card
+  against the CPU (card_vs_cpu_flips)."""
+  from mjlab_torch.envs import mdp as env_mdp
+  from mjlab_torch.managers import term_cfg
+  from mjlab_torch.tasks import registry
+
+  def make_cfg():
+    return external_wrench(
+        degenerate_ranges(registry.load_cfg(ENV_TASK), num_envs), env_mdp,
+        term_cfg, **WRENCH_POINT)
+
+  return card_vs_cpu_flips(torch, ENV_TASK, make_cfg, steps)
+
+
+def wrench_path(torch, card: str, busy) -> dict:
+  """Phase 19: G1 flat at 4096 envs under random torso wrenches
+  (`external_wrench`: a new wrench on each env every 1-3 s, force in
+  +-20 N and torque in +-5 N m a component) and the shipped actor.
+  Returns the kernels' launches over the path's run (the env's build and
+  reset, and the 150 env-steps)."""
+  import collections
+
+  from mjlab_torch.asset_zoo.pretrained import G1_FLAT_POLICY
+  from mjlab_torch.envs import mdp as env_mdp
+  from mjlab_torch.managers import term_cfg
+  from mjlab_torch.ops import LAUNCHES
+  from mjlab_torch.physics import smooth, smooth_fused
+  from mjlab_torch.rl.networks import load_actor
+  from mjlab_torch.tasks import registry
+
+  t19 = time.perf_counter()
+  kernels = ('smooth', 'newton', 'pd_solve')
+  path = collections.Counter()
+
+  # ---- 19a: build, reset, 150 env-steps under the shipped actor ----------
+  cfg = external_wrench(registry.load_cfg(ENV_TASK), env_mdp, term_cfg)
+  cfg.scene.num_envs = B
+  actor = load_actor(G1_FLAT_POLICY)
+  with counted(path):
+    env = registry.make(ENV_TASK, cfg=cfg)  # cuda, float32
+    obs, _ = env.reset()
+  dev = env.device
+  view = env.scene['robot']
+  torso = int(view.idx.body_ids[view.idx.body_names.index(WRENCH_BODY)])
+  clock = 'torso_wrench/time_left'
+  dt = env.step_dt
+  check(not bool(env.state.data.xfrc_applied.any()),
+        'a wrench before the first interval')
+  zero = lambda dtype=torch.long: torch.zeros((), dtype=dtype, device=dev)
+  armed = torch.zeros(B, dtype=torch.bool, device=dev)
+  ever = torch.zeros(B, dtype=torch.bool, device=dev)
+  wrong, cleared, fired_any = zero(), zero(), zero()
+  outside, elsewhere = zero(torch.bool), zero(torch.bool)
+  nan_count, fell = zero(), zero(torch.float32)
+  tipped_armed = zero()
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  per_step, events = [], []
+  lim = torch.tensor(WRENCH_FORCE[1:] * 3 + WRENCH_TORQUE[1:] * 3,
+                     device=dev)
+  others = torch.tensor([b for b in range(env.model.stat.nbody)
+                         if b != torso], device=dev)
+  with counted(path):
+    for i in range(WRENCH_STEPS):
+      if i == WRENCH_TIP:
+        tipped_armed = armed[:WRENCH_TIPPED].sum()
+        for e in range(WRENCH_TIPPED):
+          env._state = tip_over_state(torch, env.state, e)
+      left = env.state.event[clock]
+      act = actor(obs)
+      before = [LAUNCHES[k] for k in kernels]
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      obs, rew, term, trunc, extras = env.step(act)
+      end.record()
+      events.append((start, end))
+      per_step.append(tuple(LAUNCHES[k] - b for k, b in zip(kernels,
+                                                             before)))
+      # the wrench's bookkeeping, on the card: an env carries a wrench
+      # from its interval's first firing until its next reset
+      done = term | trunc
+      fired = env.state.event[clock] > left - dt / 2
+      was = armed
+      armed = fired | (armed & ~done)
+      x = env.state.data.xfrc_applied
+      on = x[:, torso].abs().amax(-1) > 0
+      wrong += (on != armed).sum()
+      cleared += (done & was & ~fired).sum()
+      fired_any += fired.sum()
+      ever |= fired
+      outside |= (x[:, torso].abs() > lim).any()
+      elsewhere |= x.index_select(1, others).any()
+      ok &= torch.isfinite(obs['policy']).all() & torch.isfinite(rew).all()
+      nan_count += extras['Episode_Termination/physics_nan']
+      fell += extras['Episode_Termination/fell_over']
+  torch.cuda.synchronize()
+  step_ms = [s.elapsed_time(e) for s, e in events]
+  shapes = sorted(set(per_step))
+  tipped = per_step[WRENCH_TIP]
+  fell_share = float(fell) / B
+  print(f'wrench path: {WRENCH_STEPS} env-steps x {B} envs, a wrench on '
+        f'{WRENCH_BODY} every {WRENCH_INTERVAL_S} s (force {WRENCH_FORCE} N, '
+        f'torque {WRENCH_TORQUE} N m a component), the shipped actor: '
+        f'env-step median {statistics.median(step_ms):.3f} ms (min '
+        f'{min(step_ms):.3f}, max {max(step_ms):.3f}; an event pair around '
+        f'env.step); fell_over {int(fell)} ({fell_share:.4f} of envs), '
+        f'physics_nan {int(nan_count)}; intervals fired {int(fired_any)} '
+        f'on {int(ever.sum())} envs, envs carrying a wrench at the end '
+        f'{int(armed.sum())}; card {card}',
+        flush=True)
+  print(f'wrench path launches per env-step (K3, K2, K1): '
+        f'{ {s_: per_step.count(s_) for s_ in shapes} }; the step after '
+        f'{WRENCH_TIPPED} envs were tipped over {tipped}', flush=True)
+  print(f'wrench path: envs whose torso wrench was not what its intervals '
+        f'and resets make it, summed over the env-steps: {int(wrong)}; '
+        f'resets that cleared a wrench {int(cleared)} ({int(tipped_armed)} '
+        f'of the {WRENCH_TIPPED} tipped envs carried one); a component '
+        f'outside its range {bool(outside)}; a wrench on another body '
+        f'{bool(elsewhere)}', flush=True)
+  check(set(shapes) <= {(4, 4, 8), (5, 5, 9)} and tipped == (5, 5, 9),
+        f'a wrench env-step launched {shapes}, the tipped step {tipped}: not '
+        '4/4/8, or 5/5/9 with a reset')
+  check(bool(ok), 'non-finite observation or reward on the wrench path')
+  check(int(nan_count) == 0, f'physics_nan fired {int(nan_count)} times')
+  check(int(wrong) == 0, 'an env\'s torso wrench was zero after its '
+        'interval fired, or nonzero after a reset')
+  check(int(cleared) >= 1 and int(tipped_armed) >= 1,
+        'no reset cleared a wrench')
+  # an interval of up to 3 s: nearly every env's first one ends inside
+  # the 150 env-steps
+  check(int(ever.sum()) >= 0.95 * B and not bool(outside)
+        and not bool(elsewhere), 'the intervals fired on under 95 % of the '
+        'envs, or a wrench left its range or its body')
+
+  # one sync an env-step: the refresh's bool(done.any())
+  act = actor(obs)
+
+  def three_steps():
+    for _ in range(3):
+      env.step(act)
+
+  _, syncs = count_syncs(torch, three_steps)
+  print(f'wrench path: {len(syncs)} synchronizing calls in 3 env-steps',
+        flush=True)
+  check(len(syncs) == 3, 'the wrench env-step synchronizes other than once '
+        'a step: ' + '; '.join(sorted(set(syncs))))
+
+  # ---- 19b: 8 envs on the card against the CPU ----------------------------
+  e_obs, e_rew, same, flips, kept = wrench_card_vs_cpu(torch)
+  tol = 1e-3  # phase 5c's
+  print(f'wrench env, 8 envs, 5 env-steps, a wrench every other env-step, '
+        f'CUDA f32 vs CPU f64: obs err/(1+max|cpu|) {e_obs:.3e}, reward '
+        f'{e_rew:.3e} (tolerance {tol:g}), done flags equal {same}; contact '
+        f'flips (env: env-step, |dist - margin| on the CPU in m) '
+        f'{ {e: (i, f"{g:.3e}") for e, (i, g) in flips.items()} } (allowed '
+        f'within {FLIP_GAP:g} m of the threshold), {kept} envs compared to '
+        'the end', flush=True)
+  check(e_obs <= tol and e_rew <= tol and same,
+        'the wrench env on the card disagrees with the CPU')
+  check(all(g <= FLIP_GAP for _, g in flips.values()) and kept >= 6,
+        'a contact flipped between the card and the CPU away from its '
+        'threshold, or in more than two envs')
+
+  # ---- 19c: xfrc_accumulate on K3's outputs against the CPU ----------------
+  import mjlab_torch.physics as phys
+  from mjlab_torch.asset_zoo import g1_flat_arrays
+  gen = torch.Generator(device=dev).manual_seed(19)
+  d = env.state.data
+  wrench = torch.zeros_like(d.xfrc_applied)
+  wrench[:, torso] = (torch.rand((B, 6), generator=gen, device=dev) * 2 - 1
+                      ) * lim
+  d = d.replace(xfrc_applied=wrench)
+  m = env.state.model
+  k3 = LAUNCHES['smooth']
+  dk = smooth_fused.smooth_all(m, d)  # K3
+  check(LAUNCHES['smooth'] == k3 + 1, 'smooth_all did not launch K3')
+  card_x = smooth.xfrc_accumulate(m, dk)
+  n = WRENCH_CPU_ENVS
+  mc = phys.put_model(g1_flat_arrays(), device='cpu', dtype=torch.float64)
+  dc = phys.make_batched_data(mc, n, device='cpu').replace(
+      qpos=d.qpos[:n].double().cpu(), qvel=d.qvel[:n].double().cpu(),
+      xfrc_applied=wrench[:n].double().cpu())
+  cpu_x = smooth.xfrc_accumulate(mc, smooth_fused.plain_all(mc, dc))
+  x_err = rel_err(card_x[:n].cpu(), cpu_x)
+  tol_x = 1e-4  # K3's tolerance: the inputs are its outputs
+  print(f'xfrc_accumulate on K3\'s outputs, {n} envs of the wrench path\'s '
+        f'last state with a random torso wrench, CUDA f32 vs CPU f64 plain '
+        f'stages: err/(1+max|cpu|) {x_err:.3e} (tolerance {tol_x:g}), '
+        f'max |cpu| {float(cpu_x.abs().max()):.3f}', flush=True)
+  check(x_err <= tol_x, 'xfrc_accumulate on the card disagrees with the CPU')
+
+  # ---- 19d: xfrc_accumulate alone at 4096 envs; its device kernels ---------
+  dz = dk.replace(xfrc_applied=torch.zeros_like(wrench))
+  times = {}
+  for what, dd in (('zero', dz), ('nonzero', dk)):
+    times[what] = (time_ms(torch, lambda: smooth.xfrc_accumulate(m, dd), 20),
+                   time_ms(torch, lambda: smooth.xfrc_accumulate(m, dd), 20,
+                           busy=busy))
+  print(f'xfrc_accumulate alone, {B} envs: zero wrench '
+        f'{times["zero"][0]:.4f} ms ({times["zero"][1]:.4f} ms behind a busy '
+        f'card), nonzero {times["nonzero"][0]:.4f} ms '
+        f'({times["nonzero"][1]:.4f}); event pairs, median of 20; card '
+        f'{card}', flush=True)
+  from torch.profiler import ProfilerActivity, profile
+  smooth.xfrc_accumulate(m, dk)
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    smooth.xfrc_accumulate(m, dk)
+    torch.cuda.synchronize()
+  dev_us = lambda e: getattr(e, 'self_device_time_total',
+                             getattr(e, 'self_cuda_time_total', 0))
+  kern = sorted(((e.key, e.count, dev_us(e)) for e in prof.key_averages()
+                 if str(e.device_type).endswith('CUDA')),
+                key=lambda k: -k[2])
+  print(f'xfrc_accumulate, one call at {B} envs under torch.profiler: '
+        f'{len(kern)} device kernels, '
+        f'{sum(k[2] for k in kern) / 1e3:.4f} ms of device time: '
+        + '; '.join(f'{name[:100]} x{c} {us / 1e3:.4f} ms'
+                    for name, c, us in kern) + f'; card {card}', flush=True)
+  if not kern:
+    print('xfrc_accumulate: the profiler saw no device time', flush=True)
+  print(f'phase 19 {time.perf_counter() - t19:.1f} s', flush=True)
+  return path
+
+
 def main() -> None:
   import torch
   if not torch.cuda.is_available():
@@ -5791,6 +6049,18 @@ def main() -> None:
           'the profile path')
 
   stamp('phase 18')
+
+  # ---- phase 19: G1 flat under random torso wrenches ------------------------
+  wrench_launches = wrench_path(torch, card, busy)
+  for r in rows + pile_rows:
+    kern = next((k for k, v in KERNEL_ROWS.items()
+                 if r['name'].startswith(v[0])), 'smooth_env')
+    r['wrench_path_launches'] = int(wrench_launches.get(kern, 0))
+    check((r['wrench_path_launches'] > 0) == (kern != 'smooth_env'),
+          f'{r["name"]} was launched {r["wrench_path_launches"]} times on '
+          'the wrench path')
+
+  stamp('phase 19')
   for r in rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, '
@@ -5811,12 +6081,14 @@ def main() -> None:
           f'{r["replay_path_launches"]}, the video path '
           f'{r["video_path_launches"]}, the render path '
           f'{r["render_path_launches"]}, the profile path '
-          f'{r["profile_path_launches"]}; card {card}', flush=True)
+          f'{r["profile_path_launches"]}, the wrench path '
+          f'{r["wrench_path_launches"]}; card {card}', flush=True)
   for r in pile_rows:
     print(f'{r["name"]}: {r["ms"]:.4f} ms, {r["device_ms"]:.4f} ms behind a '
           f'busy card (plain {r["plain_ms"]:.4f} ms, bound '
           f'{r["bound_ms"]:.5f} ms by {r["bound_by"]}), launches on the pile '
-          f'path {r["launches"]}; card {card}', flush=True)
+          f'path {r["launches"]}, the wrench path '
+          f'{r["wrench_path_launches"]}; card {card}', flush=True)
   rows.extend(pile_rows)
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {

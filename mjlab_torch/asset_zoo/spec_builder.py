@@ -12,32 +12,39 @@ from __future__ import annotations
 
 from pathlib import Path
 
-import mujoco
-
+# mujoco's enum member names; the package itself is imported where a spec is
+# built, so this module imports on a host without it
 _JOINT_TYPE = {
-    'free': mujoco.mjtJoint.mjJNT_FREE,
-    'ball': mujoco.mjtJoint.mjJNT_BALL,
-    'slide': mujoco.mjtJoint.mjJNT_SLIDE,
-    'hinge': mujoco.mjtJoint.mjJNT_HINGE,
+    'free': ('mjtJoint', 'mjJNT_FREE'),
+    'ball': ('mjtJoint', 'mjJNT_BALL'),
+    'slide': ('mjtJoint', 'mjJNT_SLIDE'),
+    'hinge': ('mjtJoint', 'mjJNT_HINGE'),
 }
 _GEOM_TYPE = {
-    'sphere': mujoco.mjtGeom.mjGEOM_SPHERE,
-    'capsule': mujoco.mjtGeom.mjGEOM_CAPSULE,
-    'cylinder': mujoco.mjtGeom.mjGEOM_CYLINDER,
-    'box': mujoco.mjtGeom.mjGEOM_BOX,
-    'ellipsoid': mujoco.mjtGeom.mjGEOM_ELLIPSOID,
+    'sphere': ('mjtGeom', 'mjGEOM_SPHERE'),
+    'capsule': ('mjtGeom', 'mjGEOM_CAPSULE'),
+    'cylinder': ('mjtGeom', 'mjGEOM_CYLINDER'),
+    'box': ('mjtGeom', 'mjGEOM_BOX'),
+    'ellipsoid': ('mjtGeom', 'mjGEOM_ELLIPSOID'),
 }
 _CAM_MODE = {
-    'fixed': mujoco.mjtCamLight.mjCAMLIGHT_FIXED,
-    'track': mujoco.mjtCamLight.mjCAMLIGHT_TRACK,
-    'trackcom': mujoco.mjtCamLight.mjCAMLIGHT_TRACKCOM,
-    'targetbody': mujoco.mjtCamLight.mjCAMLIGHT_TARGETBODY,
-    'targetbodycom': mujoco.mjtCamLight.mjCAMLIGHT_TARGETBODYCOM,
+    'fixed': ('mjtCamLight', 'mjCAMLIGHT_FIXED'),
+    'track': ('mjtCamLight', 'mjCAMLIGHT_TRACK'),
+    'trackcom': ('mjtCamLight', 'mjCAMLIGHT_TRACKCOM'),
+    'targetbody': ('mjtCamLight', 'mjCAMLIGHT_TARGETBODY'),
+    'targetbodycom': ('mjtCamLight', 'mjCAMLIGHT_TARGETBODYCOM'),
 }
+
+
+def _enum(mujoco, table: dict, key: str):
+  kind, name = table[key]
+  return getattr(getattr(mujoco, kind), name)
 
 
 def build_robot_spec(data: dict, visuals: bool = True,
-                     assets_dir=None) -> mujoco.MjSpec:
+                     assets_dir=None):
+  """The robot's mujoco.MjSpec (needs mujoco)."""
+  import mujoco
   spec = mujoco.MjSpec()
   spec.modelname = data['modelname']
   spec.compiler.degree = False
@@ -54,7 +61,7 @@ def build_robot_spec(data: dict, visuals: bool = True,
     parents[bd['name']] = body
 
     for jd in bd['joints']:
-      jtype = _JOINT_TYPE[jd['type']]
+      jtype = _enum(mujoco, _JOINT_TYPE, jd['type'])
       kwargs = {}
       if jtype not in (mujoco.mjtJoint.mjJNT_FREE, mujoco.mjtJoint.mjJNT_BALL):
         if jd['range'][0] != 0.0 or jd['range'][1] != 0.0:
@@ -64,7 +71,7 @@ def build_robot_spec(data: dict, visuals: bool = True,
 
     for gd in bd['geoms']:
       body.add_geom(
-          name=gd['name'], type=_GEOM_TYPE[gd['type']],
+          name=gd['name'], type=_enum(mujoco, _GEOM_TYPE, gd['type']),
           size=list(gd['size']), pos=list(gd['pos']), quat=list(gd['quat']),
           contype=gd['contype'], conaffinity=gd['conaffinity'],
           condim=gd['condim'], group=gd['group'],
@@ -77,7 +84,8 @@ def build_robot_spec(data: dict, visuals: bool = True,
 
     for cd in bd['cameras']:
       body.add_camera(name=cd['name'], pos=list(cd['pos']),
-                      quat=list(cd['quat']), mode=_CAM_MODE[cd['mode']],
+                      quat=list(cd['quat']),
+                      mode=_enum(mujoco, _CAM_MODE, cd['mode']),
                       fovy=cd['fovy'])
 
   for b1, b2 in data['excludes']:
@@ -101,12 +109,12 @@ def _mesh_reader(assets_dir: Path):
   return lambda name: load_stl(str(assets_dir / name))
 
 
-def _add_visuals(spec: mujoco.MjSpec, bodies: dict, vis: dict,
-                 assets_dir: Path) -> None:
+def _add_visuals(spec, bodies: dict, vis: dict, assets_dir: Path) -> None:
   """Attach the visual mesh layer: the meshes embedded as uservert and
   userface (so MjSpec.attach during scene composition never resolves a
   mesh directory) and massless contype = conaffinity = 0 group-2 mesh
   geoms, as mjlab_tpu/asset_zoo/spec_builder.py attaches them."""
+  import mujoco
   read = _mesh_reader(assets_dir)
   for md in vis['meshes']:
     verts, faces = read(md['file'])

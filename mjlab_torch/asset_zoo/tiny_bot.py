@@ -16,6 +16,7 @@ composed from these cfgs (scene/scene.py) or its committed snapshot.
 
 from __future__ import annotations
 
+from mjlab_torch.asset_zoo.spec_builder import build_robot_spec
 from mjlab_torch.entity.entity import EntityCfg, EntityInitStateCfg
 from mjlab_torch.entity.spec_config import ActuatorCfg, CollisionCfg
 
@@ -106,7 +107,6 @@ INIT_STATE = EntityInitStateCfg(
 
 def get_spec():
   """The TinyBot's MjSpec from its tables (needs mujoco)."""
-  from mjlab_torch.asset_zoo.spec_builder import build_robot_spec
   return build_robot_spec(SPEC_DATA)
 
 

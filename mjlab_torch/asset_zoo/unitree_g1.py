@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from pathlib import Path
 
+from mjlab_torch.asset_zoo.data.g1_spec_data import SPEC_DATA
+from mjlab_torch.asset_zoo.spec_builder import build_robot_spec
 from mjlab_torch.entity.entity import EntityCfg, EntityInitStateCfg
 from mjlab_torch.entity.spec_config import ActuatorCfg, CollisionCfg
 from mjlab_torch.utils.actuator import (
@@ -25,19 +27,20 @@ from mjlab_torch.utils.actuator import (
     reflected_inertia_two_stage_planetary,
 )
 
-_ARMATURE_5020 = reflected_inertia_two_stage_planetary(
+# motors (public Unitree specs)
+ARMATURE_5020 = reflected_inertia_two_stage_planetary(
     (0.139e-4, 0.017e-4, 0.169e-4), (1, 1 + 46 / 18, 1 + 56 / 16))
-_ARMATURE_7520_14 = reflected_inertia_two_stage_planetary(
+ARMATURE_7520_14 = reflected_inertia_two_stage_planetary(
     (0.489e-4, 0.098e-4, 0.533e-4), (1, 4.5, 1 + 48 / 22))
-_ARMATURE_7520_22 = reflected_inertia_two_stage_planetary(
+ARMATURE_7520_22 = reflected_inertia_two_stage_planetary(
     (0.489e-4, 0.109e-4, 0.738e-4), (1, 4.5, 5))
-_ARMATURE_4010 = reflected_inertia_two_stage_planetary(
+ARMATURE_4010 = reflected_inertia_two_stage_planetary(
     (0.068e-4, 0.0, 0.0), (1, 5, 5))
 
-_5020 = ElectricActuator(_ARMATURE_5020, 37.0, 25.0)
-_7520_14 = ElectricActuator(_ARMATURE_7520_14, 32.0, 88.0)
-_7520_22 = ElectricActuator(_ARMATURE_7520_22, 20.0, 139.0)
-_4010 = ElectricActuator(_ARMATURE_4010, 22.0, 5.0)
+ACTUATOR_5020 = ElectricActuator(ARMATURE_5020, 37.0, 25.0)
+ACTUATOR_7520_14 = ElectricActuator(ARMATURE_7520_14, 32.0, 88.0)
+ACTUATOR_7520_22 = ElectricActuator(ARMATURE_7520_22, 20.0, 139.0)
+ACTUATOR_4010 = ElectricActuator(ARMATURE_4010, 22.0, 5.0)
 
 
 def _cfg(names, act: ElectricActuator, mult: float = 1.0) -> ActuatorCfg:
@@ -51,18 +54,20 @@ def _cfg(names, act: ElectricActuator, mult: float = 1.0) -> ActuatorCfg:
 
 G1_ACTUATOR_5020 = _cfg(
     ['.*_elbow_joint', '.*_shoulder_pitch_joint', '.*_shoulder_roll_joint',
-     '.*_shoulder_yaw_joint', '.*_wrist_roll_joint'], _5020)
+     '.*_shoulder_yaw_joint', '.*_wrist_roll_joint'], ACTUATOR_5020)
 G1_ACTUATOR_7520_14 = _cfg(
-    ['.*_hip_pitch_joint', '.*_hip_yaw_joint', 'waist_yaw_joint'], _7520_14)
-G1_ACTUATOR_7520_22 = _cfg(['.*_hip_roll_joint', '.*_knee_joint'], _7520_22)
+    ['.*_hip_pitch_joint', '.*_hip_yaw_joint', 'waist_yaw_joint'],
+    ACTUATOR_7520_14)
+G1_ACTUATOR_7520_22 = _cfg(['.*_hip_roll_joint', '.*_knee_joint'],
+                           ACTUATOR_7520_22)
 G1_ACTUATOR_4010 = _cfg(['.*_wrist_pitch_joint', '.*_wrist_yaw_joint'],
-                        _4010)
+                        ACTUATOR_4010)
 # waist pitch/roll and ankles are 4-bar linkages driven by two 5020s
 # (nominal 1:1, so the pair sums)
-G1_ACTUATOR_WAIST = _cfg(['waist_pitch_joint', 'waist_roll_joint'], _5020,
-                         mult=2.0)
+G1_ACTUATOR_WAIST = _cfg(['waist_pitch_joint', 'waist_roll_joint'],
+                         ACTUATOR_5020, mult=2.0)
 G1_ACTUATOR_ANKLE = _cfg(['.*_ankle_pitch_joint', '.*_ankle_roll_joint'],
-                         _5020, mult=2.0)
+                         ACTUATOR_5020, mult=2.0)
 
 G1_ACTUATORS = (
     G1_ACTUATOR_5020, G1_ACTUATOR_7520_14, G1_ACTUATOR_7520_22,
@@ -74,8 +79,6 @@ ASSETS_DIR = Path(__file__).parent / 'robots' / 'unitree_g1' / 'assets'
 def get_spec(visuals: bool = True):
   """The real G1's MjSpec; visuals=True attaches the 35 visual meshes
   (massless, non-colliding: physics identical either way). Needs mujoco."""
-  from mjlab_torch.asset_zoo.data.g1_spec_data import SPEC_DATA
-  from mjlab_torch.asset_zoo.spec_builder import build_robot_spec
   return build_robot_spec(SPEC_DATA, visuals=visuals, assets_dir=ASSETS_DIR)
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from pathlib import Path
 
+from mjlab_torch.asset_zoo.data.go1_spec_data import SPEC_DATA
+from mjlab_torch.asset_zoo.spec_builder import build_robot_spec
 from mjlab_torch.entity.entity import EntityCfg, EntityInitStateCfg
 from mjlab_torch.entity.spec_config import ActuatorCfg, CollisionCfg
 from mjlab_torch.utils.actuator import ElectricActuator, reflected_inertia
@@ -52,8 +54,6 @@ ASSETS_DIR = Path(__file__).parent / 'robots' / 'unitree_go1' / 'assets'
 def get_spec(visuals: bool = True):
   """The real Go1's MjSpec; visuals=True attaches the visual meshes
   (massless, non-colliding: physics identical either way). Needs mujoco."""
-  from mjlab_torch.asset_zoo.data.go1_spec_data import SPEC_DATA
-  from mjlab_torch.asset_zoo.spec_builder import build_robot_spec
   return build_robot_spec(SPEC_DATA, visuals=visuals, assets_dir=ASSETS_DIR)
 
 

@@ -31,9 +31,17 @@ from mjlab_torch.entity.spec_config import (
 )
 from mjlab_torch.physics.io import names_of
 from mjlab_torch.physics.tables import ix, table
-from mjlab_torch.physics.types import Data, JointType, StaticBase
+from mjlab_torch.physics.types import (  # noqa: F401  (Model re-exported)
+    Data,
+    JointType,
+    Model,
+    StaticBase,
+)
 from mjlab_torch.utils import math as tmath
-from mjlab_torch.utils.string import resolve_matching_names_values
+from mjlab_torch.utils.string import (
+    resolve_matching_names,
+    resolve_matching_names_values,
+)
 
 
 # constant vectors come from the table cache: a tensor made from a Python
@@ -88,7 +96,11 @@ class Entity:
       raise ValueError('entity can have at most one free joint')
     self._joints = [j for j in joints if j.type != free]
     self.joint_names = [j.name for j in self._joints]
+    self.body_names = [b.name for b in self.spec.bodies if b.name != 'world']
+    self.geom_names = [g.name for g in self.spec.geoms if g.name]
+    self.site_names = [s.name for s in self.spec.sites if s.name]
     self.actuator_names = [a.name for a in self.spec.actuators]
+    self.sensor_names = [s.name for s in self.spec.sensors]
     self._add_initial_state_keyframe()
 
   def _add_initial_state_keyframe(self) -> None:
@@ -113,6 +125,34 @@ class Entity:
     key = self.spec.add_key(name='init_state', qpos=key_qpos)
     if joint_pos is not None and len(self.actuator_names) == len(joint_pos):
       key.ctrl = joint_pos
+
+  @property
+  def is_fixed_base(self) -> bool:
+    return not self._free_joints
+
+  @property
+  def is_articulated(self) -> bool:
+    return bool(self.joint_names)
+
+  @property
+  def is_actuated(self) -> bool:
+    return bool(self.actuator_names)
+
+  # regex finders: (ids, names)
+  def find_bodies(self, expr, preserve_order=False):
+    return resolve_matching_names(expr, self.body_names, preserve_order)
+
+  def find_joints(self, expr, preserve_order=False):
+    return resolve_matching_names(expr, self.joint_names, preserve_order)
+
+  def find_geoms(self, expr, preserve_order=False):
+    return resolve_matching_names(expr, self.geom_names, preserve_order)
+
+  def find_sites(self, expr, preserve_order=False):
+    return resolve_matching_names(expr, self.site_names, preserve_order)
+
+  def find_actuators(self, expr, preserve_order=False):
+    return resolve_matching_names(expr, self.actuator_names, preserve_order)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

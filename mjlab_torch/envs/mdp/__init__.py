@@ -7,6 +7,7 @@ from mjlab_torch.envs.mdp.actions import (  # noqa: F401
 )
 from mjlab_torch.envs.mdp.events import (  # noqa: F401
     FIELD_SPECS,
+    apply_external_force_torque,
     push_by_setting_velocity,
     randomize_field,
     reset_joints_by_scale,

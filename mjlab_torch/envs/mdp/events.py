@@ -1,4 +1,5 @@
-"""Event terms: resets, pushes, and domain randomization of model fields.
+"""Event terms: resets, pushes, external wrenches, and domain randomization
+of model fields.
 
 Counterpart of mjlab_tpu/envs/mdp/events.py. Data events have the signature
 `fn(ctx, data, mask, gen, **params) -> Data` and apply masked updates over
@@ -116,6 +117,25 @@ def push_by_setting_velocity(
   dv = _sample_axes(gen, velocity_range, ctx.num_envs, data.qpos.dtype)
   vel = data.qvel[:, ix(view.idx.free_v_adr, data.qvel.device)] + dv
   return view.write_root_velocity(data, vel, mask)
+
+
+def apply_external_force_torque(
+    ctx, data, mask, gen,
+    force_range: Tuple[float, float],
+    torque_range: Tuple[float, float],
+    asset_cfg: SceneEntityCfg = _DEFAULT):
+  """A random wrench on the selected bodies: (n, nb, 3) force and torque,
+  each uniform over its range, written into `xfrc_applied` of the masked
+  envs. It acts in every substep until the next draw, or until the env's
+  reset clears it."""
+  view = ctx.scene[asset_cfg.name]
+  nb = len(view.idx.body_ids[asset_cfg.body_ids])
+  shape = (ctx.num_envs, nb, 3)
+  dtype = data.qpos.dtype
+  force = tmath.sample_uniform(gen, *force_range, shape, dtype)
+  torque = tmath.sample_uniform(gen, *torque_range, shape, dtype)
+  return view.write_external_wrench(data, force, torque,
+                                    body_ids=asset_cfg.body_ids, mask=mask)
 
 
 # ---------------------------------------------------------------------------

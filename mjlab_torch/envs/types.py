@@ -18,6 +18,11 @@ import torch
 
 from mjlab_torch.physics.types import Data, Model
 
+# the VecEnv conventions: observations are a dict of groups, a step returns
+# a tuple
+VecEnvObs = dict
+VecEnvStepReturn = tuple
+
 
 @dataclasses.dataclass
 class EnvState:

@@ -21,6 +21,7 @@ import torch
 
 from mjlab_torch.managers.term_cfg import (
     ActionTermCfg,
+    CommandTermCfg,  # noqa: F401  (re-exported, as the JAX module does)
     CurriculumTermCfg,
     EventTermCfg,
     ObservationGroupCfg,

@@ -62,6 +62,12 @@ class SceneEntityCfg:
 
 
 @dataclasses.dataclass
+class NoiseModelCfgLike:
+  """An empty base of noise model cfgs, kept under the JAX package's
+  name for cfg code written against it."""
+
+
+@dataclasses.dataclass
 class ObservationTermCfg:
   func: Callable = None
   params: dict = dataclasses.field(default_factory=dict)

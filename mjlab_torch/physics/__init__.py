@@ -10,8 +10,20 @@ from mjlab_torch.physics.io import (
     put_model,
 )
 from mjlab_torch.physics.pipeline import forward, step
-from mjlab_torch.physics.types import Contact, Data, Model, ModelStatic
+from mjlab_torch.physics.types import (
+    ConeType,
+    Contact,
+    Data,
+    DisableBit,
+    GeomType,
+    IntegratorType,
+    JointType,
+    Model,
+    ModelStatic,
+    Option,
+)
 
-__all__ = ['Contact', 'Data', 'Model', 'ModelStatic', 'data_from_numpy',
-           'forward', 'make_batched_data', 'make_data', 'model_from_numpy',
-           'put_model', 'step']
+__all__ = ['ConeType', 'Contact', 'Data', 'DisableBit', 'GeomType',
+           'IntegratorType', 'JointType', 'Model', 'ModelStatic', 'Option',
+           'data_from_numpy', 'forward', 'make_batched_data', 'make_data',
+           'model_from_numpy', 'put_model', 'step']

@@ -784,3 +784,84 @@ def make_efc(m: Model, d: Data) -> dict:
                                  x_block['x_D'], zero)
     out.update(x_block)
   return out
+
+
+def densify_efc(stat: ModelStatic, efc: dict) -> dict:
+  """Flat (B, nefc, ...) views of `make_efc`'s blocks in MuJoCo's row order
+  [equality | friction | limit | contact] (tendon-limit rows after the
+  joint limits), for tests and debugging against mjData.efc_* arrays."""
+  lay = efc_layout(stat)
+  ne, nv, nl, nlt, ncr = lay.ne, lay.nf, lay.nl, lay.nlt, lay.ncr
+  c_J = efc['c_J']
+  B, dtype, dev = c_J.shape[0], c_J.dtype, c_J.device
+  elliptic = 'x_J' in efc
+  J = torch.zeros((B, lay.nefc, nv), dtype=dtype, device=dev)
+  if ne:
+    J[:, :ne] = efc['e_J'][:, :ne]
+  dofs = torch.arange(nv, device=dev)
+  J[:, ne + dofs, dofs] = 1.0
+  if nl:
+    J[:, ne + nv + torch.arange(nl, device=dev),
+      _ix(limit_dofadr(stat), dev)] = efc['l_sign'][:, :nl]
+  if nlt:
+    J[:, ne + nv + nl:ne + nv + nl + nlt] = efc['t_J'][:, :nlt]
+  if ncr and not elliptic:
+    J[:, ne + nv + nl + nlt:] = c_J[:, :ncr]
+
+  def cat(e, f, l, c, t=None):
+    parts = [e[:, :ne]] if ne else []
+    parts += [f, l[:, :nl]]
+    if nlt:
+      parts.append(t[:, :nlt] if t is not None else f.new_zeros((B, nlt)))
+    if ncr:
+      parts.append(c.new_zeros((B, ncr)) if elliptic else c[:, :ncr])
+    return torch.cat(parts, dim=1)
+
+  get = efc.get
+  ones = lambda x: torch.ones_like(x, dtype=torch.bool)
+  zeros = lambda x: torch.zeros_like(x, dtype=torch.bool)
+  out = dict(
+      J=J,
+      D=cat(get('e_D'), efc['f_D'], efc['l_D'], efc['c_D'], get('t_D')),
+      aref=cat(get('e_aref'), efc['f_aref'], efc['l_aref'], efc['c_aref'],
+               get('t_aref')),
+      frictionloss=cat(torch.zeros_like(efc['e_D']) if ne else None,
+                       efc['f_floss'],
+                       torch.zeros_like(efc['l_D']),
+                       torch.zeros_like(efc['c_D'])),
+      active=cat(get('e_active'), efc['f_active'], efc['l_active'],
+                 efc['c_active'], get('t_active')),
+      oneside=cat(zeros(efc['e_active']) if ne else None,
+                  zeros(efc['f_active']), ones(efc['l_active']),
+                  ones(efc['c_active']),
+                  ones(efc['t_active']) if nlt else None),
+      pos=cat(get('e_pos'), torch.zeros_like(efc['f_D']), efc['l_pos'],
+              efc['c_pos'], get('t_pos')))
+  if elliptic and ncr:
+    # the frictionless slots (c block) and the elliptic axes (x block) go
+    # to their rows of the dense slot order; the axes beyond a slot's
+    # condim map to row nefc, a spare row that is dropped
+    x_rows, c1_rows = elliptic_row_maps(stat)
+    nx, dm = efc['x_D'].shape[1:]
+    if nx != x_rows.shape[0]:  # the empty block of a contact-free model
+      x_rows = np.zeros((0, dm), np.int64)
+    c1, xr = _ix(c1_rows, dev), _ix(x_rows.ravel(), dev)
+
+    def scat(dense, cvals, xvals):
+      dense = torch.cat([dense, dense[:, :1]], dim=1)
+      if len(c1_rows):
+        dense[:, c1] = cvals[:, :len(c1_rows)].to(dense.dtype)
+      if x_rows.shape[0]:
+        dense[:, xr] = xvals.reshape((B, x_rows.size) + xvals.shape[3:]
+                                     ).to(dense.dtype)
+      return dense[:, :-1]
+
+    x_on = efc['x_active'][..., None].expand(B, nx, dm)
+    out['J'] = scat(out['J'], c_J, efc['x_J'])
+    out['D'] = scat(out['D'], efc['c_D'], efc['x_D'])
+    out['aref'] = scat(out['aref'], efc['c_aref'], efc['x_aref'])
+    out['active'] = scat(out['active'], efc['c_active'], x_on)
+    out['pos'] = scat(out['pos'], efc['c_pos'],
+                      efc['x_pos'][..., None].expand(B, nx, dm))
+    out['oneside'] = scat(out['oneside'], ones(efc['c_active']), x_on)
+  return out

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from mjlab_torch.physics import mesh as _mesh
-from mjlab_torch.physics.constraint import efc_layout
+from mjlab_torch.physics.constraint import efc_layout, equality_rows_count
 from mjlab_torch.physics.tables import ix as _ix
 from mjlab_torch.physics.types import (
     CollisionPairs,
@@ -33,10 +33,10 @@ from mjlab_torch.physics.types import (
     Model,
     ModelStatic,
     Option,
+    TrnType,
 )
 
 _ENBL_OVERRIDE = 1  # mjtEnableBit.mjENBL_OVERRIDE
-_TRN_JOINT = 0  # mjtTrn.mjTRN_JOINT
 _DYN_NONE, _DYN_INTEGRATOR, _DYN_FILTER, _DYN_FILTEREXACT = 0, 1, 2, 3
 
 # Narrowphase collider keys (types sorted a <= b) -> contact points per
@@ -244,7 +244,6 @@ def names_of(m, kind: str, n: int) -> tuple:
 
 
 _EQ_CONNECT, _EQ_WELD, _EQ_JOINT = 0, 1, 2  # mjtEq
-_TRN_TENDON = 3  # mjtTrn.mjTRN_TENDON
 _WRAP_JOINT, _WRAP_SITE = 1, 3  # mjtWrap
 _INT_IMPLICIT, _INT_IMPLICITFAST = 2, 3  # mjtIntegrator
 
@@ -277,11 +276,11 @@ def _check_supported(m) -> None:
   if m.npair and (np.asarray(m.pair_solreffriction) != 0).any():
     unsupported.append('pair solreffriction')
   trn = [int(t) for t in m.actuator_trntype]
-  if any(t not in (_TRN_JOINT, _TRN_TENDON) for t in trn):
+  if any(t not in (TrnType.JOINT, TrnType.TENDON) for t in trn):
     unsupported.append('actuator transmissions other than joint and tendon')
   if m.ntendon and int(m.opt.integrator) in (_INT_IMPLICIT,
                                              _INT_IMPLICITFAST):
-    if (_TRN_TENDON in trn
+    if (TrnType.TENDON in trn
         or (np.asarray(m.tendon_damping)[:m.ntendon] != 0).any()):
       unsupported.append(
           'implicit integrators with tendon damping or tendon actuators '
@@ -564,6 +563,29 @@ def put_model(m, device='cuda', dtype=torch.float32,
   for small pair tables, 64 when the table is larger."""
   return model_from_numpy(_model_arrays(m), model_static(m, ncon_cap),
                           device=device, dtype=dtype)
+
+
+def nefc_max(stat: ModelStatic) -> int:
+  """Static constraint row capacity: equality + friction + limits +
+  contact rows, as the JAX engine counts it."""
+  nfric = int(stat.nv) + equality_rows_count(stat)
+  nlimit = int(stat.jnt_limited.sum())
+  if stat.ntendon:
+    nlimit += int(stat.ten_limited[:stat.ntendon].sum())
+  if stat.ncon_cap or stat.ncon_cap1:
+    # compacted: pyramidal (or elliptic) rows for the frictional pool and
+    # one normal row a frictionless-pool slot
+    maxdim = int(stat.con_dim.max())
+    k_rows = maxdim if stat.cone == 1 else 2 * max(maxdim - 1, 1)
+    return nfric + nlimit + stat.ncon_cap * k_rows + stat.ncon_cap1
+  ncontact_rows = 0
+  for condim in stat.con_dim[:stat.pairs.ncon_max]:
+    condim = int(condim)
+    rows = 1 if condim == 1 else 2 * (condim - 1)
+    if stat.cone == 1 and condim > 1:  # elliptic
+      rows = condim
+    ncontact_rows += rows
+  return nfric + nlimit + ncontact_rows
 
 
 def make_data(model: Model, batch_size: int = 1, device='cuda') -> Data:

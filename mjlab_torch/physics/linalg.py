@@ -45,7 +45,11 @@ def solve_upper_t(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return x
 
 
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Solve A x = b given the lower Cholesky factor L of A."""
+  return solve_upper_t(L, solve_lower(L, b))
+
+
 def solve_pd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   """Solve SPD systems a x = b: a (..., n, n), b (..., n)."""
-  L = cholesky(a)
-  return solve_upper_t(L, solve_lower(L, b))
+  return cho_solve(cholesky(a), b)

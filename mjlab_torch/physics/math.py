@@ -56,6 +56,11 @@ def rot_vec_quat(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
   return v + 2.0 * (w * uv + cross(u, uv))
 
 
+def rot_vec_quat_inv(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+  """Rotate vector v by the inverse of quaternion q."""
+  return rot_vec_quat(v, neg_quat(q))
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
   """Unit quaternion -> 3x3 rotation matrix."""
   w, x, y, z = q.unbind(-1)
@@ -86,6 +91,18 @@ def quat_integrate(q: torch.Tensor, vel: torch.Tensor, dt) -> torch.Tensor:
   ident[..., 0] = 1.0
   dq = torch.where((angle > 1e-12)[..., None], dq, ident)
   return normalize_quat(mul_quat(q, dq))
+
+
+def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+  """Rotational velocity taking qb to qa in unit time, in qb's local frame
+  (mju_subQuat)."""
+  q = mul_quat(neg_quat(qb), qa)
+  q = torch.where(q[..., :1] < 0, -q, q)
+  sin_half = torch.linalg.vector_norm(q[..., 1:], dim=-1)
+  angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+  axis = q[..., 1:] / sin_half.clamp_min(1e-12)[..., None]
+  return torch.where((sin_half > 1e-12)[..., None], axis * angle[..., None],
+                     2.0 * q[..., 1:])
 
 
 def motion_cross(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -199,3 +216,15 @@ def transform_motion(vec: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
   oldpos, same orientation): lin - offset x ang (mju_transformSpatial)."""
   ang, lin = vec[..., :3], vec[..., 3:]
   return torch.cat([ang, lin - cross(offset, ang)], dim=-1)
+
+
+def transform_force(vec: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+  """A force vector moved to a frame displaced by `offset`: trq - offset x
+  frc."""
+  trq, frc = vec[..., :3], vec[..., 3:]
+  return torch.cat([trq - cross(offset, frc), frc], dim=-1)
+
+
+def inert_mul(inert_mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """A 6x6 spatial inertia times a motion vector: a force vector."""
+  return torch.einsum('...ij,...j->...i', inert_mat, v)

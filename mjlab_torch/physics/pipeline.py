@@ -31,6 +31,7 @@ from mjlab_torch.physics.tables import table
 from mjlab_torch.physics.types import (
     Data,
     DisableBit,
+    GainType,
     IntegratorType,
     JointType,
     Model,
@@ -82,7 +83,8 @@ def _actuator_vel_deriv(m: Model, d: Data) -> torch.Tensor:
   ctrl = _smooth.clamp_ctrl(m, d.ctrl)
   if s.na:
     ctrl, _ = _smooth.act_input(m, d, ctrl)
-  fixed = table(s.actuator_gaintype == 0, torch.bool, dev)
+  fixed = table(s.actuator_gaintype == int(GainType.FIXED), torch.bool,
+                dev)
   affine = table(s.actuator_biastype == 1, torch.bool, dev)
   zero = torch.zeros((), dtype=ctrl.dtype, device=dev)
   gain_vel = torch.where(fixed, zero, m.actuator_gainprm[:, 2])

@@ -59,6 +59,13 @@ OBJ_BODY, OBJ_XBODY, OBJ_JOINT, OBJ_GEOM, OBJ_SITE = 1, 2, 3, 5, 6  # mjtObj
 _CONDATA_SIZES = (1, 3, 3, 1, 3, 3, 3)
 REDUCE_NONE, REDUCE_MINDIST, REDUCE_MAXFORCE, REDUCE_NETFORCE = 0, 1, 2, 3
 
+# the sensor types `sensors` computes
+SUPPORTED = {
+    TOUCH, ACCELEROMETER, VELOCIMETER, GYRO, JOINTPOS, JOINTVEL, ACTUATORPOS,
+    ACTUATORVEL, ACTUATORFRC, FRAMEPOS, FRAMEQUAT, FRAMEXAXIS, FRAMEYAXIS,
+    FRAMEZAXIS, FRAMELINVEL, FRAMEANGVEL, SUBTREECOM, SUBTREELINVEL, CONTACT,
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class _ContactSensorStatic:

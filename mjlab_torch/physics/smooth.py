@@ -22,6 +22,7 @@ from mjlab_torch.physics.types import (
     GainType,
     JointType,
     Model,
+    TrnType,
 )
 
 
@@ -130,10 +131,10 @@ def passive(m: Model, d: Data) -> Data:
       tq = _ix(qadr[:, None] + np.arange(nq)[None, :], dev)
       q, qs = d.qpos[:, tq], m.qpos_spring[tq]
       if jt == JointType.BALL:
-        parts = [_quat_sub(q, qs)]
+        parts = [pmath.quat_sub(q, qs)]
       else:
         parts = [q[..., :3] - qs[..., :3],
-                 _quat_sub(q[..., 3:7], qs[..., 3:7])]
+                 pmath.quat_sub(q[..., 3:7], qs[..., 3:7])]
       off = 0
       for part in parts:
         for i in range(3):
@@ -152,17 +153,6 @@ def passive(m: Model, d: Data) -> Data:
     qfrc_damper = qfrc_damper + torch.einsum('bt,btv->bv', f_damper, d.ten_J)
   return d.replace(qfrc_passive=qfrc_spring + qfrc_damper,
                    qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper)
-
-
-def _quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
-  """Rotational velocity taking qb to qa in unit time (mju_subQuat)."""
-  q = pmath.mul_quat(pmath.neg_quat(qb), qa)
-  q = torch.where(q[..., :1] < 0, -q, q)
-  sin_half = torch.linalg.vector_norm(q[..., 1:], dim=-1)
-  angle = 2.0 * torch.atan2(sin_half, q[..., 0])
-  axis = q[..., 1:] / sin_half.clamp_min(1e-12)[..., None]
-  return torch.where((sin_half > 1e-12)[..., None], axis * angle[..., None],
-                     2.0 * q[..., 1:])
 
 
 _DYN_INTEGRATOR = 1
@@ -195,7 +185,6 @@ def act_input(m: Model, d: Data, ctrl: torch.Tensor):
   return inp, act_dot
 
 
-_TRN_JOINT = 0  # mjtTrn
 
 
 def trn_tables(s, dev):
@@ -205,7 +194,7 @@ def trn_tables(s, dev):
   actuator drives a joint). An actuator's entries of the other kind are
   0, masked by the caller."""
   ids = np.asarray(s.actuator_trnid)[:, 0]
-  joint = np.asarray(s.actuator_trntype) == _TRN_JOINT
+  joint = np.asarray(s.actuator_trntype) == int(TrnType.JOINT)
   jid = np.where(joint, ids, 0)
   ten = None if joint.all() else table(~joint, torch.bool, dev)
   return (_ix(s.jnt_qposadr[jid], dev), _ix(s.jnt_dofadr[jid], dev),
@@ -294,9 +283,15 @@ def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
   return torch.einsum('nik,nbk,bi->ni', d.cdof, cfrc, anc)
 
 
+def solve_m(d: Data, rhs: torch.Tensor) -> torch.Tensor:
+  """Solve M x = rhs for each env: kernel K1 on the card, its plain version
+  on the CPU."""
+  return _pd_solve.solve_pd(d.qM, rhs)
+
+
 def fwd_smooth(m: Model, d: Data) -> Data:
   """qfrc_smooth and qacc_smooth (unconstrained acceleration)."""
   qfrc_smooth = (d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator
                  + d.qfrc_applied + xfrc_accumulate(m, d))
-  qacc_smooth = _pd_solve.solve_pd(d.qM, qfrc_smooth)
+  qacc_smooth = solve_m(d, qfrc_smooth)
   return d.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=qacc_smooth)

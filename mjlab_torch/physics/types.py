@@ -64,6 +64,14 @@ class GainType(enum.IntEnum):
   AFFINE = 1
 
 
+class TrnType(enum.IntEnum):
+  """Actuator transmissions (mjtTrn); the engine drives joints and
+  tendons."""
+  JOINT = 0
+  TENDON = 3
+  SITE = 4
+
+
 class DisableBit(enum.IntFlag):
   CONSTRAINT = 1 << 0
   EQUALITY = 1 << 1

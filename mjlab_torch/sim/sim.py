@@ -22,9 +22,14 @@ from typing import Literal
 
 import numpy as np
 
-from mjlab_torch.physics.io import ModelArrays
+from mjlab_torch.physics import io as phys_io
 from mjlab_torch.physics.io import make_batched_data  # noqa: F401
-from mjlab_torch.physics.types import ConeType, IntegratorType, Model
+from mjlab_torch.physics.types import (  # noqa: F401  (Data re-exported)
+    ConeType,
+    Data,
+    IntegratorType,
+    Model,
+)
 
 _CONE = {'pyramidal': ConeType.PYRAMIDAL, 'elliptic': ConeType.ELLIPTIC}
 _INTEGRATOR = {'euler': IntegratorType.EULER,
@@ -87,12 +92,12 @@ class MujocoCfg:
   def apply(self, mj_model):
     """A copy of the compiled model (a ModelArrays snapshot or an MjModel)
     with this cfg's options in its `opt`."""
-    if isinstance(mj_model, ModelArrays):
+    if isinstance(mj_model, phys_io.ModelArrays):
       a = mj_model.arrays()
       for k, v in self.options().items():
         old = np.asarray(a[f'opt.{k}'])
         a[f'opt.{k}'] = np.asarray(v, old.dtype).reshape(old.shape)
-      return ModelArrays(a)
+      return phys_io.ModelArrays(a)
     out = copy.copy(mj_model)
     for k, v in self.options().items():
       setattr(out.opt, k, v)

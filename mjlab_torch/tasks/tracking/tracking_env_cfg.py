@@ -8,6 +8,7 @@ bodies and joints.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import field
 
@@ -171,9 +172,14 @@ class TerminationsCfg:
               'body_names': []})
 
 
+SIM_CFG = SimulationCfg(
+    mujoco=MujocoCfg(timestep=0.005, iterations=10, ls_iterations=20))
+
+
 def _sim_cfg() -> SimulationCfg:
-  return SimulationCfg(
-      mujoco=MujocoCfg(timestep=0.005, iterations=10, ls_iterations=20))
+  """A copy of SIM_CFG for each env cfg: an override of one env's
+  `sim.*` reaches neither SIM_CFG nor another env."""
+  return copy.deepcopy(SIM_CFG)
 
 
 @dataclasses.dataclass

@@ -7,6 +7,7 @@ scale, the posture stds and the geoms whose friction is randomized.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from dataclasses import field
@@ -153,9 +154,14 @@ class CurriculumCfg:
   terrain_levels: 'CurrTerm | None' = None
 
 
+SIM_CFG = SimulationCfg(
+    mujoco=MujocoCfg(timestep=0.005, iterations=10, ls_iterations=20))
+
+
 def _sim_cfg() -> SimulationCfg:
-  return SimulationCfg(
-      mujoco=MujocoCfg(timestep=0.005, iterations=10, ls_iterations=20))
+  """A copy of SIM_CFG for each env cfg: an override of one env's
+  `sim.*` reaches neither SIM_CFG nor another env."""
+  return copy.deepcopy(SIM_CFG)
 
 
 @dataclasses.dataclass
@@ -176,8 +182,6 @@ class LocomotionVelocityEnvCfg(ManagerBasedRlEnvCfg):
 
 def make_rough_terrain_cfg() -> TerrainImporterCfg:
   """Generator terrain on a copy of the default rough grid."""
-  import copy
-
   from mjlab_torch.terrains.config import ROUGH_TERRAINS_CFG
   return TerrainImporterCfg(
       terrain_type='generator',

@@ -38,3 +38,8 @@ def reflected_inertia_two_stage_planetary(rotor_inertia, gear_ratio):
   assert gear_ratio[0] == 1
   return (rotor_inertia[0] * (gear_ratio[1] * gear_ratio[2]) ** 2
           + rotor_inertia[1] * gear_ratio[2] ** 2 + rotor_inertia[2])
+
+
+def rpm_to_rad(rpm: float) -> float:
+  """Revolutions a minute -> radians a second."""
+  return rpm * 2.0 * math.pi / 60.0

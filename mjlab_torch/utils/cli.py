@@ -74,6 +74,16 @@ def _coerce(raw: str, current: Any) -> Any:
     return raw
 
 
+def print_cfg(cfg: Any, prefix: str = '') -> None:
+  """Print every leaf of a (nested) dataclass cfg, one `path = value` line
+  each."""
+  if dataclasses.is_dataclass(cfg):
+    for f in dataclasses.fields(cfg):
+      print_cfg(getattr(cfg, f.name), f'{prefix}{f.name}.')
+  else:
+    print(f'  {prefix[:-1]} = {cfg!r}')
+
+
 def cfg_to_dict(cfg):
   """A (nested) dataclass cfg as plain dicts and lists, for JSON."""
   if dataclasses.is_dataclass(cfg):

@@ -13,11 +13,16 @@ import math
 
 import torch
 
-from mjlab_torch.physics.math import mul_quat as quat_mul  # noqa: F401
-from mjlab_torch.physics.math import neg_quat as quat_conjugate
-from mjlab_torch.physics.math import normalize_quat as quat_normalize
-from mjlab_torch.physics.math import quat_to_mat as matrix_from_quat  # noqa
-from mjlab_torch.physics.math import rot_vec_quat
+from mjlab_torch.physics.math import (  # noqa: F401  (re-exported)
+    axis_angle_to_quat,
+    mat_to_quat,
+    mul_quat as quat_mul,
+    neg_quat as quat_conjugate,
+    normalize_quat as quat_normalize,
+    quat_to_mat as matrix_from_quat,
+    rot_vec_quat,
+    rot_vec_quat_inv,
+)
 
 
 def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -27,7 +32,12 @@ def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def quat_apply_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   """Rotate vector(s) v by the inverse of quaternion(s) q."""
-  return rot_vec_quat(v, quat_conjugate(q))
+  return rot_vec_quat_inv(v, q)
+
+
+# the names isaaclab gives them
+quat_rotate = quat_apply
+quat_rotate_inverse = quat_apply_inverse
 
 
 def quat_inv(q: torch.Tensor) -> torch.Tensor:
@@ -76,6 +86,42 @@ def quat_from_euler_xyz(roll, pitch, yaw) -> torch.Tensor:
       cy * sp * cr + sy * cp * sr,
       sy * cp * cr - cy * sp * sr,
   ], dim=-1)
+
+
+def euler_xyz_from_quat(q: torch.Tensor):
+  """Quaternion -> (roll, pitch, yaw), intrinsic XYZ."""
+  w, x, y, z = q.unbind(-1)
+  roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+  pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
+  yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+  return roll, pitch, yaw
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+  """Spherical interpolation along the shorter arc; `t` a number or a
+  tensor of the batch shape."""
+  d = (q0 * q1).sum(-1, keepdim=True)
+  q1 = torch.where(d < 0, -q1, q1)
+  d = d.abs()
+  theta = torch.acos(d.clamp(-1.0, 1.0))
+  sin_t = torch.sin(theta)
+  if torch.is_tensor(t) and t.ndim:
+    t = t[..., None]
+  safe = sin_t.clamp_min(1e-12)
+  w0 = torch.where(sin_t > 1e-6, torch.sin((1 - t) * theta) / safe, 1 - t)
+  w1 = torch.where(sin_t > 1e-6, torch.sin(t * theta) / safe, t)
+  return quat_normalize(w0 * q0 + w1 * q1)
+
+
+def quat_box_minus(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+  """The rotation vector taking q2 to q1 (the log map)."""
+  dq = quat_mul(quat_conjugate(q2), q1)
+  dq = torch.where(dq[..., :1] < 0, -dq, dq)
+  sin_half = torch.linalg.vector_norm(dq[..., 1:], dim=-1)
+  angle = 2.0 * torch.atan2(sin_half, dq[..., 0])
+  axis = dq[..., 1:] / sin_half.clamp_min(1e-12)[..., None]
+  return torch.where((sin_half > 1e-7)[..., None], axis * angle[..., None],
+                     2.0 * dq[..., 1:])
 
 
 def wrap_to_pi(angle: torch.Tensor) -> torch.Tensor:

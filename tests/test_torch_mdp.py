@@ -507,3 +507,114 @@ def test_commands_vel_curriculum_matches_jax(pair, step):
   st = term._resample(ts.command['twist'], tctx,
                       torch.ones(N, dtype=torch.bool), _gen())
   assert float(st['command'][:, 0].abs().max()) <= float(tmetric)
+
+
+WRENCH = {'force_range': (2.5, 2.5), 'torque_range': (-0.7, -0.7)}
+WRENCH_BODIES = {
+    'all': {},
+    'torso': {'body_names': ['torso_link']},
+    'feet': {'body_names': ['.*_ankle_roll_link']},
+}
+
+
+def _wrench_cfgs(pair, case):
+  """(JAX SceneEntityCfg, port SceneEntityCfg) selecting the case's
+  bodies. 'slice': the port's selects bodies 1-3 by a slice, the JAX one by
+  their ids (the JAX term sizes a slice's draw by the entity's whole body
+  count, so it takes no slice but the whole one)."""
+  jenv, tenv, _, _ = pair
+  names = WRENCH_BODIES.get(case, {})
+  jcfg = jtc.SceneEntityCfg('robot', **names).resolve(jenv.scene)
+  tcfg = ttc.SceneEntityCfg('robot', **names).resolve(tenv.scene)
+  if case == 'slice':
+    jcfg.body_ids = np.arange(1, 4, dtype=np.int32)
+    tcfg.body_ids = slice(1, 4)
+  return jcfg, tcfg
+
+
+@pytest.mark.parametrize('masked', [True, False], ids=['masked', 'all'])
+@pytest.mark.parametrize('case', [*WRENCH_BODIES, 'slice'])
+def test_external_wrench_matches_jax(pair, case, masked):
+  """apply_external_force_torque with its ranges collapsed to a point, over
+  a wrench already on every body: the selected bodies of the masked envs
+  take the drawn wrench, everything else keeps its own."""
+  jenv, tenv, js, ts = pair
+  jctx, tctx = _ctxs(pair)
+  mask = MASK if masked else np.ones(N, bool)
+  before = np.random.default_rng(5).normal(size=ts.data.xfrc_applied.shape)
+  jd = js.data.replace(xfrc_applied=jnp.asarray(before))
+  td = ts.data.replace(xfrc_applied=torch.as_tensor(before))
+  jcfg, tcfg = _wrench_cfgs(pair, case)
+  want = jmdp.apply_external_force_torque(
+      jctx, jd, jnp.asarray(mask), KEY, asset_cfg=jcfg, **WRENCH)
+  got = tmdp.apply_external_force_torque(
+      tctx, td, torch.as_tensor(mask), _gen(), asset_cfg=tcfg, **WRENCH)
+  _close(got.xfrc_applied, want.xfrc_applied, 'xfrc_applied')
+  assert torch.equal(td.xfrc_applied, torch.as_tensor(before)), \
+      'xfrc_applied written in place'
+  view = tenv.scene['robot']
+  ids = view.idx.body_ids[tcfg.body_ids]
+  expect = {'all': len(view.idx.body_ids), 'torso': 1, 'feet': 2,
+            'slice': 3}[case]
+  assert len(ids) == expect
+  hit = got.xfrc_applied[:, ids]
+  on = torch.as_tensor(mask)
+  assert torch.equal(hit[on], torch.tensor(
+      [2.5, 2.5, 2.5, -0.7, -0.7, -0.7],
+      dtype=torch.float64).expand_as(hit[on]))
+  assert torch.equal(hit[~on], torch.as_tensor(before)[:, ids][~on])
+
+
+def test_external_wrench_draws(pair):
+  """The port's draws, 2000 envs x every body: force and torque inside
+  their ranges, with the uniform's mean and variance, and no correlation
+  between envs, between bodies, or between force and torque."""
+  _, tenv, _, ts = pair
+  n = 2000
+  nbody = ts.data.xfrc_applied.shape[1]
+  ctx = tenv._make_ctx(ts)
+  ctx = type('Ctx', (), {'scene': ctx.scene, 'num_envs': n})()
+  data = ts.data.replace(
+      xfrc_applied=torch.zeros(n, nbody, 6, dtype=torch.float64),
+      qpos=torch.zeros(n, ts.data.qpos.shape[1], dtype=torch.float64))
+  cfg = ttc.SceneEntityCfg('robot').resolve(tenv.scene)
+  lo, hi = (-20.0, 20.0), (-5.0, 5.0)
+  got = tmdp.apply_external_force_torque(
+      ctx, data, torch.ones(n, dtype=torch.bool), _gen(), force_range=lo,
+      torque_range=hi, asset_cfg=cfg).xfrc_applied
+  ids = tenv.scene['robot'].idx.body_ids
+  frc, trq = got[:, ids, :3].numpy(), got[:, ids, 3:].numpy()
+  for x, (a, b) in ((frc, lo), (trq, hi)):
+    k = x.size
+    assert a <= x.min() and x.max() < b
+    mean, var = (a + b) / 2, (b - a) ** 2 / 12
+    assert abs(x.mean() - mean) <= 4 * np.sqrt(var / k)
+    # the sample variance of a uniform: its own variance is (b-a)^4/180
+    assert abs(x.var() - var) <= 4 * np.sqrt((b - a) ** 4 / 180 / k)
+    flat = (x - mean).reshape(n, -1)
+    lim = 5 / np.sqrt(flat.size)
+    env_corr = np.corrcoef(flat[:-1].ravel(), flat[1:].ravel())[0, 1]
+    body_corr = np.corrcoef(flat[:, :-3].ravel(), flat[:, 3:].ravel())[0, 1]
+    axis_corr = np.corrcoef(x[..., 0].ravel(), x[..., 1].ravel())[0, 1]
+    assert max(abs(env_corr), abs(body_corr), abs(axis_corr)) < lim, (
+        env_corr, body_corr, axis_corr)
+  assert abs(np.corrcoef(frc.ravel(), trq.ravel())[0, 1]) < 5 / np.sqrt(
+      frc.size)
+  assert got[:, 0].abs().max() == 0  # the world body is not the robot's
+
+
+def test_entity_reset_clears_the_wrench_of_reset_rows(pair):
+  """The env's reset clears the wrench on the entity's bodies of the envs
+  it resets, and only theirs, as the JAX entity's reset does."""
+  jenv, tenv, js, ts = pair
+  before = np.random.default_rng(6).normal(size=ts.data.xfrc_applied.shape)
+  want = jenv.scene['robot'].reset(
+      js.data.replace(xfrc_applied=jnp.asarray(before)), jnp.asarray(MASK))
+  got = tenv.scene['robot'].reset(
+      ts.data.replace(xfrc_applied=torch.as_tensor(before)),
+      torch.as_tensor(MASK))
+  _close(got.xfrc_applied, want.xfrc_applied, 'xfrc_applied')
+  ids = tenv.scene['robot'].idx.body_ids
+  assert got.xfrc_applied[torch.as_tensor(MASK)][:, ids].abs().max() == 0
+  assert torch.equal(got.xfrc_applied[~torch.as_tensor(MASK)],
+                     torch.as_tensor(before)[~MASK])

@@ -125,6 +125,91 @@ def test_rollout_matches_jax(setup):
     _close(getattr(td, f), getattr(jd, f), ROLLOUT_TOL, f)
 
 
+def _wrenched(mj, jd, seed=7):
+  """`jd` with a random wrench on every body but the world: force uniform
+  in [-20, 20] N, torque in [-5, 5] N m (the ranges chip_smoke.py puts on
+  the G1's torso)."""
+  rng = np.random.default_rng(seed)
+  x = np.zeros(jd.xfrc_applied.shape)
+  x[:, 1:, :3] = rng.uniform(-20.0, 20.0, (N, mj.nbody - 1, 3))
+  x[:, 1:, 3:] = rng.uniform(-5.0, 5.0, (N, mj.nbody - 1, 3))
+  return jd.replace(xfrc_applied=jnp.asarray(x))
+
+
+def test_step_with_a_wrench_matches_jax(setup):
+  """One step with a random nonzero xfrc_applied: the wrench reaches
+  qfrc_smooth (xfrc_accumulate), the SPD solve of qacc_smooth and the
+  Newton solve, as in the JAX step."""
+  mj, jm, jd, tm, _ = setup
+  jw = _wrenched(mj, jd)
+  want = _jax_step()(jm, jw)
+  got = tphys.step(tm, _port(tm, jw))
+  for f in ('qfrc_smooth', 'qacc_smooth', 'qpos', 'qvel', 'qacc',
+            'efc_force', 'sensordata'):
+    _close(getattr(got, f), getattr(want, f), STAGE_TOL, f)
+  # the wrench moves the step
+  still = _jax_step()(jm, jd)
+  assert np.abs(np.asarray(want.qacc_smooth)
+                - np.asarray(still.qacc_smooth)).max() > 1.0
+
+
+def test_densify_efc_matches_jax(setup):
+  """The dense efc views of the dropped G1 states (friction, joint-limit
+  and contact rows) in MuJoCo's row order, against the JAX package's
+  densify_efc of its own blocks; efc_force takes the same rows."""
+  _, jm, jd, tm, _ = setup
+  _, _, fs, efc, solved, _ = _jax_stages()(jm, jd)
+  want = jax.vmap(lambda e: jcon.densify_efc(jm.stat, e))(efc)
+  tefc = tcon.make_efc(tm, _port(tm, fs))
+  got = tcon.densify_efc(tm.stat, tefc)
+  assert set(got) == set(want)
+  for k, v in got.items():
+    _close(v if v.dtype != torch.bool else v.numpy(), want[k], STAGE_TOL,
+           f'dense {k}')
+  lay = tcon.efc_layout(tm.stat)
+  nefc = np.asarray(solved.efc_force).shape[-1]
+  assert got['J'].shape == (N, lay.nefc, tm.stat.nv) and nefc == lay.nefc
+  assert lay.ne == 0 and lay.nl > 0 and lay.ncr > 0
+  # friction rows: the identity; limit rows: one-sided; contacts active
+  nv = tm.stat.nv
+  assert torch.equal(got['J'][:, :nv], torch.eye(nv, dtype=torch.float64)
+                     .expand(N, nv, nv))
+  assert got['oneside'][:, nv:].all() and not got['oneside'][:, :nv].any()
+  assert got['active'][:, nv + lay.nl:].any(-1).all()
+
+
+def test_densify_efc_elliptic_matches_jax(setup):
+  """The dense views of the elliptic G1's blocks (the x block of the
+  compacted frictional slots scattered to their rows, the frictionless
+  pool's c rows), against the JAX densify_efc of the same blocks env by
+  env (eager: no program is compiled)."""
+  import mujoco
+  mj, _, jd, _, _ = setup
+  mje = copy.copy(mj)
+  mje.opt.cone = mujoco.mjtCone.mjCONE_ELLIPTIC
+  tm = tphys.put_model(mje, device='cpu', dtype=torch.float64)
+  td = _port(tm, jd)
+  efc = tcon.make_efc(tm, tphys.pipeline.fwd_velocity(
+      tm, tphys.pipeline.fwd_position(tm, td)))
+  assert efc['x_active'].any(-1).all()
+  got = tcon.densify_efc(tm.stat, efc)
+  jstat = jio.put_model(mje, dtype=jnp.float64).stat
+  for b in range(N):
+    one = {k: jnp.asarray(v[b].numpy()) for k, v in efc.items()}
+    # the JAX blocks always hold an equality block (here empty)
+    for k, dtype in (('e_J', None), ('e_D', None), ('e_aref', None),
+                     ('e_pos', None), ('e_active', bool)):
+      shape = (1, tm.stat.nv) if k == 'e_J' else (1,)
+      one.setdefault(k, jnp.zeros(shape, dtype or jnp.float64))
+    want = jcon.densify_efc(jstat, one)
+    assert set(got) == set(want)
+    for k, v in got.items():
+      _close(v[b] if v.dtype != torch.bool else v[b].numpy(), want[k],
+             STAGE_TOL, f'env {b} dense {k}')
+  lay = tcon.efc_layout(tm.stat)
+  assert got['active'][:, lay.con_row0:].any(-1).all()
+
+
 def test_elliptic_step_with_per_env_foot_friction_matches_jax(setup):
   """The G1 flat model with cone='elliptic' (the x block of its 32
   compacted frictional slots, the frictionless pool in the c block, the
