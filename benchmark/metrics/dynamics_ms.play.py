@@ -1,0 +1,8 @@
+"""Device time per env-step of the operations launched inside the port's
+span physics.dynamics (tendon, transmission, passive, actuation and
+fwd_smooth), ms."""
+from benchmark.lib import program_spans
+
+
+def read(rec):
+  return program_spans.stage_ms(rec, 'dynamics')

@@ -1,0 +1,7 @@
+"""Device time per env-step of the operations launched inside the port's
+span physics.sensor (the sensors), ms."""
+from benchmark.lib import program_spans
+
+
+def read(rec):
+  return program_spans.stage_ms(rec, 'sensor')

@@ -43,7 +43,6 @@ step. Two debugging aids see the state before `sanitize` does:
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
@@ -71,6 +70,7 @@ from mjlab_torch.sim.sim import (
     expand_model_fields,
     make_batched_data,
 )
+from mjlab_torch.utils import tracing
 from mjlab_torch.utils.math import ShardedGenerator
 
 
@@ -95,6 +95,10 @@ class ManagerBasedRlEnvCfg:
   events: Any = None
   commands: Any = None
   curriculum: Any = None
+
+
+# the env step's default stage hook: the span env.<stage>
+_STAGE = tracing.stages('env.')
 
 
 def sanitize(data: Data) -> Data:
@@ -368,6 +372,7 @@ class ManagerBasedRlEnv:
     ctx.terminated = terminated
     extras = {}
     cnt = mask.sum().to(torch.float32)
+    tracing.count('resets', cnt)
     safe_cnt = cnt.clamp_min(1.0)
 
     def mean_over_reset(v):
@@ -435,110 +440,112 @@ class ManagerBasedRlEnv:
     return state, extras
 
   def _step_fn(self, state: EnvState, action: torch.Tensor,
-               stage=contextlib.nullcontext):
-    """One env-step. `stage(name)` gives a context manager that wraps each
-    named stage of the step (a profiler's hook; nothing by default)."""
-    gen = self._gen
-    action = torch.as_tensor(action, dtype=state.actions.dtype,
-                             device=self.device)
+               stage=_STAGE):
+    """One env-step, in the span env.step. `stage(name)` gives a context
+    manager that wraps each named stage of the step (a profiler's hook; by
+    default the span env.<name>, nothing without a profiler)."""
+    with tracing.span('env.step'):
+      gen = self._gen
+      action = torch.as_tensor(action, dtype=state.actions.dtype,
+                               device=self.device)
 
-    # action processing
-    with stage('action'):
-      processed = self.action_manager.process(action)
-      state = state.replace(actions=action, prev_actions=state.actions)
-
-    # decimation loop
-    ctx = self._make_ctx(state)
-    pre = data = state.data  # pre: the forensic ring's capture
-    qvel_peaks = []
-    for _ in range(self.cfg.decimation):
+      # action processing
       with stage('action'):
-        data = self.action_manager.apply(ctx, data, processed)
-      with stage('substeps'):
-        data = phys_pipeline.step(state.model, data)
-        qvel_peaks.append(data.qvel.abs().amax(dim=-1))
+        processed = self.action_manager.process(action)
+        state = state.replace(actions=action, prev_actions=state.actions)
 
-    # physics blowup guard: an env whose state went non-finite (float32
-    # contact-force overflow) is force-terminated and reset this step, and
-    # the whole Data is sanitized so that reward, observation and
-    # normalizer math stays finite (comparisons with NaN are False, so the
-    # ordinary terminations would miss these envs). Finite-but-exploding
-    # states are flagged the same way, on the peak over the substeps, so an
-    # explosion in the middle of a control step is caught at once.
-    # Neither the forensic ring nor a NanGuard sees the sanitized state.
-    with stage('guard'):
-      fin = lambda a: torch.isfinite(a).all(dim=-1)
-      nonfinite = ~(fin(data.qpos) & fin(data.qvel) & fin(data.qacc))
-      qvel_peaks = torch.stack(qvel_peaks)
-      phys_bad = nonfinite | (qvel_peaks.amax(dim=0)
-                              > self.cfg.sanity_qvel_limit)
-      if self._blowup_dump_dir:
-        state = state.replace(forensic=self._forensic_write(
-            state.forensic, phys_bad, pre, processed, state, qvel_peaks))
-      state = state.replace(
-          data=sanitize(data),
-          episode_length=state.episode_length + 1,
-          common_step=state.common_step + 1)
-      guard = self.nan_guard
-      if guard is not None:
-        guard.observe(nonfinite, data.qpos, data.qvel, data.qacc, data.time,
-                      state.common_step)
+      # decimation loop
+      ctx = self._make_ctx(state)
+      pre = data = state.data  # pre: the forensic ring's capture
+      qvel_peaks = []
+      for _ in range(self.cfg.decimation):
+        with stage('action'):
+          data = self.action_manager.apply(ctx, data, processed)
+        with stage('substeps'):
+          data = phys_pipeline.step(state.model, data)
+          qvel_peaks.append(data.qvel.abs().amax(dim=-1))
 
-    # terminations + rewards
-    ctx = self._make_ctx(state)
-    with stage('terminations'):
-      terminated, truncated, term_info = self.termination_manager.compute(
-          ctx)
-      terminated = terminated | phys_bad
-      ctx.terminated = terminated
-    with stage('rewards'):
-      reward, sums, _, rew_state = self.reward_manager.compute(
-          ctx, state.reward_sums, self.step_dt, state.reward)
-      reward = torch.where(phys_bad, torch.zeros_like(reward), reward)
-      state = state.replace(reward_sums=sums, reward=rew_state)
-
-    # masked partial reset, then the forward refresh of every env if any
-    # env reset: the step's one host read of a device value, which also
-    # reads an attached NanGuard's flag
-    done = terminated | truncated
-    with stage('reset'):
-      state, extras = self._reset_masked(state, done, term_info)
-    with stage('refresh'):
-      any_done = done.any()
-      if self.world.sharded:
-        flag, = all_reduce_flat([any_done.to(torch.float32)], self.world,
-                                'max')
-        any_done = flag > 0
-      if guard is None:
-        refresh = bool(any_done)
-      else:
-        refresh, blew_up = torch.stack((any_done, nonfinite.any())).tolist()
-        guard.settle(blew_up)
-      if refresh:
+      # physics blowup guard: an env whose state went non-finite (float32
+      # contact-force overflow) is force-terminated and reset this step, and
+      # the whole Data is sanitized so that reward, observation and
+      # normalizer math stays finite (comparisons with NaN are False, so the
+      # ordinary terminations would miss these envs). Finite-but-exploding
+      # states are flagged the same way, on the peak over the substeps, so an
+      # explosion in the middle of a control step is caught at once.
+      # Neither the forensic ring nor a NanGuard sees the sanitized state.
+      with stage('guard'):
+        fin = lambda a: torch.isfinite(a).all(dim=-1)
+        nonfinite = ~(fin(data.qpos) & fin(data.qvel) & fin(data.qacc))
+        qvel_peaks = torch.stack(qvel_peaks)
+        phys_bad = nonfinite | (qvel_peaks.amax(dim=0)
+                                > self.cfg.sanity_qvel_limit)
+        if self._blowup_dump_dir:
+          state = state.replace(forensic=self._forensic_write(
+              state.forensic, phys_bad, pre, processed, state, qvel_peaks))
         state = state.replace(
-            data=phys_pipeline.forward(state.model, state.data))
+            data=sanitize(data),
+            episode_length=state.episode_length + 1,
+            common_step=state.common_step + 1)
+        guard = self.nan_guard
+        if guard is not None:
+          guard.observe(nonfinite, data.qpos, data.qvel, data.qacc, data.time,
+                        state.common_step)
 
-    # command update
-    with stage('commands'):
-      cmd_state = self.command_manager.compute(
-          state.command, self._make_ctx(state), gen, self.step_dt)
-      state = state.replace(command=cmd_state)
+      # terminations + rewards
+      ctx = self._make_ctx(state)
+      with stage('terminations'):
+        terminated, truncated, term_info = self.termination_manager.compute(
+            ctx)
+        terminated = terminated | phys_bad
+        ctx.terminated = terminated
+      with stage('rewards'):
+        reward, sums, _, rew_state = self.reward_manager.compute(
+            ctx, state.reward_sums, self.step_dt, state.reward)
+        reward = torch.where(phys_bad, torch.zeros_like(reward), reward)
+        state = state.replace(reward_sums=sums, reward=rew_state)
 
-    # interval events (pushes etc.)
-    with stage('events'):
-      data, ev_state = self.event_manager.apply_interval(
-          self._make_ctx(state), state.data, state.event, gen)
-      state = state.replace(data=data, event=ev_state)
+      # masked partial reset, then the forward refresh of every env if any
+      # env reset: the step's one host read of a device value, which also
+      # reads an attached NanGuard's flag
+      done = terminated | truncated
+      with stage('reset'):
+        state, extras = self._reset_masked(state, done, term_info)
+      with stage('refresh'):
+        any_done = done.any()
+        if self.world.sharded:
+          flag, = all_reduce_flat([any_done.to(torch.float32)], self.world,
+                                  'max')
+          any_done = flag > 0
+        if guard is None:
+          refresh = bool(any_done)
+        else:
+          refresh, blew_up = torch.stack((any_done, nonfinite.any())).tolist()
+          guard.settle(blew_up)
+        if refresh:
+          state = state.replace(
+              data=phys_pipeline.forward(state.model, state.data))
 
-    # observations
-    with stage('observations'):
-      obs, obs_state = self.observation_manager.compute(
-          self._make_ctx(state), state.obs, gen)
-      state = state.replace(obs=obs_state)
+      # command update
+      with stage('commands'):
+        cmd_state = self.command_manager.compute(
+            state.command, self._make_ctx(state), gen, self.step_dt)
+        state = state.replace(command=cmd_state)
 
-    extras['time_outs'] = truncated
-    extras['Episode_Termination/physics_nan'] = phys_bad.sum()
-    return state, (obs, reward, terminated, truncated, extras)
+      # interval events (pushes etc.)
+      with stage('events'):
+        data, ev_state = self.event_manager.apply_interval(
+            self._make_ctx(state), state.data, state.event, gen)
+        state = state.replace(data=data, event=ev_state)
+
+      # observations
+      with stage('observations'):
+        obs, obs_state = self.observation_manager.compute(
+            self._make_ctx(state), state.obs, gen)
+        state = state.replace(obs=obs_state)
+
+      extras['time_outs'] = truncated
+      extras['Episode_Termination/physics_nan'] = phys_bad.sum()
+      return state, (obs, reward, terminated, truncated, extras)
 
   def _reset_fn(self, state: EnvState):
     gen = self._gen

@@ -36,6 +36,7 @@ from mjlab_torch.physics import math as pmath
 from mjlab_torch.physics.tables import ix as _ix
 from mjlab_torch.physics.tables import table
 from mjlab_torch.physics.types import Data, GeomType, Model
+from mjlab_torch.utils import tracing
 
 _MJMINVAL = 1e-15
 
@@ -1030,4 +1031,5 @@ def collision(m: Model, d: Data) -> Data:
                     solref=solref, solimp=solimp,
                     includemargin=includemargin)
   ncon_active = (dist < includemargin).sum(-1).to(torch.int32)
+  tracing.count('contacts_active', ncon_active)
   return d.replace(contact=con, ncon_active=ncon_active)

@@ -10,6 +10,11 @@ advances every env of `d` by one timestep. One substep runs
 Supported integrators: Euler (implicit joint damping, as MuJoCo's
 eulerdamp) and implicitfast (implicit in velocity through the diagonal
 damping and actuator velocity-derivative terms).
+
+Under a profiler, `step` is the span physics.step, and every device
+operation it launches lies in one of seven stage spans (utils/tracing.py):
+physics.kinematics, .collision, .dynamics, .constraint, .solve, .sensor
+(each `forward`) and physics.integrate.
 """
 
 from __future__ import annotations
@@ -36,16 +41,20 @@ from mjlab_torch.physics.types import (
     JointType,
     Model,
 )
+from mjlab_torch.utils.tracing import span
+
+
+def _smooth_position(m: Model, d: Data) -> Data:
+  if _smooth_fused.enabled(m.stat):
+    # kinematics + com_pos + com_vel + crb + rne in one stage (K3)
+    return _smooth_fused.smooth_all(m, d)
+  d = _kinematics.kinematics(m, d)
+  d = _kinematics.com_pos(m, d)
+  return _smooth.crb(m, d)
 
 
 def fwd_position(m: Model, d: Data) -> Data:
-  if _smooth_fused.enabled(m.stat):
-    # kinematics + com_pos + com_vel + crb + rne in one stage (K3)
-    d = _smooth_fused.smooth_all(m, d)
-  else:
-    d = _kinematics.kinematics(m, d)
-    d = _kinematics.com_pos(m, d)
-    d = _smooth.crb(m, d)
+  d = _smooth_position(m, d)
   d = _collision.collision(m, d)
   d = _smooth.tendon(m, d)
   return _smooth.transmission(m, d)
@@ -63,15 +72,24 @@ def fwd_velocity(m: Model, d: Data) -> Data:
 
 def forward(m: Model, d: Data) -> Data:
   """Full forward dynamics: position -> velocity -> actuation ->
-  constraint -> sensors."""
-  d = fwd_position(m, d)
-  d = fwd_velocity(m, d)
-  d = _smooth.actuation(m, d)
-  d = _smooth.fwd_smooth(m, d)
-  efc = _constraint.make_efc(m, d)
-  d = _solver.solve(m, d, efc)
-  d = d.replace(qacc_warmstart=d.qacc)
-  return _sensor.sensors(m, d)
+  constraint -> sensors, each stage in its span (utils/tracing.py)."""
+  with span('physics.kinematics'):
+    d = _smooth_position(m, d)
+  with span('physics.collision'):
+    d = _collision.collision(m, d)
+  with span('physics.dynamics'):
+    d = _smooth.tendon(m, d)
+    d = _smooth.transmission(m, d)
+    d = fwd_velocity(m, d)
+    d = _smooth.actuation(m, d)
+    d = _smooth.fwd_smooth(m, d)
+  with span('physics.constraint'):
+    efc = _constraint.make_efc(m, d)
+  with span('physics.solve'):
+    d = _solver.solve(m, d, efc)
+    d = d.replace(qacc_warmstart=d.qacc)
+  with span('physics.sensor'):
+    return _sensor.sensors(m, d)
 
 
 def _actuator_vel_deriv(m: Model, d: Data) -> torch.Tensor:
@@ -187,11 +205,13 @@ def _implicitfast(m: Model, d: Data) -> Data:
 
 def step(m: Model, d: Data) -> Data:
   """forward + integrate (mj_step analog), for every env of the batch."""
-  d = forward(m, d)
-  if m.stat.integrator == int(IntegratorType.EULER):
-    return _euler(m, d)
-  if m.stat.integrator == int(IntegratorType.IMPLICITFAST):
-    return _implicitfast(m, d)
+  with span('physics.step'):
+    d = forward(m, d)
+    with span('physics.integrate'):
+      if m.stat.integrator == int(IntegratorType.EULER):
+        return _euler(m, d)
+      if m.stat.integrator == int(IntegratorType.IMPLICITFAST):
+        return _implicitfast(m, d)
   raise NotImplementedError(
       f'integrator {IntegratorType(m.stat.integrator).name} not supported; '
       'use Euler or implicitfast')

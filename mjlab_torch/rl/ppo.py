@@ -49,10 +49,12 @@ from mjlab_torch.rl.networks import (
     gaussian_entropy,
     gaussian_logprob,
 )
+from mjlab_torch.utils import tracing
 from mjlab_torch.utils.math import ShardedGenerator, env_rows
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 UPDATE_LOGS = ('loss', 'pg', 'v', 'ent', 'kl')
+_STAGE = tracing.stages('ppo.')
 
 
 @dataclasses.dataclass
@@ -133,7 +135,8 @@ def adaptive_lr(lr: torch.Tensor, kl: torch.Tensor,
 class StageClock:
   """`stage(name)` contexts that time a stage of a learn iteration without
   waiting for the device: CUDA events on a CUDA device (read by `ms()`,
-  which waits for the last of them), the host clock on the CPU."""
+  which waits for the last of them), the host clock on the CPU; each is
+  also the span ppo.<name> under a profiler."""
 
   def __init__(self, device: torch.device):
     self.cuda = device.type == 'cuda'
@@ -148,9 +151,10 @@ class StageClock:
 
   @contextlib.contextmanager
   def __call__(self, name: str):
-    start = self._now()
-    yield
-    self.marks[name] = (start, self._now())
+    with _STAGE(name):
+      start = self._now()
+      yield
+      self.marks[name] = (start, self._now())
 
   def ms(self) -> 'dict[str, float]':
     out = {}
@@ -276,13 +280,14 @@ class PPO:
     step_extras = []
     clip = self.cfg.clip_actions
     for t in range(self.cfg.num_steps_per_env):
-      a_obs, c_obs, a_n, c_n, mean, std, value = self._policy(ts, obs)
-      self._update_norms(ts, a_obs, c_obs)
-      action = mean + std * env_rows(ts.gen, lambda s: torch.randn(
-          s, generator=ts.gen, device=dev), mean.shape)
-      if clip is not None:
-        action = action.clamp(-clip, clip)
-      logprob = gaussian_logprob(mean, std, action)
+      with tracing.span('ppo.act'):
+        a_obs, c_obs, a_n, c_n, mean, std, value = self._policy(ts, obs)
+        self._update_norms(ts, a_obs, c_obs)
+        action = mean + std * env_rows(ts.gen, lambda s: torch.randn(
+            s, generator=ts.gen, device=dev), mean.shape)
+        if clip is not None:
+          action = action.clamp(-clip, clip)
+        logprob = gaussian_logprob(mean, std, action)
       env_state, (next_obs, reward, terminated, truncated, extras) = \
           self._step_fn(env_state, action)
       reward = reward.to(f32)
@@ -444,16 +449,18 @@ class PPO:
     logs /= alg.num_learning_epochs * alg.num_mini_batches
     return dict(zip(UPDATE_LOGS, logs.unbind()))
 
-  def _learn_iteration(self, ts: TrainState,
-                       stage=contextlib.nullcontext):
+  def _learn_iteration(self, ts: TrainState, stage=_STAGE):
     """Rollout, GAE and update; ts advances in place. `stage(name)` wraps
-    'collection' and 'learning' (a timer's hook; nothing by default).
-    Returns (ts, logs), the logs as 0-d device tensors."""
+    'collection' and 'learning' (a timer's hook; by default the span
+    ppo.<name>, nothing without a profiler). Returns (ts, logs), the logs
+    as 0-d device tensors."""
     with stage('collection'):
       traj, last_value, extras, stats = self._rollout(ts)
     with stage('learning'):
-      adv, returns = self._gae(traj, last_value)
-      logs = self._update(ts, traj, adv, returns)
+      with tracing.span('ppo.gae'):
+        adv, returns = self._gae(traj, last_value)
+      with tracing.span('ppo.update'):
+        logs = self._update(ts, traj, adv, returns)
 
     with torch.no_grad():
       logs.update(self._rollout_logs(traj, extras, stats))
