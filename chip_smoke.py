@@ -14,7 +14,9 @@ Phases, each of which exits non-zero on failure:
      the edge cases of K3 (ragged batches, slide joints, gravity off, a
      spinning root, a model without sites, other block sizes), K1 (n from
      1 to 64, ragged batches) and K2 (batches of 1 and 33, envs without
-     contact, the iteration cap);
+     contact, the iteration cap); 2f: K4 (the contact rows of the
+     compacted pools) at the training cell's 16384 envs, timed alone, with
+     the pools' selection and beside its plain version;
   3. run the physics path: the G1 flat scene at 4096 envs through the public
      entry points (put_model, make_batched_data, step) for 100 substeps,
      with every launch counter reset just before and read just after,
@@ -24,7 +26,8 @@ Phases, each of which exits non-zero on failure:
   5. run the environment path: `Mjlab-Velocity-Flat-Unitree-G1` at 4096
      envs through `registry.make`, `env.reset` and `env.step` under the
      shipped policy's actor (5a: build and reset; 5b: 150 env-steps with
-     noise, pushes and resets on, launches counted per env-step, then 50
+     noise, pushes and resets on, launches counted per env-step (K3, K2,
+     K1, K4: 4/4/8/4, or 5/5/9/5 with a reset), then 50
      env-steps under zero actions; 5c: 8 envs on the card in float32
      against the CPU in float64; 5d: env-steps per second and one env-step
      stage by stage);
@@ -813,7 +816,7 @@ def env_path(torch, card: str) -> dict:
     reset_launches()
     obs, rew, term, trunc, extras = env.step(actor(obs))
     per_step.append((LAUNCHES['smooth'], LAUNCHES['newton'],
-                     LAUNCHES['pd_solve']))
+                     LAUNCHES['pd_solve'], LAUNCHES['contact_rows']))
     ok &= torch.isfinite(rew).all() & torch.isfinite(obs['policy']).all() \
         & torch.isfinite(obs['critic']).all()
     nan_count += extras['Episode_Termination/physics_nan']
@@ -826,14 +829,15 @@ def env_path(torch, card: str) -> dict:
                    / (~done).sum())
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  for k3, k2, k1 in per_step:
-    for name, n in (('smooth', k3), ('newton', k2), ('pd_solve', k1)):
+  for k3, k2, k1, k4 in per_step:
+    for name, n in (('smooth', k3), ('newton', k2), ('pd_solve', k1),
+                    ('contact_rows', k4)):
       total[name] = total.get(name, 0) + n
   shapes = sorted(set(per_step))
-  print(f'env path launches per env-step (K3, K2, K1): '
+  print(f'env path launches per env-step (K3, K2, K1, K4): '
         f'{ {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
-  check(set(shapes) <= {(4, 4, 8), (5, 5, 9)},
-        f'an env-step launched {shapes}, not 4/4/8 or 5/5/9')
+  check(set(shapes) <= {(4, 4, 8, 4), (5, 5, 9, 5)},
+        f'an env-step launched {shapes}, not 4/4/8/4 or 5/5/9/5')
   track_mean = float(torch.stack(track).mean())
   fell_share = float(fell) / B
   print(f'env path: {ENV_STEPS} env-steps x {B} envs under the shipped actor '
@@ -853,13 +857,14 @@ def env_path(torch, card: str) -> dict:
   tip_over(torch, env, 7)
   reset_launches()
   obs, _, term, _, extras = env.step(actor(obs))
-  tipped = (LAUNCHES['smooth'], LAUNCHES['newton'], LAUNCHES['pd_solve'])
+  tipped = (LAUNCHES['smooth'], LAUNCHES['newton'], LAUNCHES['pd_solve'],
+            LAUNCHES['contact_rows'])
   print(f'env path, env 7 tipped over: launches {tipped}, terminated '
         f'{bool(term[7])}, reset_count {int(extras["reset_count"])}',
         flush=True)
-  check(bool(term[7]) and tipped == (5, 5, 9),
+  check(bool(term[7]) and tipped == (5, 5, 9, 5),
         'a tipped env did not reset with one more forward')
-  check((5, 5, 9) in shapes + [tipped], 'no env-step launched 5/5/9')
+  check((5, 5, 9, 5) in shapes + [tipped], 'no env-step launched 5/5/9/5')
 
   # the step waits for the card once: the refresh's bool(done.any())
   act = actor(obs)
@@ -1046,7 +1051,8 @@ def _train_path(torch, card: str, root: str, keep=None) -> dict:
   argv = [ENV_TASK, '--log-root', root, '--env.scene.num_envs', str(B)]
 
   # ---- 6a: 3 iterations through the entry point ----------------------------
-  with launches_per_step(('smooth', 'newton', 'pd_solve')) as per_step:
+  with launches_per_step(('smooth', 'newton', 'pd_solve',
+                          'contact_rows')) as per_step:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -1066,12 +1072,12 @@ def _train_path(torch, card: str, root: str, keep=None) -> dict:
   check(env.device.type == 'cuda' and env.num_envs == B,
         'the training env is not 4096 envs on the card')
   shapes = sorted(set(per_step))
-  print(f'train path launches per rollout env-step (K3, K2, K1): '
+  print(f'train path launches per rollout env-step (K3, K2, K1, K4): '
         f'{ {s_: per_step.count(s_) for s_ in shapes} }', flush=True)
   check(len(per_step) == TRAIN_ITERS * T,
         f'{len(per_step)} env-steps, not {TRAIN_ITERS * T}')
-  check(set(shapes) <= {(4, 4, 8), (5, 5, 9)},
-        f'a rollout env-step launched {shapes}, not 4/4/8 or 5/5/9')
+  check(set(shapes) <= {(4, 4, 8, 4), (5, 5, 9, 5)},
+        f'a rollout env-step launched {shapes}, not 4/4/8/4 or 5/5/9/5')
 
   run = os.path.join(root, cfg.experiment_name, 'a')
   with open(os.path.join(run, 'metrics.jsonl')) as f:
@@ -1501,6 +1507,80 @@ def onnx_check(torch, runner, path: str, what: str) -> float:
   check(meta['joint_names'] == joints,
         f'{what}: the ONNX metadata names other joints than the action term')
   return err
+
+
+# phase 2f's envs, the benchmark's training cell's. K4 serves every path
+# but five: the Go1 flat and Tiny scenes, the oracle models and the pile
+# do not compact their contacts, and the elliptic cone builds its rows in
+# the plain version
+K4_ENVS = 16384
+
+
+def k4_numbers(torch, phys, mj, card: str, busy) -> dict:
+  """Phase 2f: K4 on K4_ENVS G1 flat envs dropped onto the floor, against
+  its plain version (the c block, c_D masked as make_efc leaves it), timed
+  alone on the pools' selection and beside its plain version and the whole
+  kernel path (selection and kernel); its row of the kernels line."""
+  from mjlab_torch.ops import contact_rows as k_rows
+  from mjlab_torch.ops.work import bound_ms, contact_rows_work
+  from mjlab_torch.physics import constraint, pipeline
+  from mjlab_torch.physics.tables import ix, table
+  m = phys.put_model(mj)
+  s = m.stat
+  gen = torch.Generator().manual_seed(23)
+  d = pipeline.fwd_position(m, g1_states(torch, phys, mj, m, K4_ENVS, 0.03,
+                                         gen))
+  ts = m.opt.timestep
+  check(constraint.contact_rows_takes(m, d), 'K4 refuses the G1 flat scene')
+  got, _ = constraint._contacts_kernel(m, d, ts, True)
+  want = list(constraint.contacts_compacted_plain(m, d, ts, True)[0])
+  want[1] = torch.where(want[3], want[1], 0.0)
+  exact = torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+  errs = {k: max_err(g, w) for k, g, w in zip(('J', 'D', 'aref'), got, want)}
+  worst = max(rel_err(g, w) for g, w in zip(got[:3], want[:3]))
+  tol = 1e-5
+  print(f'K4 contact_rows at {K4_ENVS} envs: c_active and c_pos equal: '
+        f'{exact}; max abs err J {errs["J"]:.3e}, D {errs["D"]:.3e}, aref '
+        f'{errs["aref"]:.3e}; worst err/(1+max|plain|) {worst:.3e} '
+        f'(tolerance {tol:g}); {int(want[3].sum())} active rows of '
+        f'{want[3].numel()}', flush=True)
+  check(exact and worst <= tol, 'K4 disagrees with its plain version')
+
+  # the kernel alone, on the selection the kernel path makes
+  con = d.contact
+  dev = d.qpos.device
+  tab, dim, ancd, np3 = constraint._pool_tables(s)
+  sl3, sl1 = constraint.compaction_slot_pools(s)
+  pdist = con.dist - con.includemargin
+  sel3 = constraint.deepest(pdist[:, ix(sl3, dev)], s.ncon_cap)
+  sel1 = constraint.deepest(pdist[:, ix(sl1, dev)], s.ncon_cap1)
+  A = constraint._pyramid_axes(s)
+  kargs = (pdist, sel3, sel1, con.pos, con.frame, con.friction, con.solref,
+           con.solimp, d.cdof, d.subtree_com, d.qvel, m.body_invweight0, ts,
+           m.opt.impratio, table(tab, torch.int32, dev),
+           table(dim, torch.int32, dev), table(ancd, torch.int8, dev))
+  kw = dict(np3=np3, A=A, refsafe=True)
+  alone = lambda: k_rows.contact_rows_cuda(*kargs, **kw)
+  ms = time_ms(torch, alone, 20)
+  dev_ms = time_ms(torch, alone, 20, busy=busy)
+  path_ms = time_ms(
+      torch, lambda: constraint._contacts_kernel(m, d, ts, True), 20)
+  plain_ms = time_ms(
+      torch, lambda: constraint.contacts_compacted_plain(m, d, ts, True), 5)
+  nbytes, flops = contact_rows_work(K4_ENVS, s.nv, s.nbody, s.ncon_cap,
+                                    s.ncon_cap1, A, len(tab))
+  bound, by = bound_ms(nbytes, flops)
+  print(f'K4 contact_rows: {ms:.4f} ms, {dev_ms:.4f} ms behind a busy card '
+        f'({dev_ms / bound:.2f}x its bound {bound:.5f} ms by {by}: '
+        f'{nbytes / 1e6:.1f} MB); with the pools\' selection {path_ms:.4f} '
+        f'ms; plain {plain_ms:.4f} ms; '
+        f'{k_rows.smem_bytes(s.nv, s.ncon_cap, s.ncon_cap1, A)} B of shared '
+        f'memory a block; card {card}', flush=True)
+  return dict(name='contact_rows (K4)', route='cuda',
+              source='mjlab_torch/csrc/contact_rows.cu', replaces=None,
+              kernel='contact_rows', max_abs_err=max(errs.values()), ms=ms,
+              device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+              bound_by=by, library_ms=None, path_ms=path_ms)
 
 
 def go1_kernels(torch, card: str, busy) -> dict:
@@ -5100,7 +5180,8 @@ PROFILE_LABELS = ('full substep (fused)', 'kinematics', 'com_pos', 'crb',
                   'make_efc + solve')
 # the kernels' function names, as the trace's device events carry them
 PROFILE_KERNELS = {'smooth': 'smooth_kernel', 'newton': 'newton_kernel',
-                   'pd_solve': 'pd_solve_kernel'}
+                   'pd_solve': 'pd_solve_kernel',
+                   'contact_rows': 'contact_rows_kernel'}
 
 
 def profile_path(torch, card: str) -> dict:
@@ -5160,7 +5241,7 @@ def profile_path(torch, card: str) -> dict:
   check(set(shapes) <= {(4, 4, 8), (5, 5, 9)},
         f'a profile env-step launched {shapes}, not 4/4/8 or 5/5/9')
 
-  # the trace names the three kernels among its device events
+  # the trace names the four kernels among its device events
   named = {k: [n for n in trace['kernels'] if fn in n]
            for k, fn in PROFILE_KERNELS.items()}
   print(f'profile trace: {len(trace_text)} bytes, {len(trace["kernels"])} '
@@ -5772,6 +5853,11 @@ def main() -> None:
 
   stamp('phase 2e')
 
+  # ---- phase 2f: K4 contact rows at the training cell's 16384 envs ---------
+  rows.append(k4_numbers(torch, phys, mj, card, busy))
+
+  stamp('phase 2f')
+
   # ---- phase 3: the main path --------------------------------------------
   gen.manual_seed(1)
   d = phys.make_batched_data(m, B)
@@ -5862,7 +5948,8 @@ def main() -> None:
   # ---- phase 5: the environment path ----------------------------------------
   env_launches = env_path(torch, card)
   kernel_of = {'smooth_fused (K3)': 'smooth', 'pd_solve (K1)': 'pd_solve',
-               'newton_solve (K2)': 'newton'}
+               'newton_solve (K2)': 'newton',
+               'contact_rows (K4)': 'contact_rows'}
   for r in rows:
     r['env_path_launches'] = int(env_launches.get(kernel_of[r['name']], 0))
     check(r['env_path_launches'] > 0,
@@ -5904,6 +5991,8 @@ def main() -> None:
   for r in rows:
     kern = kernel_of.get(r['name'], 'smooth_env')
     r['go1_path_launches'] = int(go1_launches.get(kern, 0))
+    if kern == 'contact_rows':
+      check(r['go1_path_launches'] == 0, 'K4 was launched on the Go1 path')
     if kern in go1:
       r['go1'] = go1[kern]
       check(r['go1_path_launches'] > 0,
@@ -5962,8 +6051,9 @@ def main() -> None:
       r['tiny'] = tiny[kern]
     if kern == 'pd_solve':
       r['elliptic_hessians'] = ell_k1
-    check(r['tiny_path_launches'] > 0,
-          f'{r["name"]} was not launched on the Tiny path')
+    check((r['tiny_path_launches'] > 0) == (kern != 'contact_rows'),
+          f'{r["name"]} was launched {r["tiny_path_launches"]} times on the '
+          'Tiny path')
     check((r['elliptic_path_launches'] > 0) == (kern in ('smooth',
                                                          'pd_solve')),
           f'{r["name"]} was launched {r["elliptic_path_launches"]} times on '
@@ -5988,7 +6078,8 @@ def main() -> None:
     kern = kernel_of.get(r['name'], 'smooth_env')
     r['oracle_path_launches'] = int(oracle_launches.get(kern, 0))
     r.update(oracle_k.get(kern, {}))
-    check((r['oracle_path_launches'] > 0) == (kern != 'smooth_env'),
+    check((r['oracle_path_launches'] > 0) == (kern not in ('smooth_env',
+                                                           'contact_rows')),
           f'{r["name"]} was launched {r["oracle_path_launches"]} times on '
           'the oracle path')
 
@@ -5999,7 +6090,8 @@ def main() -> None:
   for r in rows:
     kern = kernel_of.get(r['name'], 'smooth_env')
     r['pile_path_launches'] = int(pile_launches.get(kern, 0))
-    check((r['pile_path_launches'] > 0) == (kern != 'smooth_env'),
+    check((r['pile_path_launches'] > 0) == (kern not in ('smooth_env',
+                                                         'contact_rows')),
           f'{r["name"]} was launched {r["pile_path_launches"]} times on '
           'the pile path')
 
@@ -6053,8 +6145,9 @@ def main() -> None:
   # ---- phase 19: G1 flat under random torso wrenches ------------------------
   wrench_launches = wrench_path(torch, card, busy)
   for r in rows + pile_rows:
-    kern = next((k for k, v in KERNEL_ROWS.items()
-                 if r['name'].startswith(v[0])), 'smooth_env')
+    kern = kernel_of.get(r['name']) or next(
+        (k for k, v in KERNEL_ROWS.items() if r['name'].startswith(v[0])),
+        'smooth_env')
     r['wrench_path_launches'] = int(wrench_launches.get(kern, 0))
     check((r['wrench_path_launches'] > 0) == (kern != 'smooth_env'),
           f'{r["name"]} was launched {r["wrench_path_launches"]} times on '

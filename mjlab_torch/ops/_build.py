@@ -30,7 +30,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'torch_kernels'
-SOURCES = ('pd_solve', 'newton', 'smooth')
+SOURCES = ('pd_solve', 'newton', 'smooth', 'contact_rows')
 NVCC_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
 

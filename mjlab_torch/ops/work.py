@@ -84,3 +84,26 @@ def newton_work(args, iterations: int, ls_polish: int, ldof: tuple,
   flops = int((need * per_step + (need < iterations) * grad_flops
                + 2 * (2 * n * n + 2 * nc * n) + 2 * nc * n).sum())
   return need, nc, rows, nbytes, flops
+
+
+def contact_rows_work(B: int, nv: int, nbody: int, K3: int, K1: int, A: int,
+                      npool: int) -> 'tuple[int, int]':
+  """K4: (bytes, FLOPs) of building the c block of B envs from K3
+  frictional slots (2 A rows each) and K1 frictionless ones (one row) of
+  pools of npool entries in all. Bytes, float32: per env the selected
+  slots' positions (int64) and contact data (dist - includemargin, pos,
+  frame, friction, solref, solimp: 25 floats), cdof, subtree_com and qvel
+  read once, c_J and c_D, c_aref, c_pos (floats) and c_active (bytes)
+  written once; the static pool tables (5 + 1 int32 and nv bytes an entry)
+  and body_invweight0 once. FLOPs per slot and dof: the translational
+  column (15) and its rotation into the frame (15), the velocity sums (6),
+  then per frictional row pair 3, with the rotational column (3), its
+  rotation (15) and sums (6) where A > 2; per slot ~60 for the impedance
+  and reference coefficients."""
+  K, ncr = K3 + K1, 2 * A * K3 + K1
+  per_env = (8 * K + 4 * 25 * K + 4 * (6 * nv + 3 * nbody + nv)
+             + 4 * ncr * nv + 13 * ncr)
+  static = npool * (24 + nv) + 4 * 2 * nbody
+  per_slot_dof = 36 * K + (3 * A + (24 if A > 2 else 0)) * K3
+  flops = B * (nv * per_slot_dof + 60 * K)
+  return B * per_env + static, flops

@@ -12,6 +12,12 @@ candidates chosen per env from two static slot pools (frictional and
 frictionless). Inactive rows carry zero D, so the solver's shapes never
 change.
 
+The compacted pools' rows of a pyramidal model are built on the card by
+kernel K4 (ops/contact_rows.py) from the selected slots; its plain version
+is `contacts_compacted_plain`, which builds them everywhere else (the CPU,
+an elliptic model). `make_efc` counts which of the two ran
+(`contact_rows_kernel`, utils/tracing.py).
+
 Pyramidal cone: a slot of condim d has 2 (d - 1) rows (Jn +- mu_i T_i),
 one when d == 1, all in the dense `c_*` block. Elliptic cone: a
 frictional slot has d rows (normal, then its friction axes) in the
@@ -27,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from mjlab_torch.ops import contact_rows as _contact_rows
 from mjlab_torch.physics import math as pmath
 from mjlab_torch.physics.tables import ix as _ix
 from mjlab_torch.physics.tables import table
@@ -38,6 +45,7 @@ from mjlab_torch.physics.types import (
     Model,
     ModelStatic,
 )
+from mjlab_torch.utils import tracing
 
 _MINIMP = 0.0001
 _MAXIMP = 0.9999
@@ -318,11 +326,12 @@ def _empty_elliptic(B: int, nv: int, DM: int, dtype, dev) -> dict:
               x_pos=z(1))
 
 
-def _contacts_compacted(m: Model, d: Data, ts, refsafe: bool):
+def contacts_compacted_plain(m: Model, d: Data, ts, refsafe: bool):
   """Contact rows of the deepest candidate slots of each pool: uniform
   pyramidal blocks of 2*(maxdim-1) rows for frictional slots (elliptic:
   the x block of those slots), one normal row for frictionless ones.
-  Returns the c block's five tensors and the x block or None."""
+  Returns the c block's five tensors and the x block or None. The plain
+  version of K4 (ops/contact_rows.py)."""
   s = m.stat
   B = d.qpos.shape[0]
   K3, K1 = s.ncon_cap, s.ncon_cap1
@@ -388,6 +397,65 @@ def _contacts_compacted(m: Model, d: Data, ts, refsafe: bool):
     blocks.append(_no_rows(B, 1, s.nv, d.qpos.dtype, d.qpos.device))
   return tuple(torch.cat([blk[i] for blk in blocks], dim=1)
                for i in range(5)), x_block
+
+
+@functools.lru_cache(maxsize=32)
+def _pool_tables(stat: ModelStatic):
+  """K4's static pool entries, the frictional pool's first: (tab (np, 5)
+  int32 of slot, body1, body2, root1, root2; dim (np,) int32, the slots'
+  condim; ancd (np, nv) int8, the signed ancestor delta; np3, the
+  frictional pool's entries)."""
+  pools = compaction_slot_pools(stat)
+  parts = [_pool_static(stat, tuple(int(x) for x in sl)) for sl in pools]
+  slots = np.concatenate(pools)
+  tab = np.stack([slots] + [np.concatenate([p[i] for p in parts])
+                            for i in range(1, 5)], axis=1)
+  ancd = np.concatenate([p[0] for p in parts])
+  return (tab.astype(np.int32), np.asarray(stat.con_dim)[slots].astype(
+      np.int32), ancd.astype(np.int8), len(pools[0]))
+
+
+def _pyramid_axes(stat: ModelStatic) -> int:
+  """Friction axes A of a compacted frictional slot: 2 A pyramid rows."""
+  return max(int(stat.con_dim.max()) - 1, 1)
+
+
+def contact_rows_takes(m: Model, d: Data) -> bool:
+  """Whether K4 builds the compacted pools' rows: a float32 batch on CUDA
+  of a pyramidal model that compacts, whose shapes the kernel takes."""
+  s = m.stat
+  if (d.qpos.device.type != 'cuda' or d.qpos.dtype != torch.float32
+      or s.cone == int(ConeType.ELLIPTIC)
+      or not (s.ncon_cap or s.ncon_cap1)):
+    return False
+  sl3, sl1 = compaction_slot_pools(s)
+  return (len(sl3) >= s.ncon_cap and len(sl1) >= s.ncon_cap1
+          and _contact_rows.fits(s.nv, s.ncon_cap, s.ncon_cap1,
+                                 _pyramid_axes(s)))
+
+
+def _contacts_kernel(m: Model, d: Data, ts, refsafe: bool):
+  """`contacts_compacted_plain`'s c block by K4: the same selection of
+  each pool's deepest slots, then one kernel for every row."""
+  s = m.stat
+  con = d.contact
+  dev = d.qpos.device
+  tab, dim, ancd, np3 = _pool_tables(s)
+  pdist = con.dist - con.includemargin
+
+  def select(slots, K):
+    if not K:
+      return torch.empty((pdist.shape[0], 0), dtype=torch.long, device=dev)
+    return deepest(pdist[:, _ix(slots, dev)], K)
+
+  sl3, sl1 = compaction_slot_pools(s)
+  return _contact_rows.contact_rows_cuda(
+      pdist, select(sl3, s.ncon_cap), select(sl1, s.ncon_cap1), con.pos,
+      con.frame, con.friction, con.solref, con.solimp, d.cdof,
+      d.subtree_com, d.qvel, m.body_invweight0, ts, m.opt.impratio,
+      table(tab, torch.int32, dev), table(dim, torch.int32, dev),
+      table(ancd, torch.int8, dev), np3=np3, A=_pyramid_axes(s),
+      refsafe=refsafe), None
 
 
 def _no_rows(B: int, n: int, nv: int, dtype, dev):
@@ -748,14 +816,20 @@ def make_efc(m: Model, d: Data) -> dict:
   # ---- contact rows: the dense c block and, elliptic, the x block ----
   ell_dm = elliptic_dmax(s)
   x_block = None
+  kernel = False
   if ncr and not (s.disableflags & DisableBit.CONTACT):
-    contacts = (_contacts_compacted if (s.ncon_cap or s.ncon_cap1)
-                else _contacts_all)
+    if not (s.ncon_cap or s.ncon_cap1):
+      contacts = _contacts_all
+    else:
+      kernel = contact_rows_takes(m, d)
+      contacts = _contacts_kernel if kernel else contacts_compacted_plain
     (c_J, c_D, c_aref, c_active, c_pos), x_block = contacts(m, d, ts,
                                                             refsafe)
   else:
     c_J, c_D, c_aref, c_active, c_pos = _no_rows(B, max(ncr, 1), nv,
                                                  dtype, dev)
+  if tracing.recording():
+    tracing.count('contact_rows_kernel', torch.tensor([float(kernel)]))
   if x_block is None and ell_dm:
     x_block = _empty_elliptic(B, nv, ell_dm, dtype, dev)
 

@@ -2,9 +2,10 @@
 small batch of G1 flat envs, K3 also with per-env model constants (its
 per-env form, with every segment per env, with config 5's and with the
 tracking task's), at the Go1's shapes (n 18, 228 uncompacted contact
-rows, trunks lying on the floor), on the G1 tracking env, and on the
+rows, trunks lying on the floor), on the G1 tracking env, on the
 convex pile (its ported collider groups card against CPU, K1-K3 at its
-shapes, its launches a substep). They need an NVIDIA GPU and the CUDA
+shapes, its launches a substep), and K4's contact rows on G1 flat and
+rough states, contact-free envs, condim 4 and 6 and per-env friction. They need an NVIDIA GPU and the CUDA
 toolkit and skip elsewhere; `python3 chip_smoke.py` holds the kernels at
 the main path's full shapes."""
 
@@ -40,6 +41,7 @@ from mjlab_torch.physics import collision as tcol
 from mjlab_torch.physics import constraint, linalg, pipeline, smooth
 from mjlab_torch.physics import kinematics as tkin
 from mjlab_torch.physics import smooth_fused, solver
+from mjlab_torch.physics.types import DisableBit
 from mjlab_torch.sim.sim import expand_model_fields
 
 pytestmark = pytest.mark.cuda
@@ -585,3 +587,174 @@ def test_pile_launches_each_kernel_a_substep(pile):
   tphys.step(m, d)
   assert tuple(LAUNCHES[k] - b for k, b in zip(kernels, before)) \
       == PILE_LAUNCHES
+
+
+# ---- K4: the contact rows of the compacted pyramidal pools -----------------
+
+ROWS_TOL = 1e-5  # float32, the kernel's 3-term and dof sums in another order
+
+
+def _contact_state(m, d):
+  """d with its contacts, cdof and subtree_com (fwd_position)."""
+  return pipeline.fwd_position(m, d)
+
+
+def _rows_both(m, d):
+  """K4's c block and the plain version's (c_D masked by c_active, as
+  make_efc leaves it) on d's contacts."""
+  ts = m.opt.timestep
+  refsafe = not (m.stat.disableflags & DisableBit.REFSAFE)
+  assert constraint.contact_rows_takes(m, d)
+  before = LAUNCHES['contact_rows']
+  got, x = constraint._contacts_kernel(m, d, ts, refsafe)
+  assert x is None and LAUNCHES['contact_rows'] == before + 1
+  want, _ = constraint.contacts_compacted_plain(m, d, ts, refsafe)
+  want = list(want)
+  want[1] = torch.where(want[3], want[1], torch.zeros((), device='cuda'))
+  return got, want
+
+
+def _rows_agree(got, want) -> int:
+  """Active rows and positions bit for bit, J, D and aref to ROWS_TOL of
+  their scale; returns the number of active rows."""
+  names = ('c_J', 'c_D', 'c_aref', 'c_active', 'c_pos')
+  for g, w, name in zip(got, want, names):
+    assert g.shape == w.shape and g.dtype == w.dtype, name
+  assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+  for i in (0, 1, 2):
+    assert _rel(got[i], want[i]) < ROWS_TOL, names[i]
+  return int(want[3].sum())
+
+
+@pytest.mark.parametrize('batch', [1, 33, 130])
+def test_contact_rows_kernel_matches_plain(g1, batch):
+  m, _ = g1
+  gen = torch.Generator().manual_seed(100 + batch)
+  d = _contact_state(m, g1_states(torch, tphys, g1_flat_arrays(), m, batch,
+                                  0.03, gen))
+  assert _rows_agree(*_rows_both(m, d)) > 0
+
+
+def test_contact_rows_kernel_contact_free_envs(g1):
+  """Every third env lifted a metre off the floor: none of its rows is
+  active and its c_D is zero; the others match as before."""
+  m, _ = g1
+  gen = torch.Generator().manual_seed(5)
+  d = g1_states(torch, tphys, g1_flat_arrays(), m, 48, 0.03, gen)
+  qpos = d.qpos.clone()
+  qpos[::3, 2] += 1.0
+  got, want = _rows_both(m, _contact_state(m, d.replace(qpos=qpos)))
+  assert _rows_agree(got, want) > 0
+  assert not bool(got[3][::3].any()) and not bool(got[1][::3].any())
+
+
+def _condim_variant(condims):
+  """The G1 flat snapshot with its condim-3 geoms given the condims
+  `condims` in turn (their contacts then have 2 (condim - 1) pyramid
+  rows, the rotational axes among them)."""
+  import numpy as np
+  from mjlab_torch.physics.io import ModelArrays
+  a = g1_flat_arrays().arrays()
+  cd = a['geom_condim'].copy()
+  ids = np.nonzero(cd == 3)[0]
+  cd[ids] = np.resize(np.asarray(condims), len(ids))
+  a['geom_condim'] = cd
+  return ModelArrays(a)
+
+
+@pytest.mark.parametrize('condims', [(4,), (4, 6)])
+def test_contact_rows_kernel_more_friction_axes(g1, condims):
+  """A = 3 (condim 4: the torsional axis) and A = 5 (condims 4 and 6 mixed:
+  the rolling axes, and a slot's axes past its condim inactive): 6 and 10
+  rows a frictional slot, 53 KB of shared memory at A = 5."""
+  arrays = _condim_variant(condims)
+  m = tphys.put_model(arrays)
+  assert constraint._pyramid_axes(m.stat) == max(condims) - 1
+  gen = torch.Generator().manual_seed(sum(condims))
+  d = _contact_state(m, g1_states(torch, tphys, arrays, m, 40, 0.03, gen))
+  got, want = _rows_both(m, d)
+  assert _rows_agree(got, want) > 0
+  assert got[0].shape[1] == constraint.efc_layout(m.stat).ncr
+
+
+def test_contact_rows_kernel_per_env_friction(g1):
+  """Config 5's per-env foot friction (geom_friction per env) reaches the
+  rows through the contacts' friction."""
+  m, _ = g1
+  n = 40
+  gen = torch.Generator().manual_seed(6)
+  mp = expand_model_fields(m, ('geom_friction',), n)
+  scale = 0.5 + torch.rand((n, 1, 1), generator=gen)
+  mp = mp.replace(geom_friction=mp.geom_friction * scale.cuda())
+  d = _contact_state(mp, g1_states(torch, tphys, g1_flat_arrays(), mp, n,
+                                   0.03, gen))
+  fr = d.contact.friction[:, :, 0]
+  assert float((fr[1:] - fr[:1]).abs().max()) > 1e-3
+  assert _rows_agree(*_rows_both(mp, d)) > 0
+
+
+def test_contact_rows_kernel_refuses_per_env_invweight(g1):
+  """body_invweight0 is read as one table shared by every env: a per-env
+  copy raises rather than being read wrongly."""
+  m, d = g1
+  d = _contact_state(m, d)
+  mp = m.replace(body_invweight0=m.body_invweight0.expand(
+      (B,) + tuple(m.body_invweight0.shape)).contiguous())
+  with pytest.raises(ValueError, match='body_invweight0'):
+    constraint._contacts_kernel(mp, d, m.opt.timestep, True)
+
+
+def test_contact_rows_kernel_on_rough_terrain():
+  """G1 rough states, after a few env-steps on a small generated grid:
+  the heightfield pairs' contacts."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs an NVIDIA GPU')
+  from mjlab_torch.tasks import registry
+  small = {'num_rows': 2, 'num_cols': 3, 'size': (2.0, 2.0),
+           'border_width': 1.0}
+  env = registry.make('Mjlab-Velocity-Rough-Unitree-G1', **{
+      'scene.num_envs': 32, **{f'scene.terrain.terrain_generator.{k}': v
+                               for k, v in small.items()}})
+  env.reset(0)
+  for _ in range(5):
+    env.step(torch.zeros(32, env.action_dim, device='cuda'))
+  m = env.state.model
+  assert m.stat.nhfield
+  got, want = _rows_both(m, _contact_state(m, env.state.data))
+  assert _rows_agree(got, want) > 0
+
+
+def test_make_efc_on_the_card_matches_the_cpu(g1):
+  """One make_efc of 16 G1 states: on the card through K4 in float32,
+  on the CPU through the plain version in float64 from the same state."""
+  m, _ = g1
+  gen = torch.Generator().manual_seed(8)
+  dg = _contact_state(m, g1_states(torch, tphys, g1_flat_arrays(), m, 16,
+                                   0.03, gen))
+  mc = tphys.put_model(g1_flat_arrays(), device='cpu', dtype=torch.float64)
+  dc = tphys.make_batched_data(mc, 16, device='cpu').replace(
+      qpos=dg.qpos.cpu().double(), qvel=dg.qvel.cpu().double())
+  dc = _contact_state(mc, dc)
+  before = LAUNCHES['contact_rows']
+  got = constraint.make_efc(m, dg)
+  assert LAUNCHES['contact_rows'] == before + 1
+  want = constraint.make_efc(mc, dc)
+  assert torch.equal(got['c_active'].cpu(), want['c_active'])
+  for k in ('c_J', 'c_D', 'c_aref', 'c_pos'):
+    assert _rel(got[k].double().cpu(), want[k]) < 1e-4, k
+
+
+def test_env_step_launches_contact_rows_with_newton(g1):
+  """On G1 flat every make_efc of an env-step takes K4: as many launches
+  as K2's, 4 an env-step or 5 with a reset."""
+  from mjlab_torch.tasks import registry
+  env = registry.make('Mjlab-Velocity-Flat-Unitree-G1',
+                      **{'scene.num_envs': B})
+  env.reset()
+  seen = set()
+  for _ in range(3):
+    before = [LAUNCHES[k] for k in ('contact_rows', 'newton')]
+    env.step(torch.zeros(B, env.action_dim, device='cuda'))
+    seen.add(tuple(LAUNCHES[k] - b for k, b in zip(('contact_rows',
+                                                    'newton'), before)))
+  assert seen <= {(4, 4), (5, 5)}, seen

@@ -283,3 +283,20 @@ def test_what_the_benchmark_patches_resolves(g1_env, monkeypatch):
     monkeypatch.setattr(mod, name, wrapped)
   pipeline.step(g1_env.state.model, g1_env.state.data)
   assert called == ['collision', 'solve']
+
+
+def test_the_contact_rows_counter_on_the_cpu(g1_env):
+  """Each make_efc of an env-step counts whether K4 built its contact rows:
+  0.0 on the CPU, where the plain version does, in every substep and in
+  the refresh's forward; nothing without a profiler."""
+  action = torch.zeros(g1_env.num_envs, g1_env.action_dim)
+  g1_env.reset(0)
+  g1_env.step(action)
+  assert 'contact_rows_kernel' not in tracing.counters()
+  state = g1_env.state
+  n = g1_env.cfg.decimation
+  g1_env._state = state.replace(episode_length=torch.tensor(
+      [g1_env.max_episode_length - 1, 0], dtype=state.episode_length.dtype))
+  with torch.profiler.profile():
+    g1_env.step(action)
+  assert tracing.counters()['contact_rows_kernel'] == (0.0, n + 1, n + 1)
